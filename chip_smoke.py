@@ -1,0 +1,528 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's main path once on one GPU and check it.
+
+    python3 chip_smoke.py            # from the root of a checkout, one GPU
+
+Phases (any failure exits non-zero before the result line):
+
+1. Set-up: print the card (``nvidia-smi`` name and power limit), turn TF32
+   off for float32 matmuls and convolutions, and build every kernel of
+   ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a (in parallel).
+2. Kernels against their plain PyTorch versions on the card, in float32
+   and bfloat16 at ``_tol`` (2e-5 / 5e-2): the CPU test sweep, the main
+   path's shapes (H=12, Hkv=2, D=128; prefill at B=8 and B=32 over the
+   math-prompt length, decode at B=8 and B=32 over the caches of the
+   32- and 128-token rollouts of phase 3) and one long shape each.
+   Times (CUDA events, median of 20 launches, L2 flushed before each) for
+   the kernel, its plain version and ``scaled_dot_product_attention`` as a
+   yardstick, beside the least time the card could take for the same
+   work, at the B=32 bfloat16 shapes and the long shapes.
+3. Full-width serve: ``repro_torch.launch.serve.run`` with the reference
+   launcher's own setup (qwen-distill-1.5b, float32, tokenizer vocab,
+   B=8, 32 new tokens, greedy), then a timed ``RolloutEngine.generate`` on
+   the published config (bfloat16, vocab 151936, B=32, 128 new tokens,
+   greedy).  Each kernel's launch counter is set to 0 just before each run
+   and must read exactly 28 per prefill and 28 per decode step after it.
+   A profiled ``generate`` then splits a decode step into device busy
+   time and idle share (torch.profiler trace).
+4. Card against CPU, teacher-forced: the full width cut to 4 layers in
+   float32, same params on both, 2 prompts, prefill + 8 decode steps fed
+   the CPU's greedy tokens; logits agree within 1e-3 of max |logit|.
+
+The line before the last is ``{"kernels": [...]}``; the last line is
+``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
+"""
+from __future__ import annotations
+
+import json
+import math
+import re
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12                 # H100 SXM data sheet
+PEAK_FLOPS = {"float32": 67e12,           # fp32 outside the tensor cores
+              "bfloat16": 989e12}         # dense bf16 tensor cores
+TOL = {"float32": dict(atol=2e-5, rtol=2e-5),
+       "bfloat16": dict(atol=5e-2, rtol=5e-2)}
+ARCH = "qwen-distill-1.5b"
+EMPTY = -(2 ** 30)
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def say(msg: str) -> None:
+    print(msg, flush=True)
+
+
+# ------------------------------------------------------------------ phase 1
+def setup():
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a GPU")
+    if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
+        fail(f"no src/repro_torch next to {Path(__file__).name}: run it from "
+             "the root of a checkout")
+    sys.path.insert(0, str(ROOT / "src"))
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    say(smi.stdout.strip().splitlines()[0])
+    say(f"torch {torch.__version__} cuda {torch.version.cuda} python "
+        f"{sys.version.split()[0]} device {torch.cuda.get_device_name(0)}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    say("TF32 off: torch.backends.cuda.matmul.allow_tf32 = False, "
+        "torch.backends.cudnn.allow_tf32 = False")
+
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    libs = _build.build_all()
+    say(f"built {sorted(libs)} with {' '.join(_build.FLAGS)} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for name in sorted(libs):
+        for line in _build.build_log(name).splitlines():
+            if ("ptxas info" in line and "Used" in line) or "spill" in line:
+                say(f"  {name}: {line.split('ptxas info    :')[-1].strip()}")
+
+
+# ------------------------------------------------------------------ phase 2
+def _max_err(got, want):
+    return float((got.float() - want.float()).abs().max())
+
+
+def _check(name, got, want, dtype, shape, stats):
+    import torch
+    torch.cuda.synchronize()
+    tol = TOL[dtype]
+    err = _max_err(got, want)
+    bound = tol["atol"] + tol["rtol"] * float(want.float().abs().max())
+    finite = bool(torch.isfinite(got.float()).all())
+    if got.shape != want.shape or got.dtype != want.dtype:
+        fail(f"{name} {shape} {dtype}: shape/dtype {tuple(got.shape)} "
+             f"{got.dtype} != {tuple(want.shape)} {want.dtype}")
+    close = torch.allclose(got.float(), want.float(), **tol)
+    stats["checks"] += 1
+    stats["max_abs_err"] = max(stats["max_abs_err"], err)
+    if not (close and finite):
+        fail(f"{name} {shape} {dtype}: max |kernel - plain| = {err:.3e} "
+             f"(allowed {bound:.3e}), finite={finite}")
+
+
+def _time_ms(fn, flush, reps=20):
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    events = []
+    for _ in range(reps):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+def _bound_ms(n_bytes, flops, dtype):
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _rand(shape, dtype, gen):
+    import torch
+    return torch.randn(shape, generator=gen, device="cuda").to(
+        getattr(torch, dtype))
+
+
+def flash_case(B, Sq, Sk, H, Hkv, D, dtype, gen):
+    q = _rand((B, Sq, H, D), dtype, gen)
+    k = _rand((B, Sk, Hkv, D), dtype, gen)
+    v = _rand((B, Sk, Hkv, D), dtype, gen)
+    return q, k, v
+
+
+def flash_work(B, Sq, Sk, H, Hkv, D, causal, window, itemsize):
+    """(bytes, FLOPs) this call needs: each input read and the output
+    written once; 4*D FLOPs per attended (query, key) pair."""
+    pairs = 0
+    for i in range(Sq):
+        hi = min(i + 1, Sk) if causal else Sk
+        lo = max(0, i - window + 1) if window is not None else 0
+        pairs += max(0, hi - lo)
+    n_bytes = itemsize * D * (2 * B * Sq * H + 2 * B * Sk * Hkv)
+    return n_bytes, 4.0 * D * H * B * pairs
+
+
+def decode_case(B, H, Hkv, D, C, valid, dtype, gen):
+    import torch
+    q = _rand((B, H, D), dtype, gen)
+    k = _rand((B, C, Hkv, D), dtype, gen)
+    v = _rand((B, C, Hkv, D), dtype, gen)
+    q_pos = torch.as_tensor(valid, dtype=torch.int32, device="cuda") - 1
+    slot = torch.arange(C, dtype=torch.int32, device="cuda")[None]
+    k_pos = torch.where(slot <= q_pos[:, None], slot,
+                        torch.full_like(slot, EMPTY)).contiguous()
+    return q, k, v, q_pos.contiguous(), k_pos
+
+
+def decode_work(B, H, Hkv, D, C, valid, itemsize):
+    n_bytes = itemsize * D * (2 * B * H + 2 * B * C * Hkv) + 4 * B * (1 + C)
+    return n_bytes, 4.0 * D * H * sum(valid)
+
+
+def kernels_phase(prompt_len, new_tokens):
+    """Hold both kernels to their plain versions; time the main-path and
+    long shapes.  Returns the per-kernel records of the result line."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention.ops import (
+        decode_attention, decode_attention_ref)
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_ref)
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    fstats = {"checks": 0, "max_abs_err": 0.0}
+    dstats = {"checks": 0, "max_abs_err": 0.0}
+    timings = {}
+
+    # -- flash attention (K1)
+    # serve.run (B=8, float32) and the timed generate (B=32, bfloat16)
+    serve_f = (8, prompt_len, prompt_len, 12, 2, 128)
+    main_f = (32, prompt_len, prompt_len, 12, 2, 128)
+    long_f = (4, 4096, 4096, 12, 2, 128)
+    shapes = [((2, 33, 65, 4, 4, 24), m) for m in
+              [(True, None), (True, 9), (False, None)]]
+    shapes += [((2, 40, 40, 4, 2, 16), (True, 9)),
+               ((1, 24, 24, 4, 1, 8), (True, None)),
+               ((1, 128, 128, 8, 2, 64), (True, 20)),
+               (serve_f, (True, None)), (main_f, (True, None)),
+               (long_f, (True, None))]
+    for shape, (causal, window) in shapes:
+        for dtype in ("float32", "bfloat16"):
+            q, k, v = flash_case(*shape, dtype, gen)
+            got = flash_attention(q, k, v, causal, window)
+            want = flash_attention_ref(q, k, v, causal, window)
+            _check("flash_attention_fwd", got, want, dtype, shape, fstats)
+            say(f"  flash_attention_fwd {shape} causal={causal} "
+                f"window={window} {dtype}: ok, max err "
+                f"{_max_err(got, want):.2e}")
+            del got, want
+            if shape in (main_f, long_f):
+                qt, kt, vt = (x.transpose(1, 2).contiguous()
+                              for x in (q, k, v))
+                n_bytes, flops = flash_work(*shape, causal, window,
+                                            q.element_size())
+                bound, by = _bound_ms(n_bytes, flops, dtype)
+                timings[("flash", shape, dtype)] = dict(
+                    ms=_time_ms(lambda: flash_attention(q, k, v, causal,
+                                                        window), flush),
+                    plain_ms=_time_ms(lambda: flash_attention_ref(
+                        q, k, v, causal, window), flush),
+                    library_ms=_time_ms(lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=True, enable_gqa=True), flush),
+                    bound_ms=bound, bound_by=by)
+                torch.cuda.synchronize()
+
+    # -- flash decode (K3)
+    serve_d = (8, 12, 2, 128, prompt_len + 32)
+    main_d = (32, 12, 2, 128, prompt_len + new_tokens)
+    long_d = (64, 12, 2, 128, 8192)
+    dshapes = [((2, 4, 2, 16, 24), w) for w in (None, 8)]
+    dshapes += [((2, 8, 1, 64, 40), 8), ((3, 6, 3, 20, 17), None),
+                ((4, 4, 2, 16, 40), 6), (serve_d, None), (main_d, None),
+                (long_d, None)]
+    for shape, window in dshapes:
+        B, H, Hkv, D, C = shape
+        valid = ([C] * B if shape in (serve_d, main_d, long_d)
+                 else [max(1, (C * (b + 1)) // (B + 1)) for b in range(B)])
+        for dtype in ("float32", "bfloat16"):
+            q, k, v, q_pos, k_pos = decode_case(*shape, valid, dtype, gen)
+            got = decode_attention(q, k, v, q_pos, k_pos, window=window)
+            want = decode_attention_ref(q, k, v, q_pos, k_pos, window=window)
+            _check("flash_decode", got, want, dtype, shape, dstats)
+            say(f"  flash_decode {shape} window={window} {dtype}: ok, max "
+                f"err {_max_err(got, want):.2e}")
+            if shape in (main_d, long_d):
+                qt = q[:, :, None]                       # [B, H, 1, D]
+                kt, vt = (x.transpose(1, 2).contiguous() for x in (k, v))
+                mask = ((k_pos >= 0) & (k_pos <= q_pos[:, None]))[:, None,
+                                                                  None]
+                n_bytes, flops = decode_work(*shape, valid, q.element_size())
+                bound, by = _bound_ms(n_bytes, flops, dtype)
+                timings[("decode", shape, dtype)] = dict(
+                    ms=_time_ms(lambda: decode_attention(
+                        q, k, v, q_pos, k_pos, window=window), flush),
+                    plain_ms=_time_ms(lambda: decode_attention_ref(
+                        q, k, v, q_pos, k_pos, window=window), flush),
+                    library_ms=_time_ms(lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, attn_mask=mask, enable_gqa=True), flush),
+                    bound_ms=bound, bound_by=by)
+                torch.cuda.synchronize()
+    # SWA ring layout: row 0's valid slots wrap around the ring of 16
+    ring_pos = [[20 - ((20 - s) % 16) for s in range(16)],
+                [s if s < 5 else EMPTY for s in range(16)]]
+    for dtype in ("float32", "bfloat16"):
+        q, k, v, _, _ = decode_case(2, 4, 2, 16, 16, [16, 16], dtype, gen)
+        q_pos = torch.tensor([20, 4], dtype=torch.int32, device="cuda")
+        k_pos = torch.tensor(ring_pos, dtype=torch.int32, device="cuda")
+        got = decode_attention(q, k, v, q_pos, k_pos, window=10)
+        want = decode_attention_ref(q, k, v, q_pos, k_pos, window=10)
+        _check("flash_decode", got, want, dtype, "ring", dstats)
+        say(f"  flash_decode ring C=16 window=10 {dtype}: ok, max err "
+            f"{_max_err(got, want):.2e}")
+
+    for (kind, shape, dtype), t in sorted(timings.items(), key=str):
+        say(f"  time {kind} {shape} {dtype}: kernel {t['ms']:.4f} ms, bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}), plain "
+            f"{t['plain_ms']:.4f} ms, sdpa {t['library_ms']:.4f} ms")
+    say("kernels: both hold to their plain versions at every shape "
+        f"({fstats['checks']} flash, {dstats['checks']} decode checks)")
+    records = {
+        "flash_attention_fwd": dict(
+            route="cuda",
+            source="src/repro_torch/kernels/csrc/flash_attention_fwd.cu",
+            replaces="src/repro/kernels/flash_attention/kernel.py:118",
+            max_abs_err=fstats["max_abs_err"], checks=fstats["checks"],
+            **timings[("flash", main_f, "bfloat16")],
+            long=dict(shape=long_f, **timings[("flash", long_f, "bfloat16")])),
+        "flash_decode": dict(
+            route="cuda",
+            source="src/repro_torch/kernels/csrc/flash_decode.cu",
+            replaces="src/repro/kernels/decode_attention/kernel.py:90",
+            max_abs_err=dstats["max_abs_err"], checks=dstats["checks"],
+            **timings[("decode", main_d, "bfloat16")],
+            long=dict(shape=long_d, **timings[("decode", long_d, "bfloat16")])),
+    }
+    return records
+
+
+# ------------------------------------------------------------------ phase 3
+def _reset_counts():
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    flash_attention.launches = 0
+    decode_attention.launches = 0
+
+
+def _read_counts():
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    return flash_attention.launches, decode_attention.launches
+
+
+def _expect_counts(what, n_layers, decode_steps, counts):
+    want = (n_layers, n_layers * decode_steps)
+    if counts != want or decode_steps < 1:
+        fail(f"{what}: kernel launches (flash, decode) = {counts}, expected "
+             f"{want} (one prefill, {decode_steps} decode steps)")
+    say(f"{what}: launches flash_attention_fwd={counts[0]} "
+        f"flash_decode={counts[1]} (= {n_layers} per prefill, {n_layers} per "
+        f"decode step x {decode_steps} steps)")
+
+
+def _check_rollouts(what, rollouts, vocab, max_new):
+    import numpy as np
+    for r in rollouts:
+        ids = np.asarray(r.completion_ids)
+        if not (1 <= len(ids) <= max_new) or ids.min() < 0 or ids.max() >= vocab:
+            fail(f"{what}: completion ids out of range: {r.completion_ids}")
+        lp = np.asarray(r.behavior_logp)
+        if lp.shape != ids.shape or not np.isfinite(lp).all() or lp.max() > 1e-6:
+            fail(f"{what}: behavior_logp not finite log-probs: {lp}")
+
+
+def serve_phase():
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.tasks import MathTaskGenerator
+    from repro_torch.launch.serve import run
+    from repro_torch.models import transformer
+    from repro_torch.rl.rollout import GenConfig, RolloutEngine
+    from repro_torch.rl.weight_sync import WeightStore
+
+    n_layers = get_config(ARCH).n_layers
+    # (a) the launcher, as a user calls it
+    _reset_counts()
+    out = run(["--arch", ARCH, "--batch", "8", "--max-new", "32", "--greedy"])
+    counts = _read_counts()
+    _expect_counts("serve.run", n_layers, out["decode_steps"], counts)
+    _check_rollouts("serve.run", out["rollouts"], 259, 32)
+    say(f"serve.run: {out['tokens']} tokens in {out['seconds']:.3f} s "
+        f"({out['tok_per_s']:.1f} tok/s, host clock, weight fetch included)")
+    serve_counts = counts
+
+    # (b) timed generate on the published config
+    cfg = get_config(ARCH)
+    store = WeightStore()
+    store.publish(transformer.init(0, cfg, "cuda"))
+    tasks = MathTaskGenerator(seed=0).batch(32)
+    engine = RolloutEngine(cfg, store, GenConfig(max_new_tokens=4,
+                                                 greedy=True), device="cuda")
+    engine.generate(tasks)                       # warm-up (shapes, cuBLAS)
+    engine.gen = GenConfig(max_new_tokens=128, greedy=True)
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    rollouts, m = engine.generate(tasks)
+    dt = time.perf_counter() - t0
+    counts = _read_counts()
+    _expect_counts("generate bf16 B=32", cfg.n_layers, m["decode_steps"],
+                   counts)
+    _check_rollouts("generate bf16 B=32", rollouts, cfg.vocab, 128)
+    n_tok = sum(len(r.completion_ids) for r in rollouts)
+    gen = dict(tokens=n_tok, seconds=dt, tok_per_s=n_tok / dt,
+               gen_tok_per_s=n_tok / (m["prefill_s"] + m["decode_s"]),
+               fetch_ms=m["fetch_s"] * 1e3, prefill_ms=m["prefill_s"] * 1e3,
+               decode_ms_per_step=m["decode_s"] * 1e3 / m["decode_steps"],
+               decode_steps=m["decode_steps"],
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    say(f"generate bf16 B=32 max_new=128: {n_tok} tokens in {dt:.3f} s = "
+        f"{gen['tok_per_s']:.1f} tok/s ({gen['gen_tok_per_s']:.1f} tok/s "
+        f"without the weight fetch); fetch {gen['fetch_ms']:.1f} ms, prefill "
+        f"{gen['prefill_ms']:.2f} ms, decode {gen['decode_ms_per_step']:.3f} "
+        f"ms/step over {m['decode_steps']} steps (host clock)")
+    engine.gen = GenConfig(max_new_tokens=9, greedy=True)
+    gen["profile"] = profile_decode(engine, tasks)
+    del engine, store
+    torch.cuda.empty_cache()
+    return serve_counts, gen
+
+
+def profile_decode(engine, tasks):
+    """Where a decode step's time goes, from a torch.profiler trace of one
+    ``generate`` call: over the decode window (first flash_decode kernel to
+    the last kernel), the union of kernel intervals is the device's busy
+    time and the rest its idle share.  The profiler adds host overhead, so
+    the idle share is an upper bound."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, m = engine.generate(tasks)
+        torch.cuda.synchronize()
+    path = ROOT / "build" / "trace_generate.json"
+    prof.export_chrome_trace(str(path))
+    kernels = sorted((e["ts"], e["ts"] + e["dur"], e["name"])
+                     for e in json.loads(path.read_text())["traceEvents"]
+                     if e.get("cat") == "kernel")
+    starts = [k[0] for k in kernels if "flash_decode_kernel" in k[2]]
+    if not starts:
+        say("profile: the trace holds no flash_decode kernel: device busy "
+            "share not measured")
+        return None
+    lo, hi = starts[0], max(k[1] for k in kernels)
+    busy, end, by_name = 0.0, lo, {}
+    for s, e, name in kernels:
+        if e <= lo:
+            continue
+        s = max(s, lo)
+        busy += max(0.0, e - max(s, end))
+        end = max(end, e)
+        short = name.replace("(anonymous namespace)::", "")
+        short = re.split(r"[<(]", short.replace("void ", "", 1))[0]
+        short = short.split("::")[-1][:48]
+        by_name[short] = by_name.get(short, 0.0) + (e - s)
+    window = hi - lo
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    out = dict(decode_steps=m["decode_steps"],
+               window_ms_per_step=window / 1e3 / m["decode_steps"],
+               busy_ms_per_step=busy / 1e3 / m["decode_steps"],
+               idle_share=1.0 - busy / window,
+               top_kernels_ms_per_step={k: v / 1e3 / m["decode_steps"]
+                                        for k, v in top})
+    say(f"profile (torch.profiler, {m['decode_steps']} decode steps): "
+        f"{out['window_ms_per_step']:.3f} ms/step, device busy "
+        f"{out['busy_ms_per_step']:.3f} ms/step, idle share "
+        f"{out['idle_share']:.3f}; top kernels ms/step "
+        + ", ".join(f"{k} {v:.3f}" for k, v in
+                    out["top_kernels_ms_per_step"].items()))
+    return out
+
+
+# ------------------------------------------------------------------ phase 4
+def teacher_forced_phase():
+    import numpy as np
+    import torch
+    from repro_torch.bridge import params_from_jax
+    from repro_torch.configs import get_config
+    from repro_torch.data.tasks import MathTaskGenerator, Tokenizer
+    from repro_torch.models import transformer
+
+    cfg = get_config(ARCH).replace(n_layers=4, dtype="float32")
+    on_card = transformer.init(1, cfg, "cuda")
+    on_cpu = params_from_jax(on_card.tree(), "cpu")
+    tasks = MathTaskGenerator(seed=2).batch(2)
+    plen = max(len(t.prompt_ids) for t in tasks)
+    toks = np.full((2, plen), Tokenizer.PAD, np.int64)
+    for i, t in enumerate(tasks):
+        toks[i, plen - len(t.prompt_ids):] = t.prompt_ids
+    steps, worst = 8, 0.0
+    with torch.inference_mode():
+        lg_gpu, c_gpu = transformer.prefill(
+            on_card, cfg, torch.from_numpy(toks).cuda(), max_len=plen + steps)
+        lg_cpu, c_cpu = transformer.prefill(
+            on_cpu, cfg, torch.from_numpy(toks), max_len=plen + steps)
+        for t in range(steps + 1):
+            a, b = lg_gpu.float().cpu(), lg_cpu.float()
+            rel = float((a - b).abs().max() / b.abs().max())
+            worst = max(worst, rel)
+            if not (torch.isfinite(a).all() and rel <= 1e-3):
+                fail(f"teacher-forced step {t}: max |card - cpu| / max |cpu| "
+                     f"= {rel:.3e} > 1e-3")
+            if t == steps:
+                break
+            tok = torch.argmax(b[:, :cfg.vocab], dim=-1).to(torch.int32)
+            pos = torch.full((2,), plen + t, dtype=torch.int32)
+            lg_gpu, c_gpu = transformer.decode_step(on_card, cfg, c_gpu,
+                                                    tok.cuda(), pos.cuda())
+            lg_cpu, c_cpu = transformer.decode_step(on_cpu, cfg, c_cpu, tok,
+                                                    pos)
+    say(f"teacher-forced card vs cpu (4 layers, float32, prefill + {steps} "
+        f"decode steps): worst max |card - cpu| / max |cpu| = {worst:.2e} "
+        "<= 1e-3")
+    return worst
+
+
+# ---------------------------------------------------------------------- main
+def main() -> None:
+    t_start = time.perf_counter()
+    setup()
+    import torch
+    from repro_torch.data.tasks import MathTaskGenerator
+
+    prompt_len = max(len(t.prompt_ids)
+                     for t in MathTaskGenerator(seed=0).batch(32))
+    records = kernels_phase(prompt_len, 128)
+    (n_flash, n_decode), gen = serve_phase()
+    records["flash_attention_fwd"]["launches"] = n_flash
+    records["flash_decode"]["launches"] = n_decode
+    say("serve summary " + json.dumps(gen))
+    teacher_forced_phase()
+    kernels = [dict(name=name, **rec) for name, rec in records.items()]
+    for k in kernels:
+        if not all(math.isfinite(k[key]) for key in
+                   ("ms", "plain_ms", "bound_ms", "library_ms")):
+            fail(f"kernel record {k['name']} has a non-finite time: {k}")
+    say(f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

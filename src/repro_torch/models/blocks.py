@@ -1,0 +1,227 @@
+"""Shared neural blocks: plain functions on tensors.
+
+The port of ``repro.models.blocks``: fp32 norms and softmax accumulators,
+half-split RoPE, the chunked online-softmax ``attention`` with the same
+``-1e30`` mask and ``-2^30`` empty-slot convention.  ``attention`` is the
+CPU oracle; on a CUDA tensor its multi-token branch runs the hand-written
+flash kernel instead (the device decides, not ``cfg.use_pallas``).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+Tensor = torch.Tensor
+
+
+# --------------------------------------------------------------------- init
+def _trunc_normal(shape, std: float, dtype, gen: torch.Generator) -> Tensor:
+    t = torch.empty(shape, dtype=torch.float32, device=gen.device)
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -3.0, 3.0, generator=gen)
+    return (t * std).to(dtype)
+
+
+def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype) -> Tensor:
+    """Truncated-normal fan-in init (LLM standard)."""
+    return _trunc_normal((d_in, d_out), 1.0 / math.sqrt(d_in), dtype, gen)
+
+
+def embed_init(gen: torch.Generator, vocab: int, d: int, dtype) -> Tensor:
+    return _trunc_normal((vocab, d), 0.02, dtype, gen)
+
+
+# --------------------------------------------------------------------- norms
+def rms_norm(x: Tensor, scale: Tensor, eps: float = 1e-5) -> Tensor:
+    dt = x.dtype
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * scale.float()).to(dt)
+
+
+# ---------------------------------------------------------------------- RoPE
+def rope_freqs(head_dim: int, theta: float, device=None) -> Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: Tensor, positions: Tensor, theta: float) -> Tensor:
+    """x: [..., S, H, D]; positions: broadcastable to [..., S].  Half-split
+    rotation: the first D/2 lanes pair with the last D/2."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)                        # [D/2]
+    angles = positions[..., None].float() * freqs                 # [..., S, D/2]
+    cos = torch.cos(angles)[..., None, :]                         # [..., S, 1, D/2]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ------------------------------------------------------------- attention core
+NEG_INF = -1e30
+
+
+def _mask_value(q_pos: Tensor, k_pos: Tensor, causal: bool,
+                window: Optional[int], kv_len: Optional[Tensor]) -> Tensor:
+    """Additive mask [..., Sq, Sk] from absolute positions."""
+    qp = q_pos[..., :, None]
+    kp = k_pos[..., None, :]
+    # Empty cache slots carry position -2^30 and must never be attended;
+    # every real position is >= 0.
+    ok = kp >= 0
+    if causal:
+        ok = ok & (kp <= qp)
+    if window is not None:
+        ok = ok & (kp > qp - window)
+    if kv_len is not None:
+        ok = ok & (kp < kv_len[..., None, None])
+    zero = torch.zeros((), dtype=torch.float32, device=ok.device)
+    return torch.where(ok, zero, torch.full_like(zero, NEG_INF))
+
+
+def attention(
+    q: Tensor,                # [B, Sq, H, D]
+    k: Tensor,                # [B, Sk, Hkv, D]
+    v: Tensor,                # [B, Sk, Hkv, D]
+    *,
+    q_positions: Tensor,      # [B, Sq] absolute positions
+    k_positions: Tensor,      # [B, Sk]
+    causal: bool = True,
+    window: Optional[int] = None,
+    kv_len: Optional[Tensor] = None,
+    q_chunk: int = 512,
+    kv_chunk: int = 1024,
+    scale: Optional[float] = None,
+) -> Tensor:
+    """Chunked online-softmax attention (GQA aware), fp32 accumulators.
+
+    On a CUDA tensor with Sq > 1 and no ``kv_len`` this is the contiguous
+    prefill/training case (positions 0..Sq-1 and 0..Sk-1, as the reference
+    assumes under ``use_pallas``): it runs the flash kernel.
+    """
+    B, Sq, H, D = q.shape
+    _, Sk, Hkv, _ = k.shape
+    assert H % Hkv == 0, (H, Hkv)
+    G = H // Hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+
+    if q.is_cuda and kv_len is None and Sq > 1:
+        from repro_torch.kernels.flash_attention.ops import flash_attention
+        return flash_attention(q, k, v, causal, window, scale)
+
+    if Sq == 1:
+        # single-token decode: full scores are only [B, H, Sk]
+        qf = q.float().reshape(B, Hkv, G, D)
+        s = torch.einsum("bhgd,bkhd->bhgk", qf, k.float()) * scale
+        msk = _mask_value(q_positions, k_positions, causal, window, kv_len)
+        s = s + msk[:, None, None, 0, :]
+        m = torch.amax(s, dim=-1, keepdim=True)
+        p = torch.exp(s - m)
+        l = torch.sum(p, dim=-1, keepdim=True)
+        o = torch.einsum("bhgk,bkhd->bhgd", p, v.float())
+        o = o / torch.clamp(l, min=1e-30)
+        return o.reshape(B, 1, H, D).to(q.dtype)
+
+    q_chunk = min(q_chunk, Sq)
+    kv_chunk = min(kv_chunk, Sk)
+    pq = (-Sq) % q_chunk
+    pk = (-Sk) % kv_chunk
+    if pq:
+        q = F.pad(q, (0, 0, 0, 0, 0, pq))
+        q_positions = F.pad(q_positions, (0, pq), value=-1)
+    if pk:
+        k = F.pad(k, (0, 0, 0, 0, 0, pk))
+        v = F.pad(v, (0, 0, 0, 0, 0, pk))
+        # padded kv positions = huge -> masked out by causal/window/kv_len
+        k_positions = F.pad(k_positions, (0, pk), value=2 ** 30)
+    Sqp, Skp = Sq + pq, Sk + pk
+    nq, nk = Sqp // q_chunk, Skp // kv_chunk
+
+    qg = q.reshape(B, nq, q_chunk, Hkv, G, D).float()
+    qpos = q_positions.reshape(B, nq, q_chunk)
+    kg = k.reshape(B, nk, kv_chunk, Hkv, D).float()
+    vg = v.reshape(B, nk, kv_chunk, Hkv, D).float()
+    kpos = k_positions.reshape(B, nk, kv_chunk)
+
+    outs = []
+    for iq in range(nq):
+        qb, qpb = qg[:, iq], qpos[:, iq]
+        acc = torch.zeros((B, q_chunk, Hkv, G, D), dtype=torch.float32,
+                          device=q.device)
+        m = torch.full((B, q_chunk, Hkv, G), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((B, q_chunk, Hkv, G), dtype=torch.float32,
+                        device=q.device)
+        for ik in range(nk):
+            s = torch.einsum("bqhgd,bkhd->bqhgk", qb, kg[:, ik]) * scale
+            msk = _mask_value(qpb, kpos[:, ik], causal, window, kv_len)
+            s = s + msk[:, :, None, None, :]
+            m_new = torch.maximum(m, torch.amax(s, dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + torch.sum(p, dim=-1)
+            pv = torch.einsum("bqhgk,bkhd->bqhgd", p, vg[:, ik])
+            acc = acc * corr[..., None] + pv
+            m = m_new
+        outs.append(acc / torch.clamp(l[..., None], min=1e-30))
+    out = torch.stack(outs, dim=1).reshape(B, Sqp, H, D)[:, :Sq]
+    return out.to(q.dtype)
+
+
+# --------------------------------------------------------------- projections
+def qkv_project(x: Tensor, p, n_heads: int, n_kv_heads: int,
+                head_dim: int) -> Tuple[Tensor, Tensor, Tensor]:
+    """x: [B,S,Dm] -> q [B,S,H,D], k/v [B,S,Hkv,D].  Optional biases."""
+    B, S, _ = x.shape
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if "bq" in p:
+        q = q + p["bq"].to(q.dtype)
+        k = k + p["bk"].to(k.dtype)
+        v = v + p["bv"].to(v.dtype)
+    q = q.reshape(B, S, n_heads, head_dim)
+    k = k.reshape(B, S, n_kv_heads, head_dim)
+    v = v.reshape(B, S, n_kv_heads, head_dim)
+    return q, k, v
+
+
+def out_project(o: Tensor, p) -> Tensor:
+    B, S, H, D = o.shape
+    return o.reshape(B, S, H * D) @ p["wo"]
+
+
+def swiglu(x: Tensor, p) -> Tensor:
+    """SwiGLU FFN: (silu(x W_gate) * x W_up) W_down, SiLU in fp32."""
+    g = x @ p["w_gate"]
+    u = x @ p["w_up"]
+    h = F.silu(g.float()).to(x.dtype) * u
+    return h @ p["w_down"]
+
+
+def init_attn_params(gen, d_model, n_heads, n_kv_heads, head_dim, dtype,
+                     bias=False):
+    p = {
+        "wq": dense_init(gen, d_model, n_heads * head_dim, dtype),
+        "wk": dense_init(gen, d_model, n_kv_heads * head_dim, dtype),
+        "wv": dense_init(gen, d_model, n_kv_heads * head_dim, dtype),
+        "wo": dense_init(gen, n_heads * head_dim, d_model, dtype),
+    }
+    if bias:
+        dev = gen.device
+        p["bq"] = torch.zeros((n_heads * head_dim,), dtype=dtype, device=dev)
+        p["bk"] = torch.zeros((n_kv_heads * head_dim,), dtype=dtype, device=dev)
+        p["bv"] = torch.zeros((n_kv_heads * head_dim,), dtype=dtype, device=dev)
+    return p
+
+
+def init_swiglu_params(gen, d_model, d_ff, dtype):
+    return {
+        "w_gate": dense_init(gen, d_model, d_ff, dtype),
+        "w_up": dense_init(gen, d_model, d_ff, dtype),
+        "w_down": dense_init(gen, d_ff, d_model, dtype),
+    }
