@@ -12,22 +12,36 @@ Phases (any failure exits non-zero before the result line):
    and bfloat16 at ``_tol`` (2e-5 / 5e-2): the CPU test sweep, the main
    path's shapes (H=12, Hkv=2, D=128; prefill at B=8 and B=32 over the
    math-prompt length, decode at B=8 and B=32 over the caches of the
-   32- and 128-token rollouts of phase 3) and one long shape each.
-   Times (CUDA events, median of 20 launches, L2 flushed before each) for
-   the kernel, its plain version and ``scaled_dot_product_attention`` as a
-   yardstick, beside the least time the card could take for the same
-   work, at the B=32 bfloat16 shapes and the long shapes.
-3. Full-width serve: ``repro_torch.launch.serve.run`` with the reference
-   launcher's own setup (qwen-distill-1.5b, float32, tokenizer vocab,
-   B=8, 32 new tokens, greedy), then a timed ``RolloutEngine.generate`` on
-   the published config (bfloat16, vocab 151936, B=32, 128 new tokens,
-   greedy).  Each kernel's launch counter is set to 0 just before each run
-   and must read exactly 28 per prefill and 28 per decode step after it.
-   A profiled ``generate`` then splits a decode step into device busy
+   32- and 128-token rollouts of phase 3; paged decode at 32 slots over
+   pages of 128 with mixed lengths up to prompt + 128 and shuffled
+   tables, plus the permuted, poisoned, absurd-id and empty-row cases)
+   and one long shape each.  Times (CUDA events, median of 20 launches,
+   L2 flushed before each) for the kernel, its plain version and
+   ``scaled_dot_product_attention`` as a yardstick (for the paged kernel
+   over the pre-gathered dense cache: the gather is not timed), beside the
+   least time the card could take for the same work, at the B=32 bfloat16
+   shapes and the long shapes.
+3. Full-width serve.  Static engine: ``repro_torch.launch.serve.run`` with
+   the reference launcher's own setup (qwen-distill-1.5b, float32,
+   tokenizer vocab, B=8, 32 new tokens, greedy), then a timed
+   ``RolloutEngine.generate`` on the published config (bfloat16, vocab
+   151936, B=32, 128 new tokens, greedy).  Paged engine: ``run`` with
+   ``--engine paged`` (8 requests through 4 slots, 32 new tokens), the
+   same as 2-turn radix episodes over pages of 16 (the radix cache must
+   hit), and a timed ``PagedEngine.generate_groups`` on the published
+   config (8 tasks x group 8 through 32 slots, 128 new tokens, greedy).
+   Each kernel's launch counter is set to 0 just before each run; after
+   it the static runs must read exactly 28 flash launches per prefill, 28
+   flash-decode launches per decode step and no paged launch, and the
+   paged runs exactly 28 paged launches per decode step and no other (the
+   paged prefill takes the masked path).  Profiled ``generate`` and
+   ``generate_groups`` calls then split a decode step into device busy
    time and idle share (torch.profiler trace).
 4. Card against CPU, teacher-forced: the full width cut to 4 layers in
-   float32, same params on both, 2 prompts, prefill + 8 decode steps fed
-   the CPU's greedy tokens; logits agree within 1e-3 of max |logit|.
+   float32, same params on both, 2 prompts.  Static: prefill + 8 decode
+   steps fed the CPU's greedy tokens.  Paged: prefill in chunks of 16 over
+   pages of 16 (so chunks with p0 > 0 run) + 8 paged decode steps with an
+   inactive third slot.  Logits agree within 1e-3 of max |logit|.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -182,6 +196,154 @@ def decode_work(B, H, Hkv, D, C, valid, itemsize):
     return n_bytes, 4.0 * D * H * sum(valid)
 
 
+def paged_case(B, H, Hkv, D, page, maxp, lens, dtype, gen):
+    """Random pool of B * maxp + 1 pages, shuffled block tables, given
+    lengths."""
+    import torch
+    P = B * maxp + 1
+    q = _rand((B, H, D), dtype, gen)
+    kp = _rand((P, page, Hkv, D), dtype, gen)
+    vp = _rand((P, page, Hkv, D), dtype, gen)
+    ids = torch.randperm(P - 1, generator=gen, device="cuda") + 1
+    bt = ids[:B * maxp].reshape(B, maxp).to(torch.int32).contiguous()
+    lengths = torch.as_tensor(lens, dtype=torch.int32, device="cuda")
+    return q, kp, vp, bt, lengths
+
+
+def paged_work(B, H, Hkv, D, page, maxp, lens, itemsize):
+    """(bytes, FLOPs) of one paged decode call without a window: q read
+    and o written once, the K/V rows of the attended slots read once,
+    tables and lengths."""
+    attended = sum(min(n, maxp * page) for n in lens)
+    n_bytes = (itemsize * D * (2 * B * H + 2 * Hkv * attended)
+               + 4 * B * (maxp + 1))
+    return n_bytes, 4.0 * D * H * attended
+
+
+def paged_kernel_phase(prompt_len, new_tokens):
+    """Hold the paged flash-decode kernel to its plain version; time the
+    main-path and long shapes.  Returns its record of the result line."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.paged_attention.ops import (
+        paged_decode_attention, paged_decode_attention_ref)
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    stats = {"checks": 0, "max_abs_err": 0.0}
+    timings = {}
+
+    def check(what, got, want, dtype, shape):
+        _check("paged_flash_decode", got, want, dtype, shape, stats)
+        say(f"  paged_flash_decode {shape} {what} {dtype}: ok, max err "
+            f"{_max_err(got, want):.2e}")
+
+    # the CPU test sweep, with and without a window
+    for shape in [(1, 2, 2, 8, 4, 2), (2, 4, 2, 16, 8, 4),
+                  (2, 8, 1, 64, 16, 3), (3, 6, 3, 20, 8, 5)]:
+        B, H, Hkv, D, page, maxp = shape
+        for window in (None, 7):
+            for dtype in ("float32", "bfloat16"):
+                lens = torch.randint(1, page * maxp + 1, (B,), generator=gen,
+                                     device="cuda").tolist()
+                args = paged_case(*shape, lens, dtype, gen)
+                check(f"window={window}",
+                      paged_decode_attention(*args, window=window),
+                      paged_decode_attention_ref(*args, window=window),
+                      dtype, shape)
+    shape = (2, 4, 2, 16, 8, 3)
+    B, H, Hkv, D, page, maxp = shape
+    for dtype in ("float32", "bfloat16"):
+        q, kp, vp, bt, lens = paged_case(*shape, [11, 24], dtype, gen)
+        base = paged_decode_attention(q, kp, vp, bt, lens)
+        # the pool permuted and the tables following it: the same output
+        P = kp.shape[0]
+        perm = torch.cat([torch.zeros(1, dtype=torch.long, device="cuda"),
+                          torch.randperm(P - 1, generator=gen,
+                                         device="cuda") + 1])
+        inv = torch.argsort(perm)
+        check("permuted", paged_decode_attention(
+            q, kp[inv].contiguous(), vp[inv].contiguous(),
+            perm[bt.long()].to(torch.int32).contiguous(), lens), base,
+            dtype, shape)
+        # huge garbage in the null page and the dead slots: the clean
+        # pool's answer
+        want = paged_decode_attention_ref(q, kp, vp, bt, lens)
+        kq, vq = kp.clone(), vp.clone()
+        kq[0], vq[0] = 1e6, -1e6
+        for b in range(B):
+            for slot in range(int(lens[b]), maxp * page):
+                pid = int(bt[b, slot // page])
+                kq[pid, slot % page], vq[pid, slot % page] = 1e6, -1e6
+        check("poisoned", paged_decode_attention(q, kq, vq, bt, lens),
+              want, dtype, shape)
+        # absurd ids past the page a row needs: clamped and masked
+        absurd = bt.clone()
+        absurd[:, 1:] = 10 ** 6
+        short = torch.tensor([1, 5], dtype=torch.int32, device="cuda")
+        check("absurd ids", paged_decode_attention(q, kp, vp, absurd, short),
+              paged_decode_attention_ref(q, kp, vp, absurd.clamp(0, P - 1),
+                                         short), dtype, shape)
+        # a row with nothing to attend to gives 0
+        empty = torch.tensor([0, 7], dtype=torch.int32, device="cuda")
+        got = paged_decode_attention(q, kp, vp, bt, empty)
+        check("empty row", got,
+              paged_decode_attention_ref(q, kp, vp, bt, empty), dtype, shape)
+        if bool(got[0].any()):
+            fail("paged_flash_decode: a row of length 0 is not 0")
+
+    # the main path (32 slots, pages of 128, lengths up to prompt + 128)
+    # and the long shape
+    cap = prompt_len + new_tokens
+    main = (32, 12, 2, 128, 128, -(-cap // 128))
+    long = (64, 12, 2, 128, 128, 64)
+    for shape in (main, long):
+        B, H, Hkv, D, page, maxp = shape
+        lens = (torch.randint(prompt_len, cap + 1, (B,), generator=gen,
+                              device="cuda").tolist() if shape == main
+                else [8192] * B)
+        for dtype in ("float32", "bfloat16"):
+            args = paged_case(*shape, lens, dtype, gen)
+            check("lengths " + ("mixed" if shape == main else "8192"),
+                  paged_decode_attention(*args),
+                  paged_decode_attention_ref(*args), dtype, shape)
+            if dtype != "bfloat16":
+                continue
+            q, kp, vp, bt, lengths = args
+            C = maxp * page
+            kd, vd = (x[bt.long()].reshape(B, C, Hkv, D).transpose(1, 2)
+                      .contiguous() for x in (kp, vp))
+            mask = (torch.arange(C, device="cuda")[None]
+                    < lengths[:, None])[:, None, None]
+            qt = q[:, :, None]
+            n_bytes, flops = paged_work(*shape, lens, q.element_size())
+            bound, by = _bound_ms(n_bytes, flops, dtype)
+            timings[shape] = dict(
+                ms=_time_ms(lambda: paged_decode_attention(*args), flush),
+                plain_ms=_time_ms(lambda: paged_decode_attention_ref(*args),
+                                  flush),
+                library_ms=_time_ms(lambda: F.scaled_dot_product_attention(
+                    qt, kd, vd, attn_mask=mask, enable_gqa=True), flush),
+                bound_ms=bound, bound_by=by)
+            del kd, vd
+            torch.cuda.synchronize()
+    for shape, t in timings.items():
+        say(f"  time paged {shape} bfloat16: kernel {t['ms']:.4f} ms, bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}), plain "
+            f"{t['plain_ms']:.4f} ms, sdpa over the pre-gathered cache "
+            f"(gather not timed) {t['library_ms']:.4f} ms")
+    say(f"kernels: paged_flash_decode holds to its plain version at every "
+        f"shape ({stats['checks']} checks)")
+    return dict(
+        route="cuda",
+        source="src/repro_torch/kernels/csrc/paged_flash_decode.cu",
+        replaces="src/repro/kernels/paged_attention/kernel.py:116",
+        max_abs_err=stats["max_abs_err"], checks=stats["checks"],
+        library="scaled_dot_product_attention over the pre-gathered dense "
+                "cache (gather not timed)",
+        **timings[main], long=dict(shape=long, **timings[long]))
+
+
 def kernels_phase(prompt_len, new_tokens):
     """Hold both kernels to their plain versions; time the main-path and
     long shapes.  Returns the per-kernel records of the result line."""
@@ -310,27 +472,50 @@ def kernels_phase(prompt_len, new_tokens):
 
 
 # ------------------------------------------------------------------ phase 3
-def _reset_counts():
+def _wrappers():
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.flash_attention.ops import flash_attention
-    flash_attention.launches = 0
-    decode_attention.launches = 0
+    from repro_torch.kernels.paged_attention.ops import paged_decode_attention
+    return {"flash_attention_fwd": flash_attention,
+            "flash_decode": decode_attention,
+            "paged_flash_decode": paged_decode_attention}
+
+
+def _reset_counts():
+    for fn in _wrappers().values():
+        fn.launches = 0
 
 
 def _read_counts():
-    from repro_torch.kernels.decode_attention.ops import decode_attention
-    from repro_torch.kernels.flash_attention.ops import flash_attention
-    return flash_attention.launches, decode_attention.launches
+    return {name: fn.launches for name, fn in _wrappers().items()}
 
 
 def _expect_counts(what, n_layers, decode_steps, counts):
-    want = (n_layers, n_layers * decode_steps)
+    """The static path: one flash launch per layer for its prefill, one
+    flash-decode launch per layer per decode step, no paged launch."""
+    want = {"flash_attention_fwd": n_layers,
+            "flash_decode": n_layers * decode_steps, "paged_flash_decode": 0}
     if counts != want or decode_steps < 1:
-        fail(f"{what}: kernel launches (flash, decode) = {counts}, expected "
-             f"{want} (one prefill, {decode_steps} decode steps)")
-    say(f"{what}: launches flash_attention_fwd={counts[0]} "
-        f"flash_decode={counts[1]} (= {n_layers} per prefill, {n_layers} per "
-        f"decode step x {decode_steps} steps)")
+        fail(f"{what}: kernel launches {counts}, expected {want} (one "
+             f"prefill, {decode_steps} decode steps)")
+    say(f"{what}: launches flash_attention_fwd="
+        f"{counts['flash_attention_fwd']} flash_decode="
+        f"{counts['flash_decode']} paged_flash_decode=0 (= {n_layers} per "
+        f"prefill, {n_layers} per decode step x {decode_steps} steps)")
+
+
+def _expect_paged_counts(what, n_layers, decode_steps, counts):
+    """The paged path: one paged launch per layer per decode step and no
+    other (its chunked prefill takes the masked path, not the flash
+    kernel)."""
+    want = {"flash_attention_fwd": 0, "flash_decode": 0,
+            "paged_flash_decode": n_layers * decode_steps}
+    if counts != want or decode_steps < 1:
+        fail(f"{what}: kernel launches {counts}, expected {want} "
+             f"({decode_steps} decode steps)")
+    say(f"{what}: launches paged_flash_decode="
+        f"{counts['paged_flash_decode']} (= {n_layers} per decode step x "
+        f"{decode_steps} steps), flash_attention_fwd=0, flash_decode=0")
 
 
 def _check_rollouts(what, rollouts, vocab, max_new):
@@ -395,44 +580,224 @@ def serve_phase():
         f"{gen['prefill_ms']:.2f} ms, decode {gen['decode_ms_per_step']:.3f} "
         f"ms/step over {m['decode_steps']} steps (host clock)")
     engine.gen = GenConfig(max_new_tokens=9, greedy=True)
-    gen["profile"] = profile_decode(engine, tasks)
+    gen["profile"] = profile_decode(lambda: engine.generate(tasks),
+                                    "flash_decode_kernel", "generate")
     del engine, store
     torch.cuda.empty_cache()
     return serve_counts, gen
 
 
-def profile_decode(engine, tasks):
+class SpanClock:
+    """A duck-typed tracer for ``PagedEngine``: host-clock spans summed by
+    name.  ``decode_step`` ends after the sampled tokens reach the host, so
+    it holds the step's device time; a prefill chunk that does not finish
+    its prompt ends unsynchronised."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self.total, self.count = {}, {}
+
+    def now(self):
+        return time.perf_counter()
+
+    def span(self, group, track, name, t0, dur, **kw):
+        self.total[name] = self.total.get(name, 0.0) + dur
+        self.count[name] = self.count.get(name, 0) + 1
+
+    def begin(self, *a, **kw):
+        pass
+
+    end = instant = counter = begin
+
+
+def paged_serve_phase():
+    """The paged engine at full width: the launcher (single- and
+    multi-turn), then a timed GRPO ``generate_groups`` on the published
+    config and a profiled one.  Returns (paged launches of the launcher's
+    run, summary)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.tasks import MathTaskGenerator
+    from repro_torch.launch.serve import run
+    from repro_torch.models import transformer
+    from repro_torch.rl.rollout import GenConfig
+    from repro_torch.rl.weight_sync import WeightStore
+    from repro_torch.serve import PagedEngine, ServeConfig
+
+    n_layers = get_config(ARCH).n_layers
+    # (a) the launcher: 8 requests through 4 slots (queueing, eviction)
+    argv = ["--arch", ARCH, "--engine", "paged", "--batch", "8", "--slots",
+            "4", "--max-new", "32", "--greedy", "--quiet"]
+    _reset_counts()
+    out = run(argv)
+    counts = _read_counts()
+    _expect_paged_counts("serve.run --engine paged", n_layers,
+                         out["decode_steps"], counts)
+    _check_rollouts("serve.run --engine paged", out["rollouts"], 259, 32)
+    say(f"serve.run --engine paged: {out['tokens']} tokens in "
+        f"{out['seconds']:.3f} s ({out['tok_per_s']:.1f} tok/s, host clock, "
+        f"weight fetch included), {out['decode_steps']} decode steps, slot "
+        f"occupancy {out['slot_occupancy']:.3f}, page occupancy "
+        f"{out['page_occupancy']:.3f}, preemptions {out['preemptions']}")
+    launches = counts["paged_flash_decode"]
+
+    # (b) two-turn episodes through the radix cache, over pages of 16 so
+    # that a turn's history fills whole pages the next turn can adopt
+    _reset_counts()
+    out = run(argv + ["--radix", "--turns", "2", "--page-size", "16"])
+    counts = _read_counts()
+    _expect_paged_counts("serve.run --engine paged --turns 2", n_layers,
+                         out["decode_steps"], counts)
+    _check_rollouts("serve.run --turns 2", out["rollouts"], 259, 32)
+    if out["radix_hit_tokens"] <= 0:
+        fail(f"serve.run --turns 2: radix_hit_tokens = "
+             f"{out['radix_hit_tokens']}, expected > 0")
+    say(f"serve.run --engine paged --radix --turns 2 --page-size 16: "
+        f"radix_hit_tokens {out['radix_hit_tokens']}, radix hit rate "
+        f"{out['radix_hit_rate']:.3f}, prefill tokens {out['prefill_tokens']}")
+
+    # (c) timed GRPO groups on the published config
+    cfg = get_config(ARCH)
+    store = WeightStore()
+    store.publish(transformer.init(0, cfg, "cuda"))
+    tasks = MathTaskGenerator(seed=0).batch(8)
+    plen = max(len(t.prompt_ids) for t in tasks)
+    clock = SpanClock()
+    engine = PagedEngine(cfg, store, GenConfig(max_new_tokens=4, greedy=True),
+                         ServeConfig(max_slots=32, max_len=plen + 128),
+                         tracer=clock, device="cuda")
+    engine.generate_groups(tasks[:2], 8)         # warm-up (shapes, cuBLAS)
+    engine.gen = GenConfig(max_new_tokens=128, greedy=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    clock.reset()
+    _reset_counts()
+    t0 = time.perf_counter()
+    rollouts, m = engine.generate_groups(tasks, 8)
+    dt = time.perf_counter() - t0
+    counts = _read_counts()
+    what = "generate_groups bf16 8 tasks x 8 slots=32"
+    _expect_paged_counts(what, cfg.n_layers, m["decode_steps"], counts)
+    _check_rollouts(what, rollouts, cfg.vocab, 128)
+    if len(rollouts) != 64 or m["forks"] < 1 or m["cow_copies"] < 1:
+        fail(f"{what}: {len(rollouts)} rollouts, forks {m['forks']}, "
+             f"cow_copies {m['cow_copies']}: expected 64, >= 1, >= 1")
+    n_tok = sum(len(r.completion_ids) for r in rollouts)
+    steps = clock.count["decode_step"]
+    summary = dict(
+        tokens=n_tok, seconds=dt, tok_per_s=n_tok / dt,
+        decode_steps=m["decode_steps"],
+        decode_ms_per_step=clock.total["decode_step"] * 1e3 / steps,
+        prefill_ms=clock.total.get("prefill_chunk", 0.0) * 1e3,
+        prefill_chunks=clock.count.get("prefill_chunk", 0),
+        prefill_tokens=m["prefill_tokens"],
+        prefill_tokens_shared=m["prefill_tokens_shared"],
+        forks=m["forks"], cow_copies=m["cow_copies"],
+        bt_uploads=m["bt_uploads"], preemptions=m["preemptions"],
+        slot_occupancy=m["slot_occupancy"],
+        page_occupancy=m["page_occupancy"],
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    say(f"{what} max_new=128: {n_tok} tokens in {dt:.3f} s = "
+        f"{summary['tok_per_s']:.1f} tok/s; decode "
+        f"{summary['decode_ms_per_step']:.3f} ms/step over {steps} steps, "
+        f"prefill {summary['prefill_ms']:.2f} ms in "
+        f"{summary['prefill_chunks']} chunks (host clock); forks "
+        f"{m['forks']}, cow_copies {m['cow_copies']}, bt_uploads "
+        f"{m['bt_uploads']}, slot occupancy {m['slot_occupancy']:.3f}, page "
+        f"occupancy {m['page_occupancy']:.3f}, peak memory "
+        f"{summary['peak_mem_gib']:.2f} GiB")
+    summary["model_step_ms"] = model_step_ms(engine._params, cfg,
+                                             plen + 128)
+    say("decode step without the engine (host clock, synchronised, median "
+        "of 10, B=32, context " + str(plen + 128) + "): " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in summary["model_step_ms"].items()))
+    engine.gen = GenConfig(max_new_tokens=9, greedy=True)
+    summary["profile"] = profile_decode(
+        lambda: engine.generate_groups(tasks[:4], 8),
+        "paged_flash_decode_kernel", "generate_groups")
+    del engine, store
+    torch.cuda.empty_cache()
+    return launches, summary
+
+
+def model_step_ms(params, cfg, context):
+    """Host-clock time of one decode step of the model alone (no engine,
+    no sampling), synchronised, median of 10: the paged step over 32
+    active slots with pages of 128, and the static step over a dense
+    B=32 cache, both at ``context`` positions and with the same params.
+    What the engine's decode step takes beyond the paged one is the
+    engine's own host work."""
+    import torch
+    from repro_torch.models import transformer
+    from repro_torch.serve.model import paged_decode_step
+
+    B, page = 32, 128
+    maxp = -(-context // page)
+    shape = (cfg.n_layers, 1 + B * maxp, page, cfg.n_kv_heads, cfg.hd)
+    kp = torch.zeros(shape, dtype=cfg.tdtype, device="cuda")
+    vp = torch.zeros_like(kp)
+    tables = torch.arange(1, 1 + B * maxp, dtype=torch.int32,
+                          device="cuda").reshape(B, maxp)
+    token = torch.arange(B, dtype=torch.int32, device="cuda") + 3
+    pos = torch.full((B,), context - 1, dtype=torch.int32, device="cuda")
+    active = torch.ones(B, dtype=torch.int32, device="cuda")
+    cache = transformer.init_cache(cfg, batch=B, max_len=context,
+                                   device="cuda")
+    steps = {
+        "paged_decode_step": lambda: paged_decode_step(
+            params, cfg, kp, vp, tables, token, pos, active),
+        "transformer.decode_step": lambda: transformer.decode_step(
+            params, cfg, cache, token, pos)}
+    out = {}
+    with torch.no_grad():
+        for name, fn in steps.items():
+            times = []
+            for i in range(13):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                if i >= 3:
+                    times.append((time.perf_counter() - t0) * 1e3)
+            out[name] = statistics.median(times)
+    return out
+
+
+def profile_decode(call, kernel, name):
     """Where a decode step's time goes, from a torch.profiler trace of one
-    ``generate`` call: over the decode window (first flash_decode kernel to
-    the last kernel), the union of kernel intervals is the device's busy
-    time and the rest its idle share.  The profiler adds host overhead, so
-    the idle share is an upper bound."""
+    ``call`` (which returns rollouts and metrics): over the decode window
+    (the first ``kernel`` to the last kernel), the union of kernel
+    intervals is the device's busy time and the rest its idle share.  The
+    profiler adds host overhead, so the idle share is an upper bound."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, m = engine.generate(tasks)
+        _, m = call()
         torch.cuda.synchronize()
-    path = ROOT / "build" / "trace_generate.json"
+    path = ROOT / "build" / f"trace_{name}.json"
     prof.export_chrome_trace(str(path))
     kernels = sorted((e["ts"], e["ts"] + e["dur"], e["name"])
                      for e in json.loads(path.read_text())["traceEvents"]
                      if e.get("cat") == "kernel")
-    starts = [k[0] for k in kernels if "flash_decode_kernel" in k[2]]
+    # "flash_decode_kernel" is also a substring of the paged kernel's name
+    starts = [k[0] for k in kernels if re.search(rf"\b{kernel}", k[2])]
     if not starts:
-        say("profile: the trace holds no flash_decode kernel: device busy "
+        say(f"profile {name}: the trace holds no {kernel}: device busy "
             "share not measured")
         return None
     lo, hi = starts[0], max(k[1] for k in kernels)
     busy, end, by_name = 0.0, lo, {}
-    for s, e, name in kernels:
+    for s, e, kname in kernels:
         if e <= lo:
             continue
         s = max(s, lo)
         busy += max(0.0, e - max(s, end))
         end = max(end, e)
-        short = name.replace("(anonymous namespace)::", "")
+        short = kname.replace("(anonymous namespace)::", "")
         short = re.split(r"[<(]", short.replace("void ", "", 1))[0]
         short = short.split("::")[-1][:48]
         by_name[short] = by_name.get(short, 0.0) + (e - s)
@@ -444,7 +809,7 @@ def profile_decode(engine, tasks):
                idle_share=1.0 - busy / window,
                top_kernels_ms_per_step={k: v / 1e3 / m["decode_steps"]
                                         for k, v in top})
-    say(f"profile (torch.profiler, {m['decode_steps']} decode steps): "
+    say(f"profile {name} (torch.profiler, {m['decode_steps']} decode steps): "
         f"{out['window_ms_per_step']:.3f} ms/step, device busy "
         f"{out['busy_ms_per_step']:.3f} ms/step, idle share "
         f"{out['idle_share']:.3f}; top kernels ms/step "
@@ -497,6 +862,76 @@ def teacher_forced_phase():
     return worst
 
 
+def paged_teacher_forced_phase():
+    """The paged forward passes on the card against the CPU: 2 prompts
+    prefilled in chunks of 16 into pages of 16 (so chunks with p0 > 0 run),
+    then 8 paged decode steps fed the CPU's greedy tokens, with a third
+    slot inactive."""
+    import numpy as np
+    import torch
+    from repro_torch.bridge import params_from_jax
+    from repro_torch.configs import get_config
+    from repro_torch.data.tasks import MathTaskGenerator
+    from repro_torch.models import transformer
+    from repro_torch.serve.model import paged_decode_step, paged_prefill_chunk
+
+    cfg = get_config(ARCH).replace(n_layers=4, dtype="float32")
+    params = {"cuda": transformer.init(3, cfg, "cuda")}
+    params["cpu"] = params_from_jax(params["cuda"].tree(), "cpu")
+    prompts = [t.prompt_ids for t in MathTaskGenerator(seed=2).batch(2)]
+    page, chunk, steps, slots = 16, 16, 8, 3
+    maxp = -(-(max(map(len, prompts)) + steps) // page)
+    tables = np.random.default_rng(0).permutation(slots * maxp) + 1
+    tables = tables.reshape(slots, maxp).astype(np.int32)
+    shape = (cfg.n_layers, 1 + slots * maxp, page, cfg.n_kv_heads, cfg.hd)
+    pools = {d: [torch.zeros(shape, device=d) for _ in range(2)]
+             for d in params}
+    worst, offsets = 0.0, []
+
+    def compare(what, a, b):
+        nonlocal worst
+        a, b = a.float().cpu(), b.float()
+        rel = float((a - b).abs().max() / b.abs().max())
+        worst = max(worst, rel)
+        if not (torch.isfinite(a).all() and rel <= 1e-3):
+            fail(f"paged teacher-forced {what}: max |card - cpu| / max |cpu|"
+                 f" = {rel:.3e} > 1e-3")
+
+    last = []
+    with torch.no_grad():
+        for s, prompt in enumerate(prompts):
+            for p0 in range(0, len(prompt), chunk):
+                n = min(chunk, len(prompt) - p0)
+                toks = np.zeros(chunk, np.int64)
+                toks[:n] = prompt[p0:p0 + n]
+                out = {d: paged_prefill_chunk(
+                    p, cfg, *pools[d], torch.from_numpy(tables[s]).to(d),
+                    torch.from_numpy(toks).to(d), p0)[0]
+                    for d, p in params.items()}
+                compare(f"prefill slot {s} p0={p0}", out["cuda"][:n],
+                        out["cpu"][:n])
+                offsets.append(p0)
+            last.append(out["cpu"][n - 1])
+        if max(offsets) == 0:
+            fail("paged teacher-forced: no prefill chunk with p0 > 0 ran")
+        logits = torch.stack([last[0], last[1], last[1]])
+        active = torch.tensor([1, 1, 0], dtype=torch.int32)
+        for t in range(steps):
+            tok = torch.argmax(logits[:, :cfg.vocab], dim=-1).to(torch.int32)
+            pos = torch.tensor([len(prompts[0]) + t, len(prompts[1]) + t, 0],
+                               dtype=torch.int32)
+            out = {d: paged_decode_step(
+                p, cfg, *pools[d], torch.from_numpy(tables).to(d), tok.to(d),
+                pos.to(d), active.to(d))[0] for d, p in params.items()}
+            compare(f"decode step {t}", out["cuda"][:2], out["cpu"][:2])
+            logits = out["cpu"]
+    say(f"paged teacher-forced card vs cpu (4 layers, float32, prefill in "
+        f"chunks of {chunk} at p0 = {offsets} over pages of {page}, {steps} "
+        f"decode steps, one inactive slot): worst max |card - cpu| / max "
+        f"|cpu| = {worst:.2e} <= 1e-3")
+    return worst
+
+
 # ---------------------------------------------------------------------- main
 def main() -> None:
     t_start = time.perf_counter()
@@ -507,11 +942,17 @@ def main() -> None:
     prompt_len = max(len(t.prompt_ids)
                      for t in MathTaskGenerator(seed=0).batch(32))
     records = kernels_phase(prompt_len, 128)
-    (n_flash, n_decode), gen = serve_phase()
-    records["flash_attention_fwd"]["launches"] = n_flash
-    records["flash_decode"]["launches"] = n_decode
+    records["paged_flash_decode"] = paged_kernel_phase(
+        max(len(t.prompt_ids) for t in MathTaskGenerator(seed=0).batch(8)),
+        128)
+    counts, gen = serve_phase()
+    records["flash_attention_fwd"]["launches"] = counts["flash_attention_fwd"]
+    records["flash_decode"]["launches"] = counts["flash_decode"]
     say("serve summary " + json.dumps(gen))
+    records["paged_flash_decode"]["launches"], paged = paged_serve_phase()
+    say("paged serve summary " + json.dumps(paged))
     teacher_forced_phase()
+    paged_teacher_forced_phase()
     kernels = [dict(name=name, **rec) for name, rec in records.items()]
     for k in kernels:
         if not all(math.isfinite(k[key]) for key in

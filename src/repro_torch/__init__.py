@@ -12,8 +12,11 @@ It imports ``torch``, ``numpy`` and the standard library only: never
 caller must ask for ``device="cpu"`` explicitly, and then every kernel
 wrapper runs its plain PyTorch version.
 
-Slice 1 (this package today) is the static-engine rollout path of the
-dense family: ``configs`` -> ``models.transformer`` (prefill / decode) ->
-``rl.rollout.RolloutEngine`` -> ``launch.serve``, with attention through
-two hand-written Hopper kernels (``kernels/csrc``).
+Ported so far, for the dense family: the static-engine rollout path
+(``configs`` -> ``models.transformer`` prefill / decode ->
+``rl.rollout.RolloutEngine`` -> ``launch.serve``) and paged
+continuous-batching serving (``serve``: paged KV pool, forks, radix
+cache, ``PagedEngine``; ``rl.agentic``; ``launch.serve --engine paged``),
+with attention through three hand-written Hopper kernels
+(``kernels/csrc``).
 """

@@ -1,0 +1,111 @@
+"""Paged flash decode: the hand-written Hopper kernel and its plain version.
+
+Replaces the Pallas TPU kernel ``repro/kernels/paged_attention/kernel.py
+::paged_flash_decode``.  The CUDA source is
+``kernels/csrc/paged_flash_decode.cu``; its header says what bounds it on
+the H100 (HBM: the attended slots' K/V bytes / 3.35 TB/s) and what the
+design does about that.
+
+``paged_decode_attention`` takes ``[B, H, D]`` and returns ``[B, H, D]`` as
+the JAX entry point does.  On a CPU tensor it runs
+``paged_decode_attention_ref``; on a CUDA tensor it launches the kernel (or
+raises) and counts the launch in ``paged_decode_attention.launches``.  As
+in the reference wrapper, table ids are clamped into ``[0, P-1]`` (the
+kernel clamps each id it reads), and the scale is that of the true D: the
+kernel needs no padding of D.  There is no tiling knob: the page size is a
+property of the pool (``serve.kv_cache.PagedKVCache`` resolves it through
+``kernels.tuning``).
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+from .. import _build
+from .ref import paged_decode_attention_ref
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_GROUP = 8          # query heads per KV head the kernel is built for
+MAX_D = 256
+
+__all__ = ["paged_decode_attention", "paged_decode_attention_ref"]
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("paged_flash_decode")
+    fn = lib.paged_flash_decode
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def paged_decode_attention(
+    q: torch.Tensor,             # [B, H, D]
+    k_pages: torch.Tensor,       # [P, page, Hkv, D] global pool
+    v_pages: torch.Tensor,       # [P, page, Hkv, D]
+    block_tables: torch.Tensor,  # [B, maxp] int32 page ids (unused -> 0)
+    lengths: torch.Tensor,       # [B] int32 valid context incl. the query
+    *,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """One decode token over a paged KV cache.  Returns [B, H, D]."""
+    B, H, D = q.shape
+    P, page, Hkv, _ = k_pages.shape
+    # scale from the TRUE head dim
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    if q.device.type == "cpu":
+        return paged_decode_attention_ref(
+            q, k_pages, v_pages, torch.clamp(block_tables, 0, P - 1),
+            lengths, window=window, scale=scale)
+    if not q.is_cuda:
+        raise ValueError(f"paged_decode_attention: unsupported device "
+                         f"{q.device}")
+    maxp = block_tables.shape[1] if block_tables.dim() == 2 else -1
+    if (k_pages.shape != v_pages.shape or k_pages.shape[3] != D
+            or tuple(block_tables.shape) != (B, maxp)
+            or tuple(lengths.shape) != (B,)):
+        raise ValueError(
+            f"paged_decode_attention: shapes q {tuple(q.shape)} k_pages "
+            f"{tuple(k_pages.shape)} v_pages {tuple(v_pages.shape)} "
+            f"block_tables {tuple(block_tables.shape)} lengths "
+            f"{tuple(lengths.shape)}")
+    if H % Hkv or H // Hkv > MAX_GROUP or D > MAX_D:
+        raise ValueError(f"paged_decode_attention: H={H} Hkv={Hkv} D={D} "
+                         f"(needs H % Hkv == 0, H/Hkv <= {MAX_GROUP}, "
+                         f"D <= {MAX_D})")
+    for t in (k_pages, v_pages, block_tables, lengths):
+        if t.device != q.device:
+            raise ValueError("paged_decode_attention: inputs on different "
+                             "devices")
+    if (k_pages.dtype != q.dtype or v_pages.dtype != q.dtype
+            or q.dtype not in _DTYPES):
+        raise ValueError(f"paged_decode_attention: dtypes q {q.dtype} "
+                         f"k_pages {k_pages.dtype} v_pages {v_pages.dtype} "
+                         "(float32 or bfloat16, all equal)")
+    if block_tables.dtype != torch.int32 or lengths.dtype != torch.int32:
+        raise ValueError("paged_decode_attention: block_tables and lengths "
+                         "must be int32")
+    if not all(t.is_contiguous()
+               for t in (q, k_pages, v_pages, block_tables, lengths)):
+        raise ValueError("paged_decode_attention: inputs must be contiguous")
+    o = torch.empty_like(q)
+    lib = _lib()
+    err = lib.paged_flash_decode(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        block_tables.data_ptr(), lengths.data_ptr(), o.data_ptr(), B, P,
+        page, maxp, Hkv, H // Hkv, D, -1 if window is None else int(window),
+        float(scale), _DTYPES[q.dtype], q.device.index or 0,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, "paged_flash_decode", err)
+    paged_decode_attention.launches += 1
+    return o
+
+
+paged_decode_attention.launches = 0

@@ -58,3 +58,11 @@ def tuned_config(kernel: str,
     if dt is not None:
         out.update(_TUNED.get((dt, kernel), {}))
     return out
+
+
+def resolve(kernel: str, knob: str, value: Optional[int]) -> int:
+    """An explicitly passed value wins; None consults the tuned table
+    (falling back to the builtin default)."""
+    if value is not None:
+        return int(value)
+    return tuned_config(kernel)[knob]

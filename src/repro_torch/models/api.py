@@ -59,7 +59,7 @@ class ModelConfig:
     dtype: str = "bfloat16"           # params/activations compute dtype
     remat: bool = True
     remat_policy: str = "full"
-    use_pallas: bool = False          # ignored by the port: the device decides
+    use_pallas: bool = False          # ignored by the port (see blocks.attention)
     unroll_layers: bool = False
     q_chunk: int = 512
     kv_chunk: int = 1024

@@ -3,8 +3,11 @@
 The port of ``repro.models.blocks``: fp32 norms and softmax accumulators,
 half-split RoPE, the chunked online-softmax ``attention`` with the same
 ``-1e30`` mask and ``-2^30`` empty-slot convention.  ``attention`` is the
-CPU oracle; on a CUDA tensor its multi-token branch runs the hand-written
-flash kernel instead (the device decides, not ``cfg.use_pallas``).
+CPU oracle.  On a CUDA tensor it runs the hand-written flash kernel only
+where the caller says the positions are the contiguous ``0..S-1`` case
+(``contiguous_positions=True``, which only the transformer's prompt layer
+sets), as the reference does under ``use_pallas``; every other call,
+such as the paged prefill over gathered pages, takes the masked path.
 """
 from __future__ import annotations
 
@@ -83,6 +86,15 @@ def _mask_value(q_pos: Tensor, k_pos: Tensor, causal: bool,
     return torch.where(ok, zero, torch.full_like(zero, NEG_INF))
 
 
+def flash_route(on_cuda: bool, Sq: int, kv_len: Optional[Tensor],
+                contiguous_positions: bool) -> bool:
+    """Whether ``attention`` hands the call to the flash kernel: a CUDA
+    tensor, more than one query, no ``kv_len``, and positions that the
+    caller declared to be ``0..Sq-1`` / ``0..Sk-1`` (the kernel masks by
+    index and knows neither offsets nor empty slots)."""
+    return on_cuda and contiguous_positions and kv_len is None and Sq > 1
+
+
 def attention(
     q: Tensor,                # [B, Sq, H, D]
     k: Tensor,                # [B, Sk, Hkv, D]
@@ -96,12 +108,14 @@ def attention(
     q_chunk: int = 512,
     kv_chunk: int = 1024,
     scale: Optional[float] = None,
+    contiguous_positions: bool = False,
 ) -> Tensor:
     """Chunked online-softmax attention (GQA aware), fp32 accumulators.
 
-    On a CUDA tensor with Sq > 1 and no ``kv_len`` this is the contiguous
-    prefill/training case (positions 0..Sq-1 and 0..Sk-1, as the reference
-    assumes under ``use_pallas``): it runs the flash kernel.
+    ``contiguous_positions=True`` declares the prefill/training case
+    (``q_positions`` are ``0..Sq-1`` and ``k_positions`` ``0..Sk-1``, as
+    the reference assumes under ``use_pallas``): on a CUDA tensor with
+    Sq > 1 and no ``kv_len`` that runs the flash kernel (``flash_route``).
     """
     B, Sq, H, D = q.shape
     _, Sk, Hkv, _ = k.shape
@@ -109,7 +123,7 @@ def attention(
     G = H // Hkv
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
 
-    if q.is_cuda and kv_len is None and Sq > 1:
+    if flash_route(q.is_cuda, Sq, kv_len, contiguous_positions):
         from repro_torch.kernels.flash_attention.ops import flash_attention
         return flash_attention(q, k, v, causal, window, scale)
 

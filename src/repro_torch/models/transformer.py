@@ -101,7 +101,7 @@ def _prompt_layer(h: Tensor, lp: Dict, positions: Tensor, cfg: ModelConfig):
     o = blocks.attention(q, k, v, q_positions=positions,
                          k_positions=positions, causal=True,
                          window=cfg.attn_window, q_chunk=cfg.q_chunk,
-                         kv_chunk=cfg.kv_chunk)
+                         kv_chunk=cfg.kv_chunk, contiguous_positions=True)
     h = h + blocks.out_project(o, lp["attn"])
     return _ffn_block(h, lp, cfg), k, v
 

@@ -1,6 +1,6 @@
 """The port stands alone: no module of ``repro_torch`` (nor ``chip_smoke.py``)
-imports ``jax`` or ``repro``, importing the rollout engine pulls in no JAX,
-and entry points refuse to fall back to the CPU silently."""
+imports ``jax`` or ``repro``, importing the engines pulls in no JAX, and
+entry points refuse to fall back to the CPU silently."""
 import ast
 import os
 import subprocess
@@ -39,7 +39,8 @@ def test_no_jax_or_repro_imports(path):
 
 
 def test_rollout_import_pulls_in_no_jax():
-    code = ("import sys, repro_torch.rl.rollout, repro_torch.launch.serve; "
+    code = ("import sys, repro_torch.rl.rollout, repro_torch.launch.serve, "
+            "repro_torch.serve, repro_torch.rl.agentic; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro')]; print(bad); assert not bad")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -56,6 +57,7 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for():
     from repro_torch.models import transformer
     from repro_torch.rl.rollout import RolloutEngine
     from repro_torch.rl.weight_sync import WeightStore
+    from repro_torch.serve import PagedEngine, PagedKVCache
 
     cfg = get_smoke_config("qwen-distill-1.5b")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -64,6 +66,16 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for():
         transformer.init(0, cfg)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         run(["--smoke", "--quiet"])
-    with pytest.raises(NotImplementedError, match="ROADMAP M6"):
-        run(["--smoke", "--quiet", "--engine", "paged", "--device", "cpu"])
+    store = WeightStore()
+    store.publish(transformer.init(0, cfg, "cpu"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        PagedEngine(cfg, store)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        PagedKVCache(cfg, max_slots=2, max_len=16)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run(["--smoke", "--quiet", "--engine", "paged"])
     assert RolloutEngine(cfg, WeightStore(), device="cpu").device.type == "cpu"
+    assert PagedEngine(cfg, store, device="cpu").device.type == "cpu"
+    out = run(["--smoke", "--quiet", "--engine", "paged", "--device", "cpu",
+               "--batch", "1", "--max-new", "2"])
+    assert out["device"] == "cpu" and out["tokens"] >= 1
