@@ -63,6 +63,9 @@ PEAK_FLOPS = {"float32": 67e12,           # fp32 outside the tensor cores
               "bfloat16": 989e12}         # dense bf16 tensor cores
 TOL = {"float32": dict(atol=2e-5, rtol=2e-5),
        "bfloat16": dict(atol=5e-2, rtol=5e-2)}
+# the reference's own tolerances for the mLSTM scan (tests/test_kernels.py)
+MLSTM_TOL = {"float32": dict(atol=1e-4, rtol=1e-4),
+             "bfloat16": dict(atol=5e-2, rtol=5e-2)}
 ARCH = "qwen-distill-1.5b"
 EMPTY = -(2 ** 30)
 
@@ -112,10 +115,10 @@ def _max_err(got, want):
     return float((got.float() - want.float()).abs().max())
 
 
-def _check(name, got, want, dtype, shape, stats):
+def _check(name, got, want, dtype, shape, stats, tols=TOL):
     import torch
     torch.cuda.synchronize()
-    tol = TOL[dtype]
+    tol = tols[dtype]
     err = _max_err(got, want)
     bound = tol["atol"] + tol["rtol"] * float(want.float().abs().max())
     finite = bool(torch.isfinite(got.float()).all())
@@ -344,6 +347,138 @@ def paged_kernel_phase(prompt_len, new_tokens):
         **timings[main], long=dict(shape=long, **timings[long]))
 
 
+def mlstm_case(B, S, H, D, dtype, gen):
+    import torch
+    q, k, v = (_rand((B, S, H, D), dtype, gen) for _ in range(3))
+    ig = torch.randn((B, S, H), generator=gen, device="cuda")
+    fg = torch.randn((B, S, H), generator=gen, device="cuda") + 2.0
+    return q, k, v, ig, fg
+
+
+def mlstm_plain(q, k, v, ig, fg, chunk, return_state=False):
+    """The plain chunkwise version on the model layout, with the
+    wrapper's own padding and flattening."""
+    from repro_torch.kernels.ssm_scan.ref import mlstm_chunkwise_ref
+    B, S, H, D = q.shape
+
+    def flat(x):
+        return x.movedim(2, 1).reshape(B * H, S, *x.shape[3:])
+
+    out = mlstm_chunkwise_ref(*(flat(x) for x in (q, k, v, ig, fg)),
+                              chunk, return_state)
+    h, state = out if return_state else (out, None)
+    h = h.reshape(B, H, S, D).movedim(1, 2)
+    if not return_state:
+        return h
+    C, n, m = state
+    return h, (C.reshape(B, H, D, D), n.reshape(B, H, D), m.reshape(B, H))
+
+
+def mlstm_work(B, S, H, D, chunk, itemsize):
+    """(bytes, FLOPs) of one scan: q/k/v read and h written once over the
+    padded length, the float32 gates; per chunk and row 4 T^2 D + 4 T D^2
+    FLOPs (q k^T, scores v, q C, the C update).  ``q n_t`` needs no
+    ``[T, D]`` product: it is the row sum of the weighted scores plus
+    ``e^(a - m) q n``."""
+    Sp = -(-S // chunk) * chunk
+    BH = B * H
+    n_bytes = itemsize * 4 * BH * Sp * D + 4 * 2 * BH * Sp
+    return n_bytes, BH * (Sp // chunk) * (4.0 * chunk ** 2 * D
+                                          + 4.0 * chunk * D ** 2)
+
+
+def ssm_kernel_phase(train_len):
+    """Hold the mLSTM scan kernel (K4) to its plain chunkwise version in
+    float32 and bfloat16, the final carry included; time the main-path
+    and long shapes.  Returns its record of the result line."""
+    import torch
+    from repro_torch.kernels.ssm_scan.ops import mlstm_scan
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    stats = {"checks": 0, "max_abs_err": 0.0}
+    timings = {}
+    chunk = 64
+
+    def check(what, got, want, dtype, shape):
+        _check("mlstm_scan", got, want, dtype, shape, stats, MLSTM_TOL)
+        say(f"  mlstm_scan {shape} {what} {dtype}: ok, max err "
+            f"{_max_err(got, want):.2e}")
+
+    # the CPU test sweep (B, S, H, D, chunk), S = 50 the padding path;
+    # then the xlstm-1.3b train batch of the launcher (8 x 4 heads, S 160
+    # padded to 192), its prefill (S 33) and a long shape
+    main = (8, train_len, 4, 512, chunk)
+    prefill = (8, 33, 4, 512, chunk)
+    long = (4, 4096, 4, 512, chunk)
+    shapes = [(1, 16, 1, 8, 8), (2, 50, 4, 16, 16), (1, 64, 2, 32, 32),
+              main, prefill, long]
+    for shape in shapes:
+        B, S, H, D, T = shape
+        for dtype in ("float32", "bfloat16"):
+            args = mlstm_case(B, S, H, D, dtype, gen)
+            check("h", mlstm_scan(*args, chunk=T),
+                  mlstm_plain(*args, T), dtype, shape)
+            if shape in (prefill, main, (2, 50, 4, 16, 16)):
+                h, state = mlstm_scan(*args, chunk=T, return_state=True)
+                h_ref, ref = mlstm_plain(*args, T, return_state=True)
+                check("h with state", h, h_ref, dtype, shape)
+                for name, got, want in zip("Cnm", state, ref):
+                    check(f"final {name}", got, want, dtype, shape)
+            if shape in (main, long):
+                n_bytes, flops = mlstm_work(B, S, H, D, T,
+                                            args[0].element_size())
+                bound, by = _bound_ms(n_bytes, flops, dtype)
+                timings[(shape, dtype)] = dict(
+                    ms=_time_ms(lambda: mlstm_scan(*args, chunk=T), flush),
+                    plain_ms=_time_ms(lambda: mlstm_plain(*args, T), flush),
+                    library_ms=None, bound_ms=bound, bound_by=by)
+            del args
+            torch.cuda.synchronize()
+    for (shape, dtype), t in timings.items():
+        say(f"  time mlstm_scan {shape} {dtype}: kernel {t['ms']:.4f} ms, "
+            f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}), plain "
+            f"{t['plain_ms']:.4f} ms, no single PyTorch call")
+    say(f"kernels: mlstm_scan holds to its plain version at every shape "
+        f"({stats['checks']} checks)")
+    return dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/mlstm_scan.cu",
+        replaces="src/repro/kernels/ssm_scan/kernel.py:87",
+        max_abs_err=stats["max_abs_err"], checks=stats["checks"],
+        library="none: no single PyTorch call computes the mLSTM scan",
+        **timings[(main, "bfloat16")],
+        float32=timings[(main, "float32")],
+        long=dict(shape=long, **timings[(long, "bfloat16")]))
+
+
+def flash_grad_phase():
+    """K1's autograd backward on the card: dq/dk/dv of the kernel route
+    against the plain route's, in float32 and bfloat16."""
+    import torch
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_ref)
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    stats = {"checks": 0, "max_abs_err": 0.0}
+    for shape, window in [((2, 40, 40, 4, 2, 16), None),
+                          ((2, 33, 33, 4, 4, 24), 9),
+                          ((8, 160, 160, 12, 2, 128), None)]:
+        for dtype in ("float32", "bfloat16"):
+            q, k, v = flash_case(*shape, dtype, gen)
+            do = _rand(q.shape, dtype, gen)
+            grads = []
+            for fn in (flash_attention, flash_attention_ref):
+                xs = [x.clone().requires_grad_() for x in (q, k, v)]
+                fn(*xs, True, window).backward(do)
+                grads.append([x.grad for x in xs])
+            for name, got, want in zip(("dq", "dk", "dv"), *grads):
+                _check("flash_attention backward", got, want, dtype, shape,
+                       stats)
+            say(f"  flash_attention backward {shape} window={window} "
+                f"{dtype}: ok, max err {stats['max_abs_err']:.2e}")
+    return stats
+
+
 def kernels_phase(prompt_len, new_tokens):
     """Hold both kernels to their plain versions; time the main-path and
     long shapes.  Returns the per-kernel records of the result line."""
@@ -476,9 +611,11 @@ def _wrappers():
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.paged_attention.ops import paged_decode_attention
+    from repro_torch.kernels.ssm_scan.ops import mlstm_scan
     return {"flash_attention_fwd": flash_attention,
             "flash_decode": decode_attention,
-            "paged_flash_decode": paged_decode_attention}
+            "paged_flash_decode": paged_decode_attention,
+            "mlstm_scan": mlstm_scan}
 
 
 def _reset_counts():
@@ -494,14 +631,16 @@ def _expect_counts(what, n_layers, decode_steps, counts):
     """The static path: one flash launch per layer for its prefill, one
     flash-decode launch per layer per decode step, no paged launch."""
     want = {"flash_attention_fwd": n_layers,
-            "flash_decode": n_layers * decode_steps, "paged_flash_decode": 0}
+            "flash_decode": n_layers * decode_steps, "paged_flash_decode": 0,
+            "mlstm_scan": 0}
     if counts != want or decode_steps < 1:
         fail(f"{what}: kernel launches {counts}, expected {want} (one "
              f"prefill, {decode_steps} decode steps)")
     say(f"{what}: launches flash_attention_fwd="
         f"{counts['flash_attention_fwd']} flash_decode="
-        f"{counts['flash_decode']} paged_flash_decode=0 (= {n_layers} per "
-        f"prefill, {n_layers} per decode step x {decode_steps} steps)")
+        f"{counts['flash_decode']} paged_flash_decode=0 mlstm_scan=0 (= "
+        f"{n_layers} per prefill, {n_layers} per decode step x "
+        f"{decode_steps} steps)")
 
 
 def _expect_paged_counts(what, n_layers, decode_steps, counts):
@@ -509,13 +648,14 @@ def _expect_paged_counts(what, n_layers, decode_steps, counts):
     other (its chunked prefill takes the masked path, not the flash
     kernel)."""
     want = {"flash_attention_fwd": 0, "flash_decode": 0,
-            "paged_flash_decode": n_layers * decode_steps}
+            "paged_flash_decode": n_layers * decode_steps, "mlstm_scan": 0}
     if counts != want or decode_steps < 1:
         fail(f"{what}: kernel launches {counts}, expected {want} "
              f"({decode_steps} decode steps)")
     say(f"{what}: launches paged_flash_decode="
         f"{counts['paged_flash_decode']} (= {n_layers} per decode step x "
-        f"{decode_steps} steps), flash_attention_fwd=0, flash_decode=0")
+        f"{decode_steps} steps), flash_attention_fwd=0, flash_decode=0, "
+        "mlstm_scan=0")
 
 
 def _check_rollouts(what, rollouts, vocab, max_new):
@@ -765,31 +905,22 @@ def model_step_ms(params, cfg, context):
     return out
 
 
-def profile_decode(call, kernel, name):
-    """Where a decode step's time goes, from a torch.profiler trace of one
-    ``call`` (which returns rollouts and metrics): over the decode window
-    (the first ``kernel`` to the last kernel), the union of kernel
-    intervals is the device's busy time and the rest its idle share.  The
-    profiler adds host overhead, so the idle share is an upper bound."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        _, m = call()
-        torch.cuda.synchronize()
+def _trace_kernels(prof, name):
+    """(start, end, name) of every kernel in a torch.profiler trace, sorted
+    by start; the trace is kept in build/."""
     path = ROOT / "build" / f"trace_{name}.json"
+    path.parent.mkdir(exist_ok=True)
     prof.export_chrome_trace(str(path))
-    kernels = sorted((e["ts"], e["ts"] + e["dur"], e["name"])
-                     for e in json.loads(path.read_text())["traceEvents"]
-                     if e.get("cat") == "kernel")
-    # "flash_decode_kernel" is also a substring of the paged kernel's name
-    starts = [k[0] for k in kernels if re.search(rf"\b{kernel}", k[2])]
-    if not starts:
-        say(f"profile {name}: the trace holds no {kernel}: device busy "
-            "share not measured")
-        return None
-    lo, hi = starts[0], max(k[1] for k in kernels)
+    return sorted((e["ts"], e["ts"] + e["dur"], e["name"])
+                  for e in json.loads(path.read_text())["traceEvents"]
+                  if e.get("cat") == "kernel")
+
+
+def _busy(kernels, lo, per):
+    """Over the window from ``lo`` to the last kernel's end: the union of
+    kernel intervals (device busy time), the idle share and the six
+    largest kernels by summed time, each divided by ``per``."""
+    hi = max(k[1] for k in kernels)
     busy, end, by_name = 0.0, lo, {}
     for s, e, kname in kernels:
         if e <= lo:
@@ -803,18 +934,217 @@ def profile_decode(call, kernel, name):
         by_name[short] = by_name.get(short, 0.0) + (e - s)
     window = hi - lo
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return dict(window_ms=window / 1e3 / per, busy_ms=busy / 1e3 / per,
+                idle_share=1.0 - busy / window,
+                top_kernels_ms={k: v / 1e3 / per for k, v in top})
+
+
+def profile_decode(call, kernel, name):
+    """Where a decode step's time goes, from a torch.profiler trace of one
+    ``call`` (which returns rollouts and metrics): over the decode window
+    (the first ``kernel`` to the last kernel), the union of kernel
+    intervals is the device's busy time and the rest its idle share.  The
+    profiler adds host overhead, so the idle share is an upper bound."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, m = call()
+        torch.cuda.synchronize()
+    kernels = _trace_kernels(prof, name)
+    # "flash_decode_kernel" is also a substring of the paged kernel's name
+    starts = [k[0] for k in kernels if re.search(rf"\b{kernel}", k[2])]
+    if not starts:
+        say(f"profile {name}: the trace holds no {kernel}: device busy "
+            "share not measured")
+        return None
+    b = _busy(kernels, starts[0], m["decode_steps"])
     out = dict(decode_steps=m["decode_steps"],
-               window_ms_per_step=window / 1e3 / m["decode_steps"],
-               busy_ms_per_step=busy / 1e3 / m["decode_steps"],
-               idle_share=1.0 - busy / window,
-               top_kernels_ms_per_step={k: v / 1e3 / m["decode_steps"]
-                                        for k, v in top})
+               window_ms_per_step=b["window_ms"],
+               busy_ms_per_step=b["busy_ms"], idle_share=b["idle_share"],
+               top_kernels_ms_per_step=b["top_kernels_ms"])
     say(f"profile {name} (torch.profiler, {m['decode_steps']} decode steps): "
         f"{out['window_ms_per_step']:.3f} ms/step, device busy "
         f"{out['busy_ms_per_step']:.3f} ms/step, idle share "
         f"{out['idle_share']:.3f}; top kernels ms/step "
         + ", ".join(f"{k} {v:.3f}" for k, v in
                     out["top_kernels_ms_per_step"].items()))
+    return out
+
+
+# ------------------------------------------------------------ phase 3, train
+def _expect_train_counts(what, family, n_layers, out, counts):
+    """One launcher run: every produce prefills once and every train step
+    runs one forward.  xlstm: one scan launch per layer for each, nothing
+    else (its decode has no kernel).  Dense: one flash launch per layer
+    for each, one flash-decode launch per layer per decode step."""
+    passes = out["produced"] + len(out["steps"])
+    want = dict.fromkeys(counts, 0)
+    if family == "ssm":
+        want["mlstm_scan"] = n_layers * passes
+    else:
+        want["flash_attention_fwd"] = n_layers * passes
+        want["flash_decode"] = n_layers * out["decode_steps"]
+    if counts != want:
+        fail(f"{what}: kernel launches {counts}, expected {want} "
+             f"({out['produced']} produce calls, {len(out['steps'])} train "
+             f"steps, {out['decode_steps']} decode steps)")
+    say(f"{what}: launches " + " ".join(f"{k}={v}" for k, v in
+                                        counts.items())
+        + f" (= {n_layers} per prefill x {out['produced']} + {n_layers} per "
+        f"train step x {len(out['steps'])}"
+        + ("" if family == "ssm" else
+           f"; {n_layers} flash_decode per decode step x "
+           f"{out['decode_steps']}") + ")")
+
+
+def train_phase():
+    """``repro_torch.launch.train`` at full width with the reference
+    launcher's setup (float32, tokenizer vocab, no remat, group 4 x 2
+    prompts, eta 2): 3 steps of xlstm-1.3b, 2 of qwen-distill-1.5b.
+    Returns {arch: (launch counts, summary)}."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import run
+
+    results = {}
+    for arch, steps in (("xlstm-1.3b", 3), (ARCH, 2)):
+        family = get_config(arch).family
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        out = run(["--arch", arch, "--steps", str(steps), "--quiet"])
+        counts = _read_counts()
+        what = f"train.run --arch {arch} --steps {steps}"
+        _expect_train_counts(what, family, out["n_layers"], out, counts)
+        hist = out["steps"]
+        if len(hist) != steps or out["produced"] != steps:
+            fail(f"{what}: {len(hist)} steps from {out['produced']} produce "
+                 f"calls, expected {steps} of each")
+        # every step: finite numbers, the eta bound, and one publish (the
+        # store starts at version 1, the initial publish)
+        for i, m in enumerate(hist):
+            if not (math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])):
+                fail(f"{what}: step {i + 1} loss {m['loss']} grad_norm "
+                     f"{m['grad_norm']}")
+            if m["max_staleness"] > out["eta"] or m["version"] != i + 2:
+                fail(f"{what}: step {i + 1} max staleness "
+                     f"{m['max_staleness']} (eta {out['eta']}), version "
+                     f"{m['version']} (expected {i + 2})")
+        if out["buffer"]["max_staleness"] > out["eta"]:
+            fail(f"{what}: buffer {out['buffer']} breaks eta {out['eta']}")
+        # a step whose groups all scored alike has zero advantages, so a
+        # zero loss and gradient; the run as a whole must move the weights
+        if not any(m["grad_norm"] > 0 for m in hist):
+            fail(f"{what}: every step had a zero gradient")
+        summary = dict(
+            seconds=out["seconds"],
+            peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+            steps=[{k: m[k] for k in (
+                "loss", "grad_norm", "mean_ratio", "clip_frac", "reward",
+                "max_staleness", "version", "produce_s", "train_s",
+                "fetch_s", "prefill_s", "decode_s", "decode_steps")}
+                for m in hist])
+        for i, m in enumerate(hist):
+            say(f"{what} step {i + 1}: loss {m['loss']:.5f} grad_norm "
+                f"{m['grad_norm']:.4f} reward {m['reward']:.3f} staleness "
+                f"max {m['max_staleness']} version {m['version']}; produce "
+                f"{m['produce_s']:.3f} s (fetch {m['fetch_s'] * 1e3:.1f} ms, "
+                f"prefill {m['prefill_s'] * 1e3:.1f} ms, decode "
+                f"{m['decode_s'] * 1e3 / max(m['decode_steps'], 1):.2f} ms "
+                f"per step over {m['decode_steps']}), train step "
+                f"{m['train_s'] * 1e3:.1f} ms (host clock)")
+        say(f"{what}: {out['seconds']:.2f} s, peak memory "
+            f"{summary['peak_mem_gib']:.2f} GiB, buffer {out['buffer']}")
+        results[arch] = (counts, summary)
+        del out
+        torch.cuda.empty_cache()
+    return results
+
+
+def _train_batch(cfg, B, S, prompt, device, seed=0):
+    """A GRPO batch of random tokens: the first ``prompt`` positions are the
+    prompt, the rest the response the loss covers."""
+    import torch
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    mask = torch.zeros((B, S))
+    mask[:, prompt:] = 1.0
+    batch = dict(
+        tokens=torch.randint(3, min(cfg.vocab, 259), (B, S), generator=gen),
+        loss_mask=mask,
+        behavior_logp=-torch.rand((B, S), generator=gen) * 3 * mask,
+        advantages=torch.randn((B,), generator=gen))
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+def xlstm_step_phase():
+    """One timed GRPO train step of xlstm-1.3b on the published config
+    (bfloat16, vocab 50304, remat) at the launcher's batch (8 x 160, 48
+    response tokens), after one warm-up step; peak memory; then one
+    profiled step (device busy time, idle share, top kernels)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.models import xlstm
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.rl.grpo import make_train_step
+
+    cfg = get_config("xlstm-1.3b")
+    opt = AdamWConfig(lr=3e-5)
+    params = xlstm.init(0, cfg, "cuda")
+    params.requires_grad_(True)
+    state = adamw_init(params, opt)
+    step = make_train_step(cfg, opt)
+    batch = _train_batch(cfg, 8, 160, 112, "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(3):
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, m = step(params, state, batch)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        counts = _read_counts()
+        want = dict.fromkeys(counts, 0)
+        want["mlstm_scan"] = 2 * cfg.n_layers      # forward + remat recompute
+        if counts != want or not (math.isfinite(loss) and math.isfinite(gnorm)):
+            fail(f"xlstm bf16 train step: launches {counts} (expected "
+                 f"{want}), loss {loss}, grad_norm {gnorm}")
+    out = dict(step_ms=times[1:], loss=loss, grad_norm=gnorm,
+               launches=counts["mlstm_scan"],
+               params=sum(p.numel() for p in params.parameters()),
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    say(f"xlstm-1.3b published config (bfloat16, vocab 50304, remat) GRPO "
+        f"train step, B=8 S=160: {out['params'] / 1e9:.3f} B params, "
+        f"{' / '.join(f'{t:.1f}' for t in times)} ms (first is warm-up; "
+        f"host clock, synchronised), mlstm_scan launches "
+        f"{out['launches']} per step, loss {loss:.5f}, grad_norm "
+        f"{gnorm:.4f}, peak memory {out['peak_mem_gib']:.2f} GiB")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(params, state, batch)
+        torch.cuda.synchronize()
+    kernels = _trace_kernels(prof, "xlstm_train_step")
+    if not kernels:
+        say("profile xlstm train step: the trace holds no kernel: device "
+            "busy share not measured")
+        return out
+    out["profile"] = p = _busy(kernels, kernels[0][0], 1)
+    # where the host's time goes: operators by their own CPU time
+    host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    p["top_host_ops_ms"] = {e.key: e.self_cpu_time_total / 1e3
+                            for e in host[:8]}
+    say(f"profile xlstm train step (torch.profiler): window "
+        f"{p['window_ms']:.1f} ms, device busy {p['busy_ms']:.1f} ms, idle "
+        f"share {p['idle_share']:.3f}; top kernels ms " + ", ".join(
+            f"{k} {v:.2f}" for k, v in p["top_kernels_ms"].items())
+        + "; top host ops ms (self CPU) " + ", ".join(
+            f"{k} {v:.1f}" for k, v in p["top_host_ops_ms"].items()))
+    del params, state
+    torch.cuda.empty_cache()
     return out
 
 
@@ -932,6 +1262,116 @@ def paged_teacher_forced_phase():
     return worst
 
 
+def _rel(a, b):
+    """max |card - cpu| / max |cpu|, the card's tensor brought over."""
+    a, b = a.detach().float().cpu(), b.detach().float()
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def xlstm_teacher_forced_phase():
+    """xlstm-1.3b at full width cut to 4 layers, float32, the same params
+    on the card and the CPU: the training forward's logits, the prefill's
+    logits and (C, n, m) carry, then 8 decode steps fed the CPU's greedy
+    tokens, each within 1e-3 of max |value|."""
+    import numpy as np
+    import torch
+    from repro_torch.bridge import params_from_jax
+    from repro_torch.configs import get_config
+    from repro_torch.data.tasks import MathTaskGenerator, Tokenizer
+    from repro_torch.models import xlstm
+
+    cfg = get_config("xlstm-1.3b").replace(n_layers=4, dtype="float32")
+    on_card = xlstm.init(1, cfg, "cuda")
+    on_cpu = params_from_jax(on_card.tree(), "cpu")
+    tasks = MathTaskGenerator(seed=2).batch(2)
+    plen = max(len(t.prompt_ids) for t in tasks)
+    toks = np.full((2, plen), Tokenizer.PAD, np.int64)
+    for i, t in enumerate(tasks):
+        toks[i, plen - len(t.prompt_ids):] = t.prompt_ids
+    toks = torch.from_numpy(toks)
+    steps, worst = 8, {}
+
+    def compare(what, a, b):
+        rel = _rel(a, b)
+        worst[what.split()[0]] = max(worst.get(what.split()[0], 0.0), rel)
+        if not (bool(torch.isfinite(a).all()) and rel <= 1e-3):
+            fail(f"xlstm card vs cpu {what}: max |card - cpu| / max |cpu| = "
+                 f"{rel:.3e} > 1e-3")
+
+    with torch.inference_mode():
+        compare("forward logits", xlstm.forward(on_card, cfg, toks.cuda()),
+                xlstm.forward(on_cpu, cfg, toks))
+        lg_gpu, c_gpu = xlstm.prefill(on_card, cfg, toks.cuda(),
+                                      max_len=plen + steps)
+        lg_cpu, c_cpu = xlstm.prefill(on_cpu, cfg, toks, max_len=plen + steps)
+        for name in ("C", "n", "m"):
+            compare(f"prefill {name}", c_gpu[name], c_cpu[name])
+        for t in range(steps + 1):
+            compare(f"logits step {t}", lg_gpu, lg_cpu)
+            if t == steps:
+                break
+            tok = torch.argmax(lg_cpu[:, :cfg.vocab], dim=-1).to(torch.int32)
+            pos = torch.full((2,), plen + t, dtype=torch.int32)
+            lg_gpu, c_gpu = xlstm.decode_step(on_card, cfg, c_gpu,
+                                              tok.cuda(), pos.cuda())
+            lg_cpu, c_cpu = xlstm.decode_step(on_cpu, cfg, c_cpu, tok, pos)
+    say("xlstm teacher-forced card vs cpu (4 layers, float32, forward, "
+        f"prefill + carry, {steps} decode steps): worst max |card - cpu| / "
+        "max |cpu| " + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+        + " <= 1e-3")
+    return worst
+
+
+def train_step_parity_phase():
+    """One GRPO train step on the card and on the CPU from the same params
+    and batch, at full width cut to 4 layers in float32: xlstm-1.3b (K4
+    forward, recomputed backward) and qwen-distill-1.5b (K1 forward, its
+    recompute backward).  Loss and grad_norm agree within 1e-3 relative."""
+    import torch
+    from repro_torch.bridge import params_from_jax
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import get_model
+    from repro_torch.models.params import tree_map
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.rl.grpo import make_train_step
+
+    out = {}
+    for arch in ("xlstm-1.3b", ARCH):
+        cfg = get_config(arch).replace(n_layers=4, dtype="float32",
+                                       remat=False)
+        opt = AdamWConfig(lr=3e-5)
+        step = make_train_step(cfg, opt)
+        card = get_model(cfg).init(4, cfg, "cuda")
+        res = []
+        host = tree_map(lambda t: t.to("cpu", copy=True), card.tree())
+        for params in (card, params_from_jax(host, "cpu")):
+            dev = params["embed"].device
+            params.requires_grad_(True)
+            _reset_counts()
+            _, _, m = step(params, adamw_init(params, opt),
+                           _train_batch(cfg, 4, 64, 40, dev, seed=1))
+            res.append((float(m["loss"]), float(m["grad_norm"])))
+            if params is card:
+                counts = _read_counts()
+                key = ("mlstm_scan" if cfg.family == "ssm"
+                       else "flash_attention_fwd")
+                if counts[key] != cfg.n_layers:
+                    fail(f"train step parity {arch}: launches {counts}, "
+                         f"expected {cfg.n_layers} {key}")
+        del card, params
+        rel = [abs(a - b) / abs(b) for a, b in zip(*res)]
+        if not all(math.isfinite(x) and x <= 1e-3 for x in rel):
+            fail(f"train step parity {arch}: card (loss, grad_norm) "
+                 f"{res[0]} vs cpu {res[1]}: relative {rel}")
+        say(f"train step card vs cpu {arch} (4 layers, float32): loss "
+            f"{res[0][0]:.6f} / {res[1][0]:.6f}, grad_norm "
+            f"{res[0][1]:.6f} / {res[1][1]:.6f}, relative "
+            f"{rel[0]:.2e} / {rel[1]:.2e} <= 1e-3")
+        out[arch] = rel
+        torch.cuda.empty_cache()
+    return out
+
+
 # ---------------------------------------------------------------------- main
 def main() -> None:
     t_start = time.perf_counter()
@@ -945,19 +1385,36 @@ def main() -> None:
     records["paged_flash_decode"] = paged_kernel_phase(
         max(len(t.prompt_ids) for t in MathTaskGenerator(seed=0).batch(8)),
         128)
+    records["mlstm_scan"] = ssm_kernel_phase(160)
+    flash_grad_phase()
     counts, gen = serve_phase()
     records["flash_attention_fwd"]["launches"] = counts["flash_attention_fwd"]
     records["flash_decode"]["launches"] = counts["flash_decode"]
     say("serve summary " + json.dumps(gen))
     records["paged_flash_decode"]["launches"], paged = paged_serve_phase()
     say("paged serve summary " + json.dumps(paged))
+    train = train_phase()
+    records["mlstm_scan"]["launches"] = train["xlstm-1.3b"][0]["mlstm_scan"]
+    for name, rec in records.items():
+        # launches on the training path: xlstm's run for the scan, the
+        # dense run for the attention kernels
+        arch = "xlstm-1.3b" if name == "mlstm_scan" else ARCH
+        rec["train_launches"] = train[arch][0][name]
+    for arch, (_, summary) in train.items():
+        say(f"train summary {arch} " + json.dumps(summary))
+    say("xlstm train step summary " + json.dumps(xlstm_step_phase()))
     teacher_forced_phase()
     paged_teacher_forced_phase()
+    xlstm_teacher_forced_phase()
+    train_step_parity_phase()
     kernels = [dict(name=name, **rec) for name, rec in records.items()]
     for k in kernels:
         if not all(math.isfinite(k[key]) for key in
-                   ("ms", "plain_ms", "bound_ms", "library_ms")):
+                   ("ms", "plain_ms", "bound_ms")) or not (
+                k["library_ms"] is None or math.isfinite(k["library_ms"])):
             fail(f"kernel record {k['name']} has a non-finite time: {k}")
+        if k["launches"] < 1:
+            fail(f"kernel {k['name']} was not launched on its path")
     say(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

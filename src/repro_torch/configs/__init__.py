@@ -5,8 +5,8 @@ exporting
     smoke_config()— a reduced same-family config for CPU smoke tests
 
 These are the port's own copies of the reference's configs (same values).
-Only the dense configs that the port runs are here; the other families
-come with their slices.
+Only the configs that the port runs are here (the dense qwen-distill
+family and xlstm-1.3b); the other families come with their slices.
 """
 from __future__ import annotations
 
@@ -19,6 +19,7 @@ _ARCH_MODULES = {
     "qwen-distill-1.5b": "qwen_distill_1_5b",
     "qwen-distill-7b": "qwen_distill_7b",
     "qwen-distill-14b": "qwen_distill_14b",
+    "xlstm-1.3b": "xlstm_1_3b",
 }
 
 

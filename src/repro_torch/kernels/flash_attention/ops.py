@@ -10,7 +10,11 @@ design does about that.
 ``flash_attention`` takes the model layout ``[B, S, H, D]`` as the JAX
 entry point does.  On a CPU tensor it runs ``flash_attention_ref``; on a
 CUDA tensor it launches the kernel (or raises) and counts the launch in
-``flash_attention.launches``.  The backward pass comes with training.
+``flash_attention.launches``.  It is an autograd function whose backward
+recomputes ``attention_ref`` (contiguous positions) under autograd, the
+port of the reference's ``custom_vjp`` (``repro/kernels/flash_attention/
+ops.py``, whose backward runs ``attention_ref`` under ``jax.vjp``): no
+backward kernel, as in the reference.
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ from typing import Optional
 import torch
 
 from .. import _build
+from ..recompute import recompute_vjp
 from .ref import attention_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -49,11 +54,9 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True, window: Optional[int] = None,
-                    scale: Optional[float] = None) -> torch.Tensor:
-    """q [B,Sq,H,D], k/v [B,Sk,Hkv,D] -> [B,Sq,H,D].  Contiguous positions
-    (training/prefill: q rows at 0..Sq-1, k rows at 0..Sk-1)."""
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             causal: bool, window: Optional[int],
+             scale: Optional[float]) -> torch.Tensor:
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal, window, scale)
     if not q.is_cuda:
@@ -87,6 +90,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.check(lib, "flash_attention_fwd", err)
     flash_attention.launches += 1
     return o
+
+
+# the kernel forward; the backward recomputes the plain attention
+_flash = recompute_vjp("_Flash", _forward, flash_attention_ref, 3)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, window: Optional[int] = None,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """q [B,Sq,H,D], k/v [B,Sk,Hkv,D] -> [B,Sq,H,D].  Contiguous positions
+    (training/prefill: q rows at 0..Sq-1, k rows at 0..Sk-1)."""
+    return _flash(q, k, v, causal, window, scale)
 
 
 flash_attention.launches = 0

@@ -91,10 +91,14 @@ class ModelConfig:
 
 # ------------------------------------------------------------------ dispatch
 def get_model(cfg: ModelConfig):
-    """Return the family module implementing the model protocol.  Only the
-    dense family is ported so far; the others come with their slices."""
+    """Return the family module implementing the model protocol.  The
+    dense and ssm families are ported so far; the others come with their
+    slices."""
     if cfg.family == "dense":
         from . import transformer
         return transformer
+    if cfg.family == "ssm":
+        from . import xlstm
+        return xlstm
     raise NotImplementedError(
         f"family {cfg.family!r} is not ported yet (ROADMAP M8)")

@@ -2,7 +2,10 @@
 
 The tree keeps the reference's pytree names (``layers/attn/wq`` becomes the
 state-dict key ``layers.attn.wq``), and ``params["layers"]["attn"]["wq"]``
-reads like the JAX dict, so the block functions take either.
+reads like the JAX dict, so the block functions take either.  Leaves are
+frozen (``requires_grad=False``); the trainer's copy, which the GRPO step
+differentiates and AdamW updates in place, is made trainable with
+``requires_grad_()``.
 """
 from __future__ import annotations
 
@@ -54,3 +57,36 @@ def tree_leaves(tree: Any) -> list:
     out: list = []
     tree_map(out.append, tree)
     return out
+
+
+def _unbind(tree: Any) -> Any:
+    if isinstance(tree, Params):
+        return {k: _unbind(tree[k]) for k in tree.keys()}
+    return tree.unbind(0)
+
+
+def _pick(parts: Any, i: int) -> Any:
+    if isinstance(parts, dict):
+        return {k: _pick(v, i) for k, v in parts.items()}
+    return parts[i]
+
+
+def layer_views(params: Params) -> list:
+    """Per-layer views of the stacked ``layers`` tree (the same nested
+    names, leaves indexed on their leading ``[L]`` axis).  Views share
+    storage, so in-place updates stay visible.  Each leaf is split with one
+    ``unbind``, whose backward stacks the L layer gradients once (indexing
+    layer by layer would give every layer a zero-filled gradient of the
+    whole stack to sum: L^2 traffic).  Trainable params build them per
+    call, so each forward's views belong to its own autograd graph; frozen
+    params keep the views they built first, until a leaf is made
+    trainable."""
+    trainable = any(p.requires_grad for p in params.parameters())
+    views = params.__dict__.pop("_layer_views", None)
+    if views is None or trainable:
+        parts = _unbind(params["layers"])
+        n = next(iter(params["layers"].parameters())).shape[0]
+        views = [_pick(parts, i) for i in range(n)]
+    if not trainable:
+        params._layer_views = views
+    return views

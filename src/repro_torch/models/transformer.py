@@ -12,12 +12,13 @@ from typing import Dict, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from . import blocks
 from .api import ModelConfig
-from .params import Params
+from .params import Params, layer_views
 
 Tensor = torch.Tensor
 EMPTY_POS = -(2 ** 30)            # k_pos of an empty cache slot
@@ -66,22 +67,6 @@ def init(seed: Union[int, torch.Generator], cfg: ModelConfig,
 
 
 # ------------------------------------------------------------------- forward
-def _layers(params: Params):
-    """Per-layer views of the stacked ``layers`` tree, built once per
-    ``Params`` (views share storage, so in-place updates stay visible)."""
-    views = getattr(params, "_layer_views", None)
-    if views is None:
-        lp = params["layers"]
-        views = [{
-            "attn_norm": lp["attn_norm"][i],
-            "ffn_norm": lp["ffn_norm"][i],
-            "attn": {k: lp["attn"][k][i] for k in lp["attn"].keys()},
-            "ffn": {k: lp["ffn"][k][i] for k in lp["ffn"].keys()},
-        } for i in range(lp["attn_norm"].shape[0])]
-        params._layer_views = views
-    return views
-
-
 def _ffn_block(h: Tensor, lp: Dict, cfg: ModelConfig) -> Tensor:
     x = blocks.rms_norm(h, lp["ffn_norm"], cfg.norm_eps)
     return h + blocks.swiglu(x, lp["ffn"])
@@ -123,12 +108,18 @@ def _positions(B: int, S: int, device) -> Tensor:
 def forward(params: Params, cfg: ModelConfig, tokens: Tensor,
             return_hidden: bool = False) -> Tensor:
     """Training forward: tokens [B,S] -> logits [B,S,padded_vocab] (or the
-    pre-unembed hidden states with ``return_hidden``)."""
+    pre-unembed hidden states with ``return_hidden``).  ``cfg.remat``
+    recomputes each layer in the backward (``torch.utils.checkpoint``)."""
     B, S = tokens.shape
     h = embed_inputs(params, cfg, tokens)
     positions = _positions(B, S, tokens.device)
-    for lp in _layers(params):
-        h, _, _ = _prompt_layer(h, lp, positions, cfg)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for lp in layer_views(params):
+        if remat:        # recompute the layer in the backward
+            h = checkpoint(lambda x, lp=lp: _prompt_layer(
+                x, lp, positions, cfg)[0], h, use_reentrant=False)
+        else:
+            h, _, _ = _prompt_layer(h, lp, positions, cfg)
     if return_hidden:
         return h
     return unembed(params, cfg, h)
@@ -175,7 +166,7 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Dict[str, Tensor],
     h = embed_inputs(params, cfg, token[:, None])             # [B,1,D]
     positions = pos[:, None]                                  # [B,1]
     Hkv, D = cfg.n_kv_heads, cfg.hd
-    for i, lp in enumerate(_layers(params)):
+    for i, lp in enumerate(layer_views(params)):
         q, k, v = _qkv(h, lp, positions, cfg)
         ck, cv = cache["k"][i], cache["v"][i]                 # [B,C,Hkv,D]
         ck.view(B * C, Hkv, D).index_copy_(0, flat, k[:, 0].to(ck.dtype))
@@ -207,7 +198,7 @@ def prefill(params: Params, cfg: ModelConfig, tokens: Tensor, *,
         # SWA ring: keep the last C positions, placed at their ring slots.
         slots = torch.arange(S - C, S, device=tokens.device) % C
         keep = slice(S - C, S)
-    for i, lp in enumerate(_layers(params)):
+    for i, lp in enumerate(layer_views(params)):
         h, k, v = _prompt_layer(h, lp, positions, cfg)
         cache["k"][i].index_copy_(1, slots, k[:, keep].to(cache["k"].dtype))
         cache["v"][i].index_copy_(1, slots, v[:, keep].to(cache["v"].dtype))

@@ -32,9 +32,9 @@ import torch
 from repro_torch.kernels.paged_attention.ops import paged_decode_attention
 from repro_torch.models import blocks
 from repro_torch.models.api import ModelConfig
-from repro_torch.models.params import Params
-from repro_torch.models.transformer import (EMPTY_POS, _ffn_block, _layers,
-                                            _qkv, embed_inputs, unembed)
+from repro_torch.models.params import Params, layer_views
+from repro_torch.models.transformer import (EMPTY_POS, _ffn_block, _qkv,
+                                            embed_inputs, unembed)
 
 Tensor = torch.Tensor
 
@@ -84,7 +84,7 @@ def paged_decode_step(params: Params, cfg: ModelConfig, k_pages: Tensor,
     page_of = tables[rows, (pos // page).long()].long()           # [S]
     off = (pos % page).long()
     lengths = pos + 1
-    for i, lp in enumerate(_layers(params)):
+    for i, lp in enumerate(layer_views(params)):
         q, k, v = _qkv(h, lp, positions, cfg)
         kp, vp = k_pages[i], v_pages[i]                 # [P, page, Hkv, D]
         kp.index_put_((page_of, off), k[:, 0].to(kp.dtype))
@@ -123,7 +123,7 @@ def paged_prefill_chunk(params: Params, cfg: ModelConfig, k_pages: Tensor,
                           torch.zeros_like(pidx))                 # [C]
     off = (positions[0] % page).long()
     table = table_row[None]
-    for i, lp in enumerate(_layers(params)):
+    for i, lp in enumerate(layer_views(params)):
         q, k, v = _qkv(h, lp, positions, cfg)
         kp, vp = k_pages[i], v_pages[i]
         kp.index_put_((page_of, off), k[0].to(kp.dtype))

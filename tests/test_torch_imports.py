@@ -40,7 +40,8 @@ def test_no_jax_or_repro_imports(path):
 
 def test_rollout_import_pulls_in_no_jax():
     code = ("import sys, repro_torch.rl.rollout, repro_torch.launch.serve, "
-            "repro_torch.serve, repro_torch.rl.agentic; "
+            "repro_torch.serve, repro_torch.rl.agentic, "
+            "repro_torch.launch.train, repro_torch.models.xlstm; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro')]; print(bad); assert not bad")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -74,6 +75,12 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for():
         PagedKVCache(cfg, max_slots=2, max_len=16)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         run(["--smoke", "--quiet", "--engine", "paged"])
+    from repro_torch.launch.train import run as train
+    from repro_torch.rl.async_trainer import AsyncGRPOTrainer
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        AsyncGRPOTrainer(cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train(["--smoke", "--quiet", "--arch", "xlstm-1.3b"])
     assert RolloutEngine(cfg, WeightStore(), device="cpu").device.type == "cpu"
     assert PagedEngine(cfg, store, device="cpu").device.type == "cpu"
     out = run(["--smoke", "--quiet", "--engine", "paged", "--device", "cpu",

@@ -146,3 +146,29 @@ def test_wrappers_run_the_plain_version_on_cpu_only():
     meta = torch.empty(1, 4, 2, 8, device="meta")
     with pytest.raises(ValueError):
         flash_attention(meta, meta, meta)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,Hkv,D,window", [
+    (1, 24, 24, 2, 2, 8, None),  # tests/test_kernels.py's gradient case
+    (2, 40, 40, 4, 2, 16, 9),    # GQA + window
+    (2, 33, 65, 4, 4, 24, None),  # Sq != Sk
+])
+def test_flash_attention_gradient_matches_jax(B, Sq, Sk, H, Hkv, D, window):
+    """The autograd backward of ``flash_attention`` (a recompute of the
+    plain attention) against ``jax.grad`` through the Pallas kernel's
+    ``custom_vjp`` in interpret mode."""
+    import jax
+    rng = np.random.default_rng(7 + Sq)
+    x = [rng.standard_normal(s).astype(np.float32) for s in
+         ((B, Sq, H, D), (B, Sk, Hkv, D), (B, Sk, Hkv, D))]
+    w = rng.standard_normal((B, Sq, H, D)).astype(np.float32)
+
+    def loss(q, k, v):
+        return jnp.sum(jax_flash(q, k, v, True, window, None, 8, 8, True) * w)
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(*(jnp.asarray(a) for a in x))
+    ts = [torch.from_numpy(a).requires_grad_() for a in x]
+    (flash_attention(*ts, True, window) * torch.from_numpy(w)).sum().backward()
+    for t, g in zip(ts, want):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(g),
+                                   **_tol("float32"))
