@@ -15,12 +15,23 @@ Phases (any failure exits non-zero before the result line):
    32- and 128-token rollouts of phase 3; paged decode at 32 slots over
    pages of 128 with mixed lengths up to prompt + 128 and shuffled
    tables, plus the permuted, poisoned, absurd-id and empty-row cases)
-   and one long shape each.  Times (CUDA events, median of 20 launches,
-   L2 flushed before each) for the kernel, its plain version and
-   ``scaled_dot_product_attention`` as a yardstick (for the paged kernel
-   over the pre-gathered dense cache: the gather is not timed), beside the
-   least time the card could take for the same work, at the B=32 bfloat16
-   shapes and the long shapes.
+   and one long shape each.  K1 has two kernels (``_variant``): every
+   bfloat16 case runs the tensor-core kernel through the wrapper (its
+   launch counted by variant) and the CUDA-core kernel through its C
+   entry, over a sweep of D 64 / 128, groups of 1, 5, 6, 7 and 8 heads,
+   Sq 2..160, windows 9 / 200, Sq != Sk and non-causal, and a case whose
+   rows at positions >= 47 attend nothing and must read 0.  K3 adds
+   n_split forced to 1, 2 and 7 over 8192 slots with one valid, a window
+   that empties the early splits, ring layouts over 1 and 4 splits,
+   groups of 5..8, D 64 / 128 and C not a multiple of the tile, and is
+   timed at n_split 1, 2, 4, 8 and the default at B=32 and B=8, 64 over
+   8192 slots.  Times
+   (CUDA events, median of 20 launches, L2 flushed before each) for the
+   kernel, its plain version and ``scaled_dot_product_attention`` as a
+   yardstick (for the paged kernel over the pre-gathered dense cache: the
+   gather is not timed), and K1's CUDA-core kernel in bfloat16 beside the
+   tensor-core one, beside the least time the card could take for the
+   same work, at the B=32 shapes and the long shapes.
 3. Full-width serve.  Static engine: ``repro_torch.launch.serve.run`` with
    the reference launcher's own setup (qwen-distill-1.5b, float32,
    tokenizer vocab, B=8, 32 new tokens, greedy), then a timed
@@ -34,9 +45,12 @@ Phases (any failure exits non-zero before the result line):
    it the static runs must read exactly 28 flash launches per prefill, 28
    flash-decode launches per decode step and no paged launch, and the
    paged runs exactly 28 paged launches per decode step and no other (the
-   paged prefill takes the masked path).  Profiled ``generate`` and
-   ``generate_groups`` calls then split a decode step into device busy
-   time and idle share (torch.profiler trace).
+   paged prefill takes the masked path); serve.run (float32) launches only
+   K1's CUDA-core kernel and the bfloat16 generate only its tensor-core
+   kernel.  Profiled ``generate`` and ``generate_groups`` calls then split
+   a decode step into device busy time and idle share (torch.profiler
+   trace), and report the device busy time before the first decode kernel
+   (weight fetch and prefill).
 4. Card against CPU, teacher-forced: the full width cut to 4 layers in
    float32, same params on both, 2 prompts.  Static: prefill + 8 decode
    steps fed the CPU's greedy tokens.  Paged: prefill in chunks of 16 over
@@ -479,15 +493,40 @@ def flash_grad_phase():
     return stats
 
 
+def _simt_flash(q, k, v, causal, window):
+    """K1's CUDA-core kernel (csrc/flash_attention_fwd.cu) through its C
+    entry, whatever the dtype: the wrapper sends bfloat16 at D = 64 or 128
+    to the tensor-core kernel, so this is how the sweep holds the older
+    design to the plain version in bfloat16 too, and how the phase times
+    it beside the new one.  Not counted as a launch."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops
+
+    B, Sq, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    o = torch.empty_like(q)
+    lib = ops._lib("simt")
+    err = lib.flash_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, Sq, Sk,
+        H, Hkv, D, int(causal), -1 if window is None else int(window),
+        1.0 / math.sqrt(D), ops._DTYPES[q.dtype], q.device.index or 0,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, "flash_attention_fwd", err)
+    return o
+
+
 def kernels_phase(prompt_len, new_tokens):
-    """Hold both kernels to their plain versions; time the main-path and
-    long shapes.  Returns the per-kernel records of the result line."""
+    """Hold K1 (both kernels) and K3 to their plain versions over the
+    sweeps; time the main-path and long shapes.  Returns the per-kernel
+    records of the result line."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention.ops import (
-        decode_attention, decode_attention_ref)
+        _num_splits, _sm_count, _waves, decode_attention,
+        decode_attention_ref)
     from repro_torch.kernels.flash_attention.ops import (
-        flash_attention, flash_attention_ref)
+        _variant, flash_attention, flash_attention_ref)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
@@ -500,108 +539,223 @@ def kernels_phase(prompt_len, new_tokens):
     serve_f = (8, prompt_len, prompt_len, 12, 2, 128)
     main_f = (32, prompt_len, prompt_len, 12, 2, 128)
     long_f = (4, 4096, 4096, 12, 2, 128)
+    # rows at positions >= 47 attend nothing (keys < 32, window 16)
+    masked_f = (2, 96, 32, 8, 2, 128)
     shapes = [((2, 33, 65, 4, 4, 24), m) for m in
               [(True, None), (True, 9), (False, None)]]
     shapes += [((2, 40, 40, 4, 2, 16), (True, 9)),
                ((1, 24, 24, 4, 1, 8), (True, None)),
                ((1, 128, 128, 8, 2, 64), (True, 20)),
+               (masked_f, (True, 16)),
                (serve_f, (True, None)), (main_f, (True, None)),
                (long_f, (True, None))]
-    for shape, (causal, window) in shapes:
+    # the tensor-core sweep: D 64 / 128, groups of 1 and of the
+    # 1.5B / 7B / 14B configs (6, 7, 5) and 8; lengths around the 128-row
+    # tile (G = 6, Sq = 22 is 132 rows); windows; Sq != Sk; non-causal
+    sweep = []
+    for D in (64, 128):
+        for G in (1, 5, 6, 7, 8):
+            sweep += [((2, S, S, 2 * G, 2, D), (True, None))
+                      for S in (2, 22, 33, 65, 100, 160)]
+            sweep += [((2, 100, 100, 2 * G, 2, D), m)
+                      for m in [(True, 9), (True, 200), (False, None)]]
+            sweep += [((2, 33, 65, 2 * G, 2, D), m)
+                      for m in [(True, None), (False, None)]]
+    for shape, (causal, window) in shapes + sweep:
+        B, Sq, Sk, H, Hkv, D = shape
+        errs = []
         for dtype in ("float32", "bfloat16"):
             q, k, v = flash_case(*shape, dtype, gen)
+            variant = _variant(q.dtype, D)
+            before = dict(flash_attention.launches_by_variant)
             got = flash_attention(q, k, v, causal, window)
+            after = flash_attention.launches_by_variant
+            if after[variant] != before[variant] + 1:
+                fail(f"flash_attention {shape} {dtype}: variant counts "
+                     f"{before} -> {after}, expected one {variant} launch")
             want = flash_attention_ref(q, k, v, causal, window)
-            _check("flash_attention_fwd", got, want, dtype, shape, fstats)
-            say(f"  flash_attention_fwd {shape} causal={causal} "
-                f"window={window} {dtype}: ok, max err "
-                f"{_max_err(got, want):.2e}")
-            del got, want
+            outs = {variant: got}
+            if variant == "wgmma":
+                outs["simt"] = _simt_flash(q, k, v, causal, window)
+            for name, out in outs.items():
+                _check(f"flash_attention_fwd ({name})", out, want, dtype,
+                       shape, fstats)
+                errs.append(f"{dtype} {name} {_max_err(out, want):.2e}")
+                if shape == masked_f and bool(out[:, 47:].abs().max() != 0):
+                    fail(f"flash_attention_fwd ({name}) {shape} {dtype}: "
+                         "rows that attend nothing are not 0")
+            del got, want, outs
             if shape in (main_f, long_f):
+                if dtype == "bfloat16" and variant != "wgmma":
+                    fail(f"flash_attention {shape} bf16 took {variant}")
                 qt, kt, vt = (x.transpose(1, 2).contiguous()
                               for x in (q, k, v))
                 n_bytes, flops = flash_work(*shape, causal, window,
                                             q.element_size())
                 bound, by = _bound_ms(n_bytes, flops, dtype)
-                timings[("flash", shape, dtype)] = dict(
+                t = dict(
                     ms=_time_ms(lambda: flash_attention(q, k, v, causal,
                                                         window), flush),
                     plain_ms=_time_ms(lambda: flash_attention_ref(
                         q, k, v, causal, window), flush),
                     library_ms=_time_ms(lambda: F.scaled_dot_product_attention(
                         qt, kt, vt, is_causal=True, enable_gqa=True), flush),
-                    bound_ms=bound, bound_by=by)
-                torch.cuda.synchronize()
+                    bound_ms=bound, bound_by=by, variant=variant)
+                if variant == "wgmma":
+                    t["simt_ms"] = _time_ms(lambda: _simt_flash(
+                        q, k, v, causal, window), flush)
+                timings[("flash", shape, dtype)] = t
+            del q, k, v
+            torch.cuda.synchronize()
+        if (shape, (causal, window)) in shapes or shape[3:] == (12, 2, 128):
+            say(f"  flash_attention_fwd {shape} causal={causal} "
+                f"window={window}: ok, max err " + ", ".join(errs))
+    say(f"  flash_attention_fwd tensor-core sweep: {len(sweep)} shapes, "
+        "both kernels in bf16 and the CUDA-core kernel in f32 hold to the "
+        "plain version; rows that attend nothing read 0")
 
     # -- flash decode (K3)
     serve_d = (8, 12, 2, 128, prompt_len + 32)
     main_d = (32, 12, 2, 128, prompt_len + new_tokens)
     long_d = (64, 12, 2, 128, 8192)
-    dshapes = [((2, 4, 2, 16, 24), w) for w in (None, 8)]
-    dshapes += [((2, 8, 1, 64, 40), 8), ((3, 6, 3, 20, 17), None),
-                ((4, 4, 2, 16, 40), 6), (serve_d, None), (main_d, None),
-                (long_d, None)]
-    for shape, window in dshapes:
-        B, H, Hkv, D, C = shape
-        valid = ([C] * B if shape in (serve_d, main_d, long_d)
-                 else [max(1, (C * (b + 1)) // (B + 1)) for b in range(B)])
-        for dtype in ("float32", "bfloat16"):
-            q, k, v, q_pos, k_pos = decode_case(*shape, valid, dtype, gen)
-            got = decode_attention(q, k, v, q_pos, k_pos, window=window)
-            want = decode_attention_ref(q, k, v, q_pos, k_pos, window=window)
-            _check("flash_decode", got, want, dtype, shape, dstats)
-            say(f"  flash_decode {shape} window={window} {dtype}: ok, max "
-                f"err {_max_err(got, want):.2e}")
-            if shape in (main_d, long_d):
-                qt = q[:, :, None]                       # [B, H, 1, D]
-                kt, vt = (x.transpose(1, 2).contiguous() for x in (k, v))
-                mask = ((k_pos >= 0) & (k_pos <= q_pos[:, None]))[:, None,
-                                                                  None]
-                n_bytes, flops = decode_work(*shape, valid, q.element_size())
-                bound, by = _bound_ms(n_bytes, flops, dtype)
-                timings[("decode", shape, dtype)] = dict(
-                    ms=_time_ms(lambda: decode_attention(
-                        q, k, v, q_pos, k_pos, window=window), flush),
-                    plain_ms=_time_ms(lambda: decode_attention_ref(
-                        q, k, v, q_pos, k_pos, window=window), flush),
-                    library_ms=_time_ms(lambda: F.scaled_dot_product_attention(
-                        qt, kt, vt, attn_mask=mask, enable_gqa=True), flush),
-                    bound_ms=bound, bound_by=by)
+    # (shape, window, forced n_split, valid lengths: "full", "one" or
+    # ragged)
+    dcases = [((2, 4, 2, 16, 24), w, None, "ragged") for w in (None, 8)]
+    dcases += [((2, 8, 1, 64, 40), 8, None, "ragged"),
+               ((3, 6, 3, 20, 17), None, None, "ragged"),
+               ((4, 4, 2, 16, 40), 6, None, "ragged"),
+               (serve_d, None, None, "full"), (main_d, None, None, "full"),
+               (long_d, None, None, "full")]
+    # most splits empty: one valid slot of 8192, n_split forced
+    dcases += [((2, 12, 2, 128, 8192), None, n, "one") for n in (1, 2, 7)]
+    # a window that empties the early splits
+    dcases += [((4, 12, 2, 128, 1000), 100, n, "full") for n in (None, 5)]
+    # groups of 5..8 heads, D 64 / 128, C not a multiple of the tile
+    dcases += [((3, 2 * G, 2, D, 77), w, n, "ragged")
+               for G in (5, 6, 7, 8) for D in (64, 128)
+               for w, n in [(None, None), (30, 3)]]
+    try:
+        for shape, window, force, lens in dcases:
+            B, H, Hkv, D, C = shape
+            valid = ([C] * B if lens == "full" else [1] * B if lens == "one"
+                     else [max(1, (C * (b + 1)) // (B + 1))
+                           for b in range(B)])
+            _num_splits.force = force
+            for dtype in ("float32", "bfloat16"):
+                q, k, v, q_pos, k_pos = decode_case(*shape, valid, dtype,
+                                                    gen)
+                n_split = _num_splits(B, Hkv, C, _sm_count(q.device),
+                                      waves=_waves(q.dtype, D), force=force)
+                got = decode_attention(q, k, v, q_pos, k_pos, window=window)
+                want = decode_attention_ref(q, k, v, q_pos, k_pos,
+                                            window=window)
+                _check("flash_decode", got, want, dtype, shape, dstats)
+                say(f"  flash_decode {shape} window={window} n_split="
+                    f"{n_split} {lens} {dtype}: ok, max err "
+                    f"{_max_err(got, want):.2e}")
+                if shape in (main_d, long_d):
+                    qt = q[:, :, None]                   # [B, H, 1, D]
+                    kt, vt = (x.transpose(1, 2).contiguous() for x in (k, v))
+                    mask = ((k_pos >= 0) & (k_pos <= q_pos[:, None]))[
+                        :, None, None]
+                    n_bytes, flops = decode_work(*shape, valid,
+                                                 q.element_size())
+                    bound, by = _bound_ms(n_bytes, flops, dtype)
+                    timings[("decode", shape, dtype)] = dict(
+                        ms=_time_ms(lambda: decode_attention(
+                            q, k, v, q_pos, k_pos, window=window), flush),
+                        plain_ms=_time_ms(lambda: decode_attention_ref(
+                            q, k, v, q_pos, k_pos, window=window), flush),
+                        library_ms=_time_ms(
+                            lambda: F.scaled_dot_product_attention(
+                                qt, kt, vt, attn_mask=mask, enable_gqa=True),
+                            flush),
+                        bound_ms=bound, bound_by=by, n_split=n_split)
+                del q, k, v, got, want
                 torch.cuda.synchronize()
-    # SWA ring layout: row 0's valid slots wrap around the ring of 16
-    ring_pos = [[20 - ((20 - s) % 16) for s in range(16)],
-                [s if s < 5 else EMPTY for s in range(16)]]
-    for dtype in ("float32", "bfloat16"):
-        q, k, v, _, _ = decode_case(2, 4, 2, 16, 16, [16, 16], dtype, gen)
-        q_pos = torch.tensor([20, 4], dtype=torch.int32, device="cuda")
-        k_pos = torch.tensor(ring_pos, dtype=torch.int32, device="cuda")
-        got = decode_attention(q, k, v, q_pos, k_pos, window=10)
-        want = decode_attention_ref(q, k, v, q_pos, k_pos, window=10)
-        _check("flash_decode", got, want, dtype, "ring", dstats)
-        say(f"  flash_decode ring C=16 window=10 {dtype}: ok, max err "
-            f"{_max_err(got, want):.2e}")
+        # SWA ring layouts: valid slots wrap around the ring (row 0) or
+        # are a prefix (row 1); C = 16 (one tile) and C = 64 over 4 splits
+        for C, qp, window, force, D in [(16, 20, 10, None, 16),
+                                        (64, 100, 40, 4, 128)]:
+            ring_pos = [[qp - ((qp - s) % C) for s in range(C)],
+                        [s if s < 5 else EMPTY for s in range(C)]]
+            _num_splits.force = force
+            for dtype in ("float32", "bfloat16"):
+                q, k, v, _, _ = decode_case(2, 12, 2, D, C, [C, C], dtype,
+                                            gen)
+                q_pos = torch.tensor([qp, 4], dtype=torch.int32,
+                                     device="cuda")
+                k_pos = torch.tensor(ring_pos, dtype=torch.int32,
+                                     device="cuda")
+                got = decode_attention(q, k, v, q_pos, k_pos, window=window)
+                want = decode_attention_ref(q, k, v, q_pos, k_pos,
+                                            window=window)
+                _check("flash_decode", got, want, dtype, "ring", dstats)
+                say(f"  flash_decode ring C={C} D={D} window={window} n_split="
+                    f"{force or 1} {dtype}: ok, max err "
+                    f"{_max_err(got, want):.2e}")
+        # the split count against time: n_split forced, and the default
+        split_sweep = {}
+        for shape in (main_d, (8, 12, 2, 128, 8192), long_d):
+            B, H, Hkv, D, C = shape
+            for dtype in ("float32", "bfloat16"):
+                q, k, v, q_pos, k_pos = decode_case(*shape, [C] * B, dtype,
+                                                    gen)
+                row = {}
+                for force in (1, 2, 4, 8, None):
+                    _num_splits.force = force
+                    n = _num_splits(B, Hkv, C, _sm_count(q.device),
+                                    waves=_waves(q.dtype, D), force=force)
+                    key = "default" if force is None else str(n)
+                    row[key] = dict(n_split=n, ms=_time_ms(
+                        lambda: decode_attention(q, k, v, q_pos, k_pos),
+                        flush))
+                split_sweep[f"{dtype} {shape}"] = row
+                say(f"  time flash_decode {shape} {dtype} by n_split: "
+                    + ", ".join(f"{key} {r['ms']:.4f} ms" if key != "default"
+                                else f"default ({r['n_split']}) "
+                                     f"{r['ms']:.4f} ms"
+                                for key, r in row.items()))
+                del q, k, v
+                torch.cuda.synchronize()
+    finally:
+        _num_splits.force = None
 
     for (kind, shape, dtype), t in sorted(timings.items(), key=str):
+        extra = "".join(f", {key} {t[key]}" for key in ("variant", "n_split")
+                        if key in t)
+        if "simt_ms" in t:
+            extra += f", CUDA-core kernel {t['simt_ms']:.4f} ms"
         say(f"  time {kind} {shape} {dtype}: kernel {t['ms']:.4f} ms, bound "
             f"{t['bound_ms']:.4f} ms ({t['bound_by']}), plain "
-            f"{t['plain_ms']:.4f} ms, sdpa {t['library_ms']:.4f} ms")
+            f"{t['plain_ms']:.4f} ms, sdpa {t['library_ms']:.4f} ms{extra}")
     say("kernels: both hold to their plain versions at every shape "
         f"({fstats['checks']} flash, {dstats['checks']} decode checks)")
+    flash = timings[("flash", main_f, "bfloat16")]
     records = {
         "flash_attention_fwd": dict(
             route="cuda",
-            source="src/repro_torch/kernels/csrc/flash_attention_fwd.cu",
+            source="src/repro_torch/kernels/csrc/flash_attention_fwd_sm90.cu",
+            sources={"wgmma": "src/repro_torch/kernels/csrc/"
+                              "flash_attention_fwd_sm90.cu",
+                     "simt": "src/repro_torch/kernels/csrc/"
+                             "flash_attention_fwd.cu"},
             replaces="src/repro/kernels/flash_attention/kernel.py:118",
             max_abs_err=fstats["max_abs_err"], checks=fstats["checks"],
-            **timings[("flash", main_f, "bfloat16")],
-            long=dict(shape=long_f, **timings[("flash", long_f, "bfloat16")])),
+            **flash,
+            float32=timings[("flash", main_f, "float32")],
+            long=dict(shape=long_f, **timings[("flash", long_f, "bfloat16")]),
+            long_float32=timings[("flash", long_f, "float32")]),
         "flash_decode": dict(
             route="cuda",
             source="src/repro_torch/kernels/csrc/flash_decode.cu",
             replaces="src/repro/kernels/decode_attention/kernel.py:90",
             max_abs_err=dstats["max_abs_err"], checks=dstats["checks"],
             **timings[("decode", main_d, "bfloat16")],
-            long=dict(shape=long_d, **timings[("decode", long_d, "bfloat16")])),
+            float32=timings[("decode", main_d, "float32")],
+            long=dict(shape=long_d, **timings[("decode", long_d, "bfloat16")]),
+            long_float32=timings[("decode", long_d, "float32")],
+            split_sweep=split_sweep),
     }
     return records
 
@@ -621,6 +775,19 @@ def _wrappers():
 def _reset_counts():
     for fn in _wrappers().values():
         fn.launches = 0
+    flash = _wrappers()["flash_attention_fwd"]
+    for variant in flash.launches_by_variant:
+        flash.launches_by_variant[variant] = 0
+
+
+def _expect_variants(what, want):
+    """K1's launches by kernel since the last _reset_counts()."""
+    got = dict(_wrappers()["flash_attention_fwd"].launches_by_variant)
+    if got != want:
+        fail(f"{what}: flash_attention launches by kernel {got}, expected "
+             f"{want}")
+    say(f"{what}: flash_attention launches by kernel {got}")
+    return got
 
 
 def _read_counts():
@@ -684,6 +851,8 @@ def serve_phase():
     out = run(["--arch", ARCH, "--batch", "8", "--max-new", "32", "--greedy"])
     counts = _read_counts()
     _expect_counts("serve.run", n_layers, out["decode_steps"], counts)
+    variants = {"serve.run": _expect_variants(
+        "serve.run", {"simt": n_layers, "wgmma": 0})}
     _check_rollouts("serve.run", out["rollouts"], 259, 32)
     say(f"serve.run: {out['tokens']} tokens in {out['seconds']:.3f} s "
         f"({out['tok_per_s']:.1f} tok/s, host clock, weight fetch included)")
@@ -706,6 +875,8 @@ def serve_phase():
     counts = _read_counts()
     _expect_counts("generate bf16 B=32", cfg.n_layers, m["decode_steps"],
                    counts)
+    variants["generate"] = _expect_variants(
+        "generate bf16 B=32", {"simt": 0, "wgmma": cfg.n_layers})
     _check_rollouts("generate bf16 B=32", rollouts, cfg.vocab, 128)
     n_tok = sum(len(r.completion_ids) for r in rollouts)
     gen = dict(tokens=n_tok, seconds=dt, tok_per_s=n_tok / dt,
@@ -721,7 +892,8 @@ def serve_phase():
         f"ms/step over {m['decode_steps']} steps (host clock)")
     engine.gen = GenConfig(max_new_tokens=9, greedy=True)
     gen["profile"] = profile_decode(lambda: engine.generate(tasks),
-                                    "flash_decode_kernel", "generate")
+                                    "flash_decode(_mma)?_kernel", "generate")
+    gen["flash_launches_by_variant"] = variants
     del engine, store
     torch.cuda.empty_cache()
     return serve_counts, gen
@@ -970,6 +1142,18 @@ def profile_decode(call, kernel, name):
         f"{out['idle_share']:.3f}; top kernels ms/step "
         + ", ".join(f"{k} {v:.3f}" for k, v in
                     out["top_kernels_ms_per_step"].items()))
+    # before the first decode kernel: the weight fetch and the prefill
+    pre = [k for k in kernels if k[0] < starts[0]]
+    if pre:
+        b = _busy(pre, pre[0][0], 1)
+        out["before_decode"] = dict(window_ms=b["window_ms"],
+                                    busy_ms=b["busy_ms"],
+                                    top_kernels_ms=b["top_kernels_ms"])
+        say(f"profile {name}, before the first decode kernel (weight fetch "
+            f"+ prefill): {b['window_ms']:.3f} ms, device busy "
+            f"{b['busy_ms']:.3f} ms; top kernels ms "
+            + ", ".join(f"{k} {v:.3f}" for k, v in
+                        b["top_kernels_ms"].items()))
     return out
 
 
@@ -1389,6 +1573,12 @@ def main() -> None:
     flash_grad_phase()
     counts, gen = serve_phase()
     records["flash_attention_fwd"]["launches"] = counts["flash_attention_fwd"]
+    by_variant = {v: sum(run[v] for run in
+                         gen["flash_launches_by_variant"].values())
+                  for v in ("simt", "wgmma")}
+    if min(by_variant.values()) < 1:
+        fail(f"a K1 kernel was not launched on the serving path: {by_variant}")
+    records["flash_attention_fwd"]["launches_by_variant"] = by_variant
     records["flash_decode"]["launches"] = counts["flash_decode"]
     say("serve summary " + json.dumps(gen))
     records["paged_flash_decode"]["launches"], paged = paged_serve_phase()

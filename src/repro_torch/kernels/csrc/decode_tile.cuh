@@ -1,12 +1,13 @@
-// Device code shared by the two one-token decode kernels, flash_decode.cu
-// (dense cache) and paged_flash_decode.cu (paged pool).
+// Device code of the one-token paged decode kernel, paged_flash_decode.cu.
+// (The dense-cache kernel, flash_decode.cu, left it for the split design of
+// split_decode.cuh, which the paged kernel can adopt in turn.)
 //
 // One block of kThreads threads serves one (KV head, row) pair.  It keeps
 // the G query heads of the group in shared memory (pre-scaled), walks the
 // row's cache in tiles of kTile slots, and runs an fp32 online softmax.
-// The kernels differ only in where a tile's slots live and which of them
-// are attended, so each fills, per slot of the tile, a flag (attended or
-// not) and the element offset of the slot's K/V row; stage_rows then
+// The kernel fills, per slot of the tile, a flag (attended or not) and
+// the element offset of the slot's K/V row (the page table says where a
+// slot lives, the row's length whether it is attended); stage_rows then
 // copies the attended rows into shared memory, attend_tile scores the G
 // heads against them and folds them into (acc, m, l), and store_out
 // writes acc / max(l, 1e-30).  A slot that is not attended is never read.

@@ -19,9 +19,11 @@
 // window's first tile and stops at the causal diagonal, so fully masked
 // tiles cost nothing (on the TPU they still took a grid step).  The
 // sequential k axis of the TPU grid becomes that loop; the VMEM carry
-// becomes per-thread registers.  Not yet fast: products run on the fp32
-// CUDA cores, not the tensor cores, and tiles are staged synchronously;
-// mma/wgmma on bf16 tiles with cp.async/TMA pipelining is the next step.
+// becomes per-thread registers.  Products run on the fp32 CUDA cores and
+// tiles are staged synchronously.  This kernel serves float32 (whose 2e-5
+// tolerance rules out TF32 and bf16 tensor cores) and the head dims the
+// tensor-core kernel does not take; bf16 at D = 64 or 128 goes to
+// flash_attention_fwd_sm90.cu (ops._variant).
 #include "common.cuh"
 
 namespace {

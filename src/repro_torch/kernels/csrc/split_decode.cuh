@@ -1,0 +1,706 @@
+// Split-cache one-token decode for Hopper: the block-level machinery that a
+// decode kernel over any cache layout builds on (flash_decode.cu, dense).
+//
+// A launch has grid (n_split, Hkv, B).  Block (s, hk, b) takes a contiguous
+// run of whole tiles of kTile slots of row b's cache (split s of n_split;
+// splits differ by at most one tile) and serves the G query heads of KV
+// head hk.  Two block bodies:
+//
+// decode_block_mma (bf16, D = 64 or 128): each of the 4 warps takes every
+//   4th tile of the split, copies it with 16-byte cp.async into its own
+//   ring of kMmaStages shared-memory stages (slots that are not attended
+//   are zero-filled, never read), and runs both products on the tensor
+//   cores with mma.sync m16n8k16: S[16 x 16] = Q K^T with the G heads as
+//   rows (rows G..15 zero) and O[16 x D] += P V with P straight from S's
+//   accumulator registers and V through ldmatrix.trans.  A tile of 16
+//   slots costs a warp 2 * D / 8 mma and D / 8 ldmatrix.x4, so the body
+//   keeps up with HBM.
+// decode_block (float32, and bf16 at other D): a row group of W lanes (W a
+//   power of two, at most 32) owns one slot at a time; lane ch holds the
+//   pieces ch, ch + W, ... (16 bytes each where D allows, else 1 element)
+//   of the G query rows and of its accumulators, and a score is W partial
+//   dots reduced with xor shuffles.  Each thread copies with cp.async
+//   exactly the pieces it will read, kCoreStages - 1 tiles ahead, so the
+//   tile loop needs no barrier.
+//
+// In both, a slot's position (or whatever the layout reads first) is
+// fetched a tile ahead of its copy, only attended slots are copied, and a
+// tile with none is skipped.  Every warp or row group runs its own fp32
+// online softmax (m, l, acc) with log2(e) folded into the scale; finish()
+// merges them through shared memory.  With one split the block writes o.
+// Otherwise it writes its fp32 partial (acc[G][D], m[G], l[G]) to scratch,
+// and the last block of a (b, hk) to finish (a __threadfence, then an
+// atomicAdd ticket on a counter that starts at 0) merges the n_split
+// partials, writes o and resets the counter to 0 for the next launch.  A
+// split, warp or row group that attended nothing has m = -1e30 and l = 0
+// and weighs exp2(-1e30 - M) = 0 in a merge (or 1 x l = 0 when nothing was
+// attended at all), so it adds nothing and no NaN; a head with nothing
+// attended writes 0.
+//
+// A layout supplies, for a slot of the row: fetch(slot), a value read
+// ahead of the copy (the slot's position for the dense cache; slots past
+// the row's end must give one that is not attended), attended(slot,
+// fetched), and offset(slot, fetched), the element offset of its K/V row
+// of head hk.
+#pragma once
+
+#include <type_traits>
+
+#include "common.cuh"
+#include "sm90.cuh"
+
+namespace repro {
+namespace split {
+
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr int kTile = 16;          // cache slots per tile
+constexpr int kCoreStages = 4;     // decode_block: tiles staged per thread
+constexpr int kMmaStages = 3;      // decode_block_mma: tiles staged per warp
+constexpr int kMaxSlots = kTile / (kThreads / 32);  // per row group (W = 32)
+constexpr int kMaxG = 8;
+constexpr int kMaxD = 256;
+constexpr int kMmaPad = 16;        // bytes after each staged row (no bank
+                                   // conflicts for ldmatrix)
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Lanes per row: the pieces of a row, rounded up to a power of two, at
+// most 32.
+inline int lanes_per_row(int pieces) {
+  int w = 1;
+  while (w < pieces && w < 32) w *= 2;
+  return w;
+}
+
+// Shared memory of the partials that finish() merges: RG owners.
+inline size_t merge_bytes(int RG, int G, int D) {
+  return sizeof(float) * (size_t)RG * G * (D + 2) + 16;
+}
+
+inline size_t core_smem_bytes(int elem, int G, int D, int W) {
+  const size_t stages = (size_t)kCoreStages * 2 * kTile * D * elem;
+  const size_t merge = merge_bytes(kThreads / W, G, D);
+  return stages > merge ? stages : merge;
+}
+
+inline size_t mma_smem_bytes(int G, int D) {
+  const size_t stages =
+      (size_t)kWarps * kMmaStages * 2 * kTile * (D * 2 + kMmaPad);
+  const size_t merge = merge_bytes(kWarps, G, D);
+  return stages > merge ? stages : merge;
+}
+
+// ---------------------------------------------------------------- merge
+// Merge RG partials (a_s [RG][G][D], m_s / l_s [RG][G], in shared memory,
+// synced) into o (one split) or into this split's scratch, and let the last
+// split of the (b, hk) merge the splits.  All threads call it.
+template <typename T>
+__device__ __forceinline__ void finish(
+    const float* a_s, const float* m_s, const float* l_s, int* last, int RG,
+    int G, int D, T* __restrict__ o_head, float* __restrict__ part_acc,
+    float* __restrict__ part_ml, int* __restrict__ counter, int split,
+    int n_split) {
+  const int tid = threadIdx.x;
+  for (int i = tid; i < G * D; i += kThreads) {
+    const int g = i / D, d = i - g * D;
+    float mx = kNegInf;
+    for (int r = 0; r < RG; ++r) mx = fmaxf(mx, m_s[r * G + g]);
+    float L = 0.f, A = 0.f;
+    for (int r = 0; r < RG; ++r) {
+      const float w = exp2f(m_s[r * G + g] - mx);
+      L = fmaf(l_s[r * G + g], w, L);
+      A = fmaf(a_s[((size_t)r * G + g) * D + d], w, A);
+    }
+    if (n_split == 1) {
+      o_head[i] = from_f32<T>(A / fmaxf(L, 1e-30f));
+    } else {
+      part_acc[(size_t)split * G * D + i] = A;
+      if (d == 0) {
+        part_ml[(split * G + g) * 2] = mx;
+        part_ml[(split * G + g) * 2 + 1] = L;
+      }
+    }
+  }
+  if (n_split == 1) return;
+
+  // the last split of this (b, hk) to finish merges all of them
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) *last = atomicAdd(counter, 1) == n_split - 1;
+  __syncthreads();
+  if (!*last) return;
+  __threadfence();
+  for (int i = tid; i < G * D; i += kThreads) {
+    const int g = i / D;
+    float mx = kNegInf;
+    for (int s = 0; s < n_split; ++s)
+      mx = fmaxf(mx, __ldcg(part_ml + (s * G + g) * 2));
+    float L = 0.f, A = 0.f;
+    for (int s = 0; s < n_split; ++s) {
+      const float w = exp2f(__ldcg(part_ml + (s * G + g) * 2) - mx);
+      L = fmaf(__ldcg(part_ml + (s * G + g) * 2 + 1), w, L);
+      A = fmaf(__ldcg(part_acc + (size_t)s * G * D + i), w, A);
+    }
+    o_head[i] = from_f32<T>(A / fmaxf(L, 1e-30f));
+  }
+  if (tid == 0) *counter = 0;      // ready for the next launch
+}
+
+// This split's tiles [lo, hi).
+__device__ __forceinline__ void split_tiles(int C, int split, int n_split,
+                                            int& lo, int& hi) {
+  const int n = (C + kTile - 1) / kTile;
+  lo = (int)((long long)split * n / n_split);
+  hi = (int)((long long)(split + 1) * n / n_split);
+}
+
+// ----------------------------------------------------- CUDA-core body
+// Copy VEC elements of T (a piece) from global to shared memory.
+template <typename T, int VEC>
+__device__ __forceinline__ void copy_piece(T* dst, const T* src) {
+  constexpr int kBytes = VEC * (int)sizeof(T);
+  if constexpr (kBytes >= 4) {
+    sm90::cp_async<kBytes>(dst, src);
+  } else {
+    *dst = *src;
+  }
+}
+
+template <typename T, int VEC>
+__device__ __forceinline__ void load_piece(const T* src, float (&x)[VEC]) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value && VEC == 8) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(src);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 f = __bfloat1622float2(h[e]);
+      x[2 * e] = f.x;
+      x[2 * e + 1] = f.y;
+    }
+  } else if constexpr (std::is_same<T, float>::value && VEC == 4) {
+    const float4 f = *reinterpret_cast<const float4*>(src);
+    x[0] = f.x;
+    x[1] = f.y;
+    x[2] = f.z;
+    x[3] = f.w;
+  } else {
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) x[e] = to_f32(src[e]);
+  }
+}
+
+// a ? x : y without a branch the compiler could turn into indexing
+__device__ __forceinline__ float select(bool a, float x, float y) {
+  float r;
+  asm("{\n .reg .pred p;\n setp.ne.s32 p, %3, 0;\n selp.f32 %0, %1, %2, p;\n}"
+      : "=f"(r)
+      : "f"(x), "f"(y), "r"((int)a));
+  return r;
+}
+
+// One step of the halving exchange over 2 O values: the lane with bit O
+// set keeps (and sums with its partner's) the upper O, the other the lower.
+template <int O>
+__device__ __forceinline__ void exchange(float (&x)[32], int lane) {
+  const bool up = lane & O;
+#pragma unroll
+  for (int j = 0; j < O; ++j) {
+    const float send = select(up, x[j], x[j + O]);
+    const float keep = select(up, x[j + O], x[j]);
+    x[j] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+  }
+}
+
+// q_head points at head 0 of the group ([G][D]), o_head likewise;
+// part_acc [n_split][G][D] and part_ml [n_split][G][2] are this (b, hk)'s
+// scratch, counter its ticket.  VEC elements make a piece; a lane holds up
+// to NC pieces of a row; W lanes share a row.  WIDE (W = 32, NC = 1: a
+// warp per row group, 4 slots a tile) reduces the 4 x 8 partial dots of a
+// tile (heads padded to 8) by halving exchanges, 31 shuffles where 4 G
+// butterflies take 20 G, so lane l ends with slot l / 8, head l % 8.
+template <typename T, int G, int VEC, int NC, bool WIDE, typename Layout>
+__device__ __forceinline__ void decode_block(
+    const Layout& lay, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ q_head, T* __restrict__ o_head,
+    float* __restrict__ part_acc, float* __restrict__ part_ml,
+    int* __restrict__ counter, int C, int D, int W, float scale_log2,
+    int split, int n_split, unsigned char* smem) {
+  constexpr int S = kCoreStages;
+  const int tid = threadIdx.x, rg = tid / W, ch = tid % W;
+  const int RG = kThreads / W;
+  const int nsl = (kTile + RG - 1) / RG;     // slots per row group per tile
+  const int pieces = (D + VEC - 1) / VEC;
+  int t_lo, t_hi;
+  split_tiles(C, split, n_split, t_lo, t_hi);
+
+  float q[NC][G][VEC], acc[NC][G][VEC], m[G], l[G];
+#pragma unroll
+  for (int j = 0; j < NC; ++j) {
+    const int pc = ch + W * j;
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        const int d = pc * VEC + e;
+        q[j][g][e] = pc < pieces && d < D
+                         ? to_f32(q_head[(size_t)g * D + d]) * scale_log2
+                         : 0.f;
+        acc[j][g][e] = 0.f;
+      }
+  }
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    m[g] = kNegInf;
+    l[g] = 0.f;
+  }
+
+  // stage of tile t, K (kv = 0) or V (1): [kTile][D]
+  auto stage = [&](int t, int kv) {
+    return reinterpret_cast<T*>(smem) +
+           (size_t)(2 * ((t - t_lo) % S) + kv) * kTile * D;
+  };
+  // fetched values of this thread's slots, one tile ahead of the copies
+  int fetched[kMaxSlots];
+  auto fetch_tile = [&](int t) {
+#pragma unroll
+    for (int i = 0; i < kMaxSlots; ++i) {
+      const int c = rg + RG * i;
+      fetched[i] = (i < nsl && c < kTile && t < t_hi)
+                       ? lay.fetch(t * kTile + c)
+                       : kEmptyPos;
+    }
+  };
+  // copy this thread's pieces of the attended slots of tile t; returns the
+  // attended mask of its slots
+  auto issue_tile = [&](int t) {
+    unsigned ok = 0;
+    if (t < t_hi) {
+      T* ks = stage(t, 0);
+      T* vs = stage(t, 1);
+#pragma unroll
+      for (int i = 0; i < kMaxSlots; ++i) {
+        const int c = rg + RG * i;
+        if (i < nsl && c < kTile && lay.attended(t * kTile + c, fetched[i])) {
+          ok |= 1u << i;
+          const long long off = lay.offset(t * kTile + c, fetched[i]);
+#pragma unroll
+          for (int j = 0; j < NC; ++j) {
+            const int pc = ch + W * j;
+            if (pc < pieces) {
+              copy_piece<T, VEC>(ks + c * D + pc * VEC, k + off + pc * VEC);
+              copy_piece<T, VEC>(vs + c * D + pc * VEC, v + off + pc * VEC);
+            }
+          }
+        }
+      }
+    }
+    sm90::cp_async_commit();
+    return ok;
+  };
+
+  // ok[i]: attended mask of tile t + i (tiles t .. t + S - 2 in flight)
+  unsigned ok[S];
+#pragma unroll
+  for (int i = 0; i < S - 1; ++i) {
+    fetch_tile(t_lo + i);
+    ok[i] = issue_tile(t_lo + i);
+  }
+  fetch_tile(t_lo + S - 1);
+  for (int t = t_lo; t < t_hi; ++t) {
+    ok[S - 1] = issue_tile(t + S - 1);
+    fetch_tile(t + S);
+    sm90::cp_async_wait<S - 1>();  // tile t's copies (this thread's) landed
+    const unsigned ok_t = ok[0];
+#pragma unroll
+    for (int i = 0; i < S - 1; ++i) ok[i] = ok[i + 1];
+    if (!__any_sync(0xffffffffu, ok_t)) continue;
+    const T* ks = stage(t, 0);
+    const T* vs = stage(t, 1);
+    if constexpr (WIDE) {
+      static_assert(NC == 1 && kMaxSlots == 4, "one piece, 4 slots a lane");
+      float x[32];                 // x[8 i + g]: slot i, head g
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float kx[VEC];
+        load_piece<T, VEC>(ks + (rg + 4 * i) * D + ch * VEC, kx);
+#pragma unroll
+        for (int g = 0; g < 8; ++g) {
+          x[8 * i + g] = 0.f;
+          if (g < G) {
+#pragma unroll
+            for (int e = 0; e < VEC; ++e)
+              x[8 * i + g] = fmaf(q[0][g][e], kx[e], x[8 * i + g]);
+          }
+        }
+      }
+      // halving exchange: lanes with bit o keep the upper half
+      exchange<16>(x, ch);
+      exchange<8>(x, ch);
+      exchange<4>(x, ch);
+      exchange<2>(x, ch);
+      exchange<1>(x, ch);
+      // unattended (or stale) slots never reach the softmax
+      const float sc = (ok_t >> (ch / 8)) & 1 ? x[0] : kNegInf;
+      float mx = fmaxf(sc, __shfl_xor_sync(0xffffffffu, sc, 8));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
+      mx = fmaxf(m[0], mx);        // m[0], l[0]: head ch % 8 of this lane
+      const float corr = exp2f(m[0] - mx);
+      // everything masked so far: exp(NEG - NEG) = 1 must not count
+      const float p = mx == kNegInf ? 0.f : exp2f(sc - mx);
+      float ps = p + __shfl_xor_sync(0xffffffffu, p, 8);
+      ps += __shfl_xor_sync(0xffffffffu, ps, 16);
+      l[0] = l[0] * corr + ps;
+      m[0] = mx;
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const float cg = __shfl_sync(0xffffffffu, corr, g);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) acc[0][g][e] *= cg;
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (!((ok_t >> i) & 1)) continue;    // V not copied (warp-uniform)
+        float vx[VEC];
+        load_piece<T, VEC>(vs + (rg + 4 * i) * D + ch * VEC, vx);
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          const float pg = __shfl_sync(0xffffffffu, p, 8 * i + g);
+#pragma unroll
+          for (int e = 0; e < VEC; ++e)
+            acc[0][g][e] = fmaf(pg, vx[e], acc[0][g][e]);
+        }
+      }
+      continue;
+    }
+    float s[kMaxSlots][G];
+#pragma unroll
+    for (int i = 0; i < kMaxSlots; ++i) {
+      const int c = min(rg + RG * i, kTile - 1);
+      float part[G];
+#pragma unroll
+      for (int g = 0; g < G; ++g) part[g] = 0.f;
+#pragma unroll
+      for (int j = 0; j < NC; ++j) {
+        const int pc = ch + W * j;
+        if (i < nsl && pc < pieces) {
+          float kx[VEC];
+          load_piece<T, VEC>(ks + c * D + pc * VEC, kx);
+#pragma unroll
+          for (int g = 0; g < G; ++g)
+#pragma unroll
+            for (int e = 0; e < VEC; ++e)
+              part[g] = fmaf(q[j][g][e], kx[e], part[g]);
+        }
+      }
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        for (int off = W / 2; off; off >>= 1)
+          part[g] += __shfl_xor_sync(0xffffffffu, part[g], off);
+        // unattended (or stale) slots never reach the softmax
+        s[i][g] = (ok_t >> i) & 1 ? part[g] : kNegInf;
+      }
+    }
+    // online softmax over the tile's slots of this row group, per head
+    float p[kMaxSlots][G];
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      float mx = m[g];
+#pragma unroll
+      for (int i = 0; i < kMaxSlots; ++i) mx = fmaxf(mx, s[i][g]);
+      const float corr = exp2f(m[g] - mx);
+      float sum = 0.f;
+#pragma unroll
+      for (int i = 0; i < kMaxSlots; ++i) {
+        // everything masked so far: exp(NEG - NEG) = 1 must not count
+        p[i][g] = mx == kNegInf ? 0.f : exp2f(s[i][g] - mx);
+        sum += p[i][g];
+      }
+      l[g] = l[g] * corr + sum;
+      m[g] = mx;
+#pragma unroll
+      for (int j = 0; j < NC; ++j)
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) acc[j][g][e] *= corr;
+    }
+#pragma unroll
+    for (int i = 0; i < kMaxSlots; ++i) {
+      if (!((ok_t >> i) & 1)) continue;    // V not copied
+      const int c = rg + RG * i;
+#pragma unroll
+      for (int j = 0; j < NC; ++j) {
+        const int pc = ch + W * j;
+        if (pc < pieces) {
+          float vx[VEC];
+          load_piece<T, VEC>(vs + c * D + pc * VEC, vx);
+#pragma unroll
+          for (int g = 0; g < G; ++g)
+#pragma unroll
+            for (int e = 0; e < VEC; ++e)
+              acc[j][g][e] = fmaf(p[i][g], vx[e], acc[j][g][e]);
+        }
+      }
+    }
+  }
+  sm90::cp_async_wait<0>();
+  __syncthreads();                 // the stages are free: merge row groups
+
+  float* a_s = reinterpret_cast<float*>(smem);        // [RG][G][D]
+  float* m_s = a_s + (size_t)RG * G * D;              // [RG][G]
+  float* l_s = m_s + RG * G;                          // [RG][G]
+#pragma unroll
+  for (int j = 0; j < NC; ++j) {
+    const int pc = ch + W * j;
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        const int d = pc * VEC + e;
+        if (pc < pieces && d < D)
+          a_s[((size_t)rg * G + g) * D + d] = acc[j][g][e];
+      }
+  }
+  if (WIDE) {
+    if (ch < G) {                  // lanes 0..G-1 hold heads 0..G-1
+      m_s[rg * G + ch] = m[0];
+      l_s[rg * G + ch] = l[0];
+    }
+  } else if (ch == 0) {
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      m_s[rg * G + g] = m[g];
+      l_s[rg * G + g] = l[g];
+    }
+  }
+  __syncthreads();
+  finish<T>(a_s, m_s, l_s, reinterpret_cast<int*>(l_s + RG * G), RG, G, D,
+            o_head, part_acc, part_ml, counter, split, n_split);
+}
+
+// ---------------------------------------------------- tensor-core body
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p,
+                                            bool trans) {
+  const uint32_t a = sm90::smem_u32(p);
+  if (trans)
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+        "[%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(a));
+  else
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(a));
+}
+
+// c[16 x 8] += a[16 x 16] * b[16 x 8], bf16 in, fp32 accumulate; rows
+// 8..15 of a are zero here (at most 8 heads), so a1 = a3 = 0.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0,
+                                         uint32_t a2, uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3},"
+      " {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(0u), "r"(a2), "r"(0u), "r"(b0), "r"(b1));
+}
+
+// 16 bytes from global to shared memory, or 16 zero bytes (nothing read)
+__device__ __forceinline__ void cp_async_16_or_zero(void* dst,
+                                                    const void* src,
+                                                    bool copy) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   sm90::smem_u32(dst)),
+               "l"(src), "r"(copy ? 16 : 0)
+               : "memory");
+}
+
+// bf16 body; D = 64 or 128, G = 1..8 (rows of the m16 tile).  Arguments as
+// decode_block.
+template <int D, typename Layout>
+__device__ __forceinline__ void decode_block_mma(
+    const Layout& lay, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v,
+    const __nv_bfloat16* __restrict__ q_head,
+    __nv_bfloat16* __restrict__ o_head, float* __restrict__ part_acc,
+    float* __restrict__ part_ml, int* __restrict__ counter, int C, int G,
+    float scale_log2, int split, int n_split, unsigned char* smem) {
+  using bf16 = __nv_bfloat16;
+  constexpr int S = kMmaStages;
+  constexpr int kRow = D * 2 + kMmaPad;        // staged row, bytes
+  constexpr int kStage = 2 * kTile * kRow;     // K then V
+  constexpr int kPieces = D / 8;               // 16-byte pieces a row
+  constexpr int kCopies = kTile * kPieces / 32;
+  constexpr int kN = D / 8;                    // n8 tiles of O
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  int t_lo, t_hi;
+  split_tiles(C, split, n_split, t_lo, t_hi);
+  t_lo += warp;                                // this warp: every 4th tile
+  unsigned char* ring = smem + (size_t)warp * S * kStage;
+
+  // Q as the A fragment of S = Q K^T (row g = head g, zero past G)
+  uint32_t qa[D / 16][2];
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      qa[kk][h] = g < G ? *reinterpret_cast<const uint32_t*>(
+                              q_head + (size_t)g * D + 16 * kk + 8 * h +
+                              2 * t4)
+                        : 0u;
+  float acc[kN][4];
+#pragma unroll
+  for (int j = 0; j < kN; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  float m = kNegInf, l = 0.f;      // head g
+
+  // lane l < kTile fetches slot l of a tile, one tile ahead of its copy
+  int fetched = kEmptyPos;
+  auto fetch_tile = [&](int t) {
+    fetched = lane < kTile && t < t_hi ? lay.fetch(t * kTile + lane)
+                                       : kEmptyPos;
+  };
+  auto issue_tile = [&](int u) {             // u: this warp's u-th tile
+    const int t = t_lo + kWarps * u;
+    const unsigned ok =
+        __ballot_sync(0xffffffffu, lane < kTile && t < t_hi &&
+                                       lay.attended(t * kTile + lane,
+                                                    fetched));
+    const int slot = t * kTile + lane;
+    const long long off =
+        lane < kTile ? lay.offset(slot, fetched) : 0;
+    if (ok) {
+      unsigned char* st = ring + (u % S) * kStage;
+#pragma unroll
+      for (int i = 0; i < kCopies; ++i) {
+        const int idx = lane + 32 * i, c = idx / kPieces, pc = idx % kPieces;
+        const long long row = __shfl_sync(0xffffffffu, off, c);
+        const bool copy = (ok >> c) & 1;
+        const long long src = copy ? row + pc * 8 : 0;
+        cp_async_16_or_zero(st + c * kRow + pc * 16, k + src, copy);
+        cp_async_16_or_zero(st + kTile * kRow + c * kRow + pc * 16, v + src,
+                            copy);
+      }
+    }
+    sm90::cp_async_commit();
+    return ok;
+  };
+
+  unsigned ok[S];
+#pragma unroll
+  for (int i = 0; i < S - 1; ++i) {
+    fetch_tile(t_lo + kWarps * i);
+    ok[i] = issue_tile(i);
+  }
+  fetch_tile(t_lo + kWarps * (S - 1));
+  for (int u = 0; t_lo + kWarps * u < t_hi; ++u) {
+    __syncwarp();                  // stage (u - 1) % S is read: refill it
+    ok[S - 1] = issue_tile(u + S - 1);
+    fetch_tile(t_lo + kWarps * (u + S));
+    sm90::cp_async_wait<S - 1>();
+    __syncwarp();                  // the warp's copies of tile u landed
+    const unsigned ok_t = ok[0];
+#pragma unroll
+    for (int i = 0; i < S - 1; ++i) ok[i] = ok[i + 1];
+    if (!ok_t) continue;
+    const unsigned char* ks = ring + (u % S) * kStage;
+    const unsigned char* vs = ks + kTile * kRow;
+
+    // S = Q K^T: n8 tile nt holds slots 8nt + 2 t4 + {0, 1} of head g
+    float sc[2][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int mi = lane / 8, r = lane % 8;
+      uint32_t b[4];
+      ldmatrix_x4(b, ks + (r + 8 * (mi / 2)) * kRow + (16 * kk + 8 * (mi % 2))
+                                                           * 2, false);
+      mma_bf16(sc[0], qa[kk][0], qa[kk][1], b[0], b[1]);
+      mma_bf16(sc[1], qa[kk][0], qa[kk][1], b[2], b[3]);
+    }
+    float mx = m;
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * nt + 2 * t4 + e;
+        sc[nt][e] = (ok_t >> c) & 1 ? sc[nt][e] * scale_log2 : kNegInf;
+        mx = fmaxf(mx, sc[nt][e]);
+      }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float corr = exp2f(m - mx);
+    float p[2][2], sum = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        // everything masked so far: exp(NEG - NEG) = 1 must not count
+        p[nt][e] = mx == kNegInf ? 0.f : exp2f(sc[nt][e] - mx);
+        sum += p[nt][e];
+      }
+    l = l * corr + sum;
+    m = mx;
+    const uint32_t pa0 = sm90::pack_bf16(p[0][0], p[0][1]);
+    const uint32_t pa2 = sm90::pack_bf16(p[1][0], p[1][1]);
+#pragma unroll
+    for (int j = 0; j < kN; ++j) {
+      acc[j][0] *= corr;
+      acc[j][1] *= corr;
+    }
+    // O += P V: V rows are slots (k), columns d (n), through ldmatrix.trans
+#pragma unroll
+    for (int j = 0; j < kN; j += 2) {
+      const int mi = lane / 8, r = lane % 8;
+      uint32_t b[4];
+      ldmatrix_x4(b, vs + (r + 8 * (mi % 2)) * kRow + (8 * j + 8 * (mi / 2))
+                                                          * 2, true);
+      mma_bf16(acc[j], pa0, pa2, b[0], b[1]);
+      mma_bf16(acc[j + 1], pa0, pa2, b[2], b[3]);
+    }
+  }
+  sm90::cp_async_wait<0>();
+  __syncthreads();                 // the stages are free: merge the warps
+
+  float* a_s = reinterpret_cast<float*>(smem);        // [4][G][D]
+  float* m_s = a_s + (size_t)kWarps * G * D;          // [4][G]
+  float* l_s = m_s + kWarps * G;                      // [4][G]
+  l += __shfl_xor_sync(0xffffffffu, l, 1);
+  l += __shfl_xor_sync(0xffffffffu, l, 2);
+  if (g < G) {
+#pragma unroll
+    for (int j = 0; j < kN; ++j) {
+      float* dst = a_s + ((size_t)warp * G + g) * D + 8 * j + 2 * t4;
+      dst[0] = acc[j][0];
+      dst[1] = acc[j][1];
+    }
+    if (t4 == 0) {
+      m_s[warp * G + g] = m;
+      l_s[warp * G + g] = l;
+    }
+  }
+  __syncthreads();
+  finish<bf16>(a_s, m_s, l_s, reinterpret_cast<int*>(l_s + kWarps * G),
+               kWarps, G, D, o_head, part_acc, part_ml, counter, split,
+               n_split);
+}
+
+// Call f(std::integral_constant<int, G>{}) for a run-time G in 1..kMaxG.
+template <typename F>
+cudaError_t with_group(int G, F&& f) {
+  switch (G) {
+    case 1: return f(std::integral_constant<int, 1>{});
+    case 2: return f(std::integral_constant<int, 2>{});
+    case 3: return f(std::integral_constant<int, 3>{});
+    case 4: return f(std::integral_constant<int, 4>{});
+    case 5: return f(std::integral_constant<int, 5>{});
+    case 6: return f(std::integral_constant<int, 6>{});
+    case 7: return f(std::integral_constant<int, 7>{});
+    case 8: return f(std::integral_constant<int, 8>{});
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace split
+}  // namespace repro

@@ -3,7 +3,9 @@
 Replaces the Pallas TPU kernel ``repro/kernels/decode_attention/kernel.py
 ::flash_decode``.  The CUDA source is ``kernels/csrc/flash_decode.cu``; its
 header says what bounds it on the H100 (HBM: cache bytes / 3.35 TB/s) and
-what the design does about that.
+what the design does about that: the cache is split across
+``_num_splits(B, Hkv, C)`` blocks per (row, KV head), whose fp32 partials
+merge in the same launch (``csrc/split_decode.cuh``).
 
 ``decode_attention`` takes ``[B, H, D]`` and returns ``[B, H, D]`` as the
 JAX entry point does.  On a CPU tensor it runs ``decode_attention_ref``; on
@@ -15,7 +17,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -24,19 +26,74 @@ from .ref import decode_attention_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_GROUP = 8          # query heads per KV head the kernel is built for
+TILE = 16              # cache slots per tile (split_decode.cuh kTile)
+MIN_SPLIT_TILES = 8    # tiles a split holds at least
+N_SM = 132             # the H100's SMs
 
 __all__ = ["decode_attention", "decode_attention_ref"]
+
+
+def _num_splits(B: int, Hkv: int, C: int, n_sm: int = N_SM,
+                waves: float = 2.0, force: Optional[int] = None) -> int:
+    """Blocks per (row, KV head): enough for ``waves`` waves over ``n_sm``
+    SMs (``B * Hkv * n >= waves * n_sm``) where the row has the tiles, with
+    every split at least MIN_SPLIT_TILES tiles of TILE slots long (each
+    split pays a merge of its fp32 partial), and 1 when C fits one tile.
+    ``force`` (tests and chip_smoke only) asks for a given count, capped at
+    the tiles."""
+    tiles = -(-C // TILE)
+    if force is not None:
+        return max(1, min(int(force), tiles))
+    want = math.ceil(waves * n_sm / (B * Hkv))
+    return max(1, min(want, tiles // MIN_SPLIT_TILES))
+
+
+_num_splits.force = None   # an override for every launch (tests, smoke)
+
+
+def _waves(dtype: torch.dtype, D: int) -> float:
+    """The waves ``_num_splits`` aims for with the body that serves
+    ``dtype`` at ``D``: the tensor-core body (bf16, D = 64 or 128) keeps 4
+    warps x 2 tiles in flight per block and fills HBM at half a wave; the
+    CUDA-core body needs two (measured: PERF.md §6)."""
+    return 0.5 if dtype == torch.bfloat16 and D in (64, 128) else 2.0
+
+
+# per device: the merge tickets, one int32 per (row, KV head), zeroed once
+# at creation; every launch leaves its counters at 0 again
+_COUNTERS: Dict[torch.device, torch.Tensor] = {}
+
+
+def _counters(device: torch.device, n: int) -> torch.Tensor:
+    buf = _COUNTERS.get(device)
+    if buf is None or buf.numel() < n:
+        buf = _COUNTERS[device] = torch.zeros(max(n, 256), dtype=torch.int32,
+                                              device=device)
+    return buf
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_decode")
     fn = lib.flash_decode
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                           ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
+
+
+_SMS: Dict[int, int] = {}   # per device index: its SMs
+
+
+def _sm_count(device: torch.device) -> int:
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    n = _SMS.get(index)
+    if n is None:
+        n = _SMS[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return n
 
 
 def decode_attention(
@@ -76,11 +133,24 @@ def decode_attention(
     if not all(t.is_contiguous() for t in (q, k, v, q_pos, k_pos)):
         raise ValueError("decode_attention: inputs must be contiguous")
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    G = H // Hkv
     o = torch.empty_like(q)
+    n_split = _num_splits(B, Hkv, C, _sm_count(q.device),
+                          waves=_waves(q.dtype, D), force=_num_splits.force)
+    part_acc = part_ml = counters = None
+    if n_split > 1:
+        part_acc = torch.empty(B * Hkv * n_split * G * D,
+                               dtype=torch.float32, device=q.device)
+        part_ml = torch.empty(B * Hkv * n_split * G * 2,
+                              dtype=torch.float32, device=q.device)
+        counters = _counters(q.device, B * Hkv)
     lib = _lib()
     err = lib.flash_decode(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
-        k_pos.data_ptr(), o.data_ptr(), B, C, Hkv, H // Hkv, D,
+        k_pos.data_ptr(), o.data_ptr(),
+        *(0 if t is None else t.data_ptr()
+          for t in (part_acc, part_ml, counters)),
+        B, C, Hkv, G, D, n_split,
         -1 if window is None else int(window), float(scale),
         _DTYPES[q.dtype], q.device.index or 0,
         torch.cuda.current_stream(q.device).cuda_stream)

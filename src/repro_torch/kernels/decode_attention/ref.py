@@ -37,3 +37,55 @@ def decode_attention_ref(
     o = torch.einsum("bhgc,bchd->bhgd", p, v.float())
     o = torch.where(any_ok, o, torch.zeros_like(o))
     return o.reshape(B, H, D).to(q.dtype)
+
+
+def decode_attention_split_ref(
+    q: torch.Tensor,         # [B, H, D]
+    k: torch.Tensor,         # [B, C, Hkv, D]
+    v: torch.Tensor,         # [B, C, Hkv, D]
+    q_pos: torch.Tensor,     # [B]
+    k_pos: torch.Tensor,     # [B, C]
+    n_split: int,
+    *,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+    tile: int = 1,
+) -> torch.Tensor:
+    """The split kernel's arithmetic in plain PyTorch: the cache's
+    ``ceil(C / tile)`` tiles are cut into ``n_split`` contiguous runs
+    (split s takes tiles ``s * n // n_split`` up to ``(s + 1) * n //
+    n_split``); each split keeps fp32 ``(acc, m, l)`` over its attended
+    slots (m = NEG_INF, l = 0 where it attends none), then the splits merge
+    with weights ``exp(m_s - M)``, and a head that attended nothing gives
+    0."""
+    B, H, D = q.shape
+    _, C, Hkv, _ = k.shape
+    G = H // Hkv
+    n_tiles = -(-C // tile)
+    if not 1 <= n_split <= n_tiles:
+        raise ValueError(f"n_split={n_split} with {n_tiles} tiles")
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+
+    qf = q.float().reshape(B, Hkv, G, D)
+    s = torch.einsum("bhgd,bchd->bhgc", qf, k.float()) * scale
+    ok = (k_pos >= 0) & (k_pos <= q_pos[:, None])
+    if window is not None:
+        ok = ok & (k_pos > (q_pos[:, None] - window))
+    ok = ok[:, None, None, :]
+    vf = v.float()
+    parts = []
+    for i in range(n_split):
+        lo = min(C, i * n_tiles // n_split * tile)
+        hi = min(C, (i + 1) * n_tiles // n_split * tile)
+        si = torch.where(ok[..., lo:hi], s[..., lo:hi],
+                         torch.full_like(s[..., lo:hi], NEG_INF))
+        m = si.max(dim=-1).values                        # [B, Hkv, G]
+        p = torch.where(ok[..., lo:hi], torch.exp(si - m[..., None]),
+                        torch.zeros_like(si))
+        acc = torch.einsum("bhgc,bchd->bhgd", p, vf[:, lo:hi])
+        parts.append((acc, m, p.sum(dim=-1)))
+    M = torch.stack([m for _, m, _ in parts]).max(dim=0).values
+    acc = sum(a * torch.exp(m - M)[..., None] for a, m, _ in parts)
+    den = sum(l * torch.exp(m - M) for _, m, l in parts)
+    o = acc / torch.clamp(den, min=1e-30)[..., None]
+    return o.reshape(B, H, D).to(q.dtype)

@@ -1,20 +1,25 @@
-"""Flash-attention forward: the hand-written Hopper kernel and its plain
-version.
+"""Flash-attention forward: the hand-written Hopper kernels and their
+plain version.
 
-Replaces the Pallas TPU kernel ``repro/kernels/flash_attention/kernel.py
-::flash_attention_fwd``.  The CUDA source is ``kernels/csrc/
-flash_attention_fwd.cu``; its header says what bounds it on the H100
-(tensor-core FLOPs at long S: ``4*B*H*Sq*Sk*D/2`` causal) and what the
-design does about that.
+Replace the Pallas TPU kernel ``repro/kernels/flash_attention/kernel.py
+::flash_attention_fwd``.  Each CUDA source's header says what bounds it
+on the H100 (tensor-core FLOPs at long S: ``4*B*H*Sq*Sk*D/2`` causal)
+and what its design does about that.
+
+Two kernels, chosen by ``_variant(dtype, D)``: ``"wgmma"``
+(``csrc/flash_attention_fwd_sm90.cu``: tensor cores, GQA-packed rows, TMA)
+for bfloat16 at D = 64 or 128, and ``"simt"`` (``csrc/
+flash_attention_fwd.cu``: fp32 CUDA cores) for float32 and every other D.
 
 ``flash_attention`` takes the model layout ``[B, S, H, D]`` as the JAX
 entry point does.  On a CPU tensor it runs ``flash_attention_ref``; on a
-CUDA tensor it launches the kernel (or raises) and counts the launch in
-``flash_attention.launches``.  It is an autograd function whose backward
-recomputes ``attention_ref`` (contiguous positions) under autograd, the
-port of the reference's ``custom_vjp`` (``repro/kernels/flash_attention/
-ops.py``, whose backward runs ``attention_ref`` under ``jax.vjp``): no
-backward kernel, as in the reference.
+CUDA tensor it launches a kernel (or raises) and counts the launch in
+``flash_attention.launches`` and, per variant, in
+``flash_attention.launches_by_variant``.  It is an autograd function
+whose backward recomputes ``attention_ref`` (contiguous positions) under
+autograd, the port of the reference's ``custom_vjp`` (``repro/kernels/
+flash_attention/ops.py``, whose backward runs ``attention_ref`` under
+``jax.vjp``): no backward kernel, as in the reference.
 """
 from __future__ import annotations
 
@@ -43,13 +48,50 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal=causal, window=window, scale=scale)
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("flash_attention_fwd")
-    fn = lib.flash_attention_fwd
+# the packed tensor-core kernel's tiles (flash_attention_fwd_sm90.cu)
+ROWS, KEYS = 128, 64
+_SOURCES = {"simt": "flash_attention_fwd", "wgmma": "flash_attention_fwd_sm90"}
+
+
+def _variant(dtype: torch.dtype, D: int) -> str:
+    """The kernel that serves ``dtype`` at head dim ``D``."""
+    return "wgmma" if dtype == torch.bfloat16 and D in (64, 128) else "simt"
+
+
+def _tile_plan(Sq: int, Sk: int, G: int, causal: bool,
+               window: Optional[int]):
+    """The packed kernel's walk, block by block for one (b, hk): packed
+    row R is (position R // G, head R % G of the group); a block holds
+    ROWS packed rows and visits key tiles of KEYS keys from the window's
+    first tile to the causal diagonal of its last position, masking only
+    the tiles that straddle Sk, the diagonal or the window edge.  Yields
+    ``(r0, r1, [(k0, masked), ...])`` per block (rows r0..r1-1); the CUDA
+    kernel computes the same."""
+    rows = Sq * G
+    for r0 in range(0, rows, ROWS):
+        r1 = min(r0 + ROWS, rows)
+        p_lo, p_hi = r0 // G, (r1 - 1) // G
+        hi = min(Sk, p_hi + 1) if causal else Sk
+        lo = max(0, p_lo - window + 1) if window is not None else 0
+        lo = lo // KEYS * KEYS
+        tiles = []
+        for k0 in range(lo, hi, KEYS):
+            full = (k0 + KEYS <= Sk and (not causal or k0 + KEYS - 1 <= p_lo)
+                    and (window is None or k0 > p_hi - window))
+            tiles.append((k0, not full))
+        yield r0, r1, tiles
+
+
+def _lib(variant: str) -> ctypes.CDLL:
+    name = _SOURCES[variant]
+    lib = _build.load(name)
+    fn = getattr(lib, name)
     if fn.argtypes is None:
+        # the simt entry also takes the dtype before the device
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                          ctypes.c_void_p])
+                       + [ctypes.c_float]
+                       + [ctypes.c_int] * (2 if variant == "simt" else 1)
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
 
@@ -80,15 +122,23 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash_attention: inputs must be contiguous")
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     o = torch.empty_like(q)
-    lib = _lib()
-    err = lib.flash_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        B, Sq, Sk, H, Hkv, D, int(causal),
-        -1 if window is None else int(window), float(scale),
-        _DTYPES[q.dtype], q.device.index or 0,
+    variant = _variant(q.dtype, D)
+    lib = _lib(variant)
+    name = _SOURCES[variant]
+    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            B, Sq, Sk, H, Hkv, D, int(causal),
+            -1 if window is None else int(window), float(scale))
+    if variant == "simt":
+        head += (_DTYPES[q.dtype],)
+    elif any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: the bfloat16 kernel needs "
+                         "16-byte aligned q, k, v")
+    err = getattr(lib, name)(
+        *head, q.device.index or 0,
         torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(lib, "flash_attention_fwd", err)
+    _build.check(lib, name, err)
     flash_attention.launches += 1
+    flash_attention.launches_by_variant[variant] += 1
     return o
 
 
@@ -105,3 +155,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_variant = {"simt": 0, "wgmma": 0}
