@@ -25,13 +25,19 @@ Phases (any failure exits non-zero before the result line):
    that empties the early splits, ring layouts over 1 and 4 splits,
    groups of 5..8, D 64 / 128 and C not a multiple of the tile, and is
    timed at n_split 1, 2, 4, 8 and the default at B=32 and B=8, 64 over
-   8192 slots.  Times
+   8192 slots.  K2, on the same split-cache kernels, gets the same split
+   cases over the paged layout (pages of 4 / 16 / 128) and the same split
+   sweep.  K4 has two kernels (``_variant``): the tensor-core kernel
+   (bfloat16 at D 64..512) runs through the wrapper at the CPU sweep's
+   shapes widened to D 64 / 128 / 256 and at D 512 (train, prefill and
+   long shapes), the CUDA-core kernel through its C entry beside it, both
+   with the final carry.  Times
    (CUDA events, median of 20 launches, L2 flushed before each) for the
    kernel, its plain version and ``scaled_dot_product_attention`` as a
    yardstick (for the paged kernel over the pre-gathered dense cache: the
-   gather is not timed), and K1's CUDA-core kernel in bfloat16 beside the
-   tensor-core one, beside the least time the card could take for the
-   same work, at the B=32 shapes and the long shapes.
+   gather is not timed), and K1's and K4's CUDA-core kernels in bfloat16
+   beside their tensor-core ones, beside the least time the card could
+   take for the same work, at the B=32 shapes and the long shapes.
 3. Full-width serve.  Static engine: ``repro_torch.launch.serve.run`` with
    the reference launcher's own setup (qwen-distill-1.5b, float32,
    tokenizer vocab, B=8, 32 new tokens, greedy), then a timed
@@ -50,12 +56,18 @@ Phases (any failure exits non-zero before the result line):
    kernel.  Profiled ``generate`` and ``generate_groups`` calls then split
    a decode step into device busy time and idle share (torch.profiler
    trace), and report the device busy time before the first decode kernel
-   (weight fetch and prefill).
+   (weight fetch and prefill).  Training: ``repro_torch.launch.train`` at
+   full width with the launcher's setup (float32: xlstm-1.3b 3 steps, its
+   scans all on K4's CUDA-core kernel; qwen 2 steps), then timed and
+   profiled GRPO steps of xlstm-1.3b on the published config (bfloat16,
+   remat): 2 x 48 scan launches a step, all on the tensor-core kernel.
 4. Card against CPU, teacher-forced: the full width cut to 4 layers in
    float32, same params on both, 2 prompts.  Static: prefill + 8 decode
    steps fed the CPU's greedy tokens.  Paged: prefill in chunks of 16 over
    pages of 16 (so chunks with p0 > 0 run) + 8 paged decode steps with an
-   inactive third slot.  Logits agree within 1e-3 of max |logit|.
+   inactive third slot.  Logits agree within 1e-3 of max |logit|.  xlstm:
+   forward, prefill carry and 8 decode steps (its scans on the CUDA-core
+   kernel); one train step of each family, loss and grad_norm within 1e-3.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -242,8 +254,9 @@ def paged_kernel_phase(prompt_len, new_tokens):
     main-path and long shapes.  Returns its record of the result line."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention.ops import _num_splits, _sm_count
     from repro_torch.kernels.paged_attention.ops import (
-        paged_decode_attention, paged_decode_attention_ref)
+        _paged_splits, paged_decode_attention, paged_decode_attention_ref)
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
@@ -309,16 +322,47 @@ def paged_kernel_phase(prompt_len, new_tokens):
         if bool(got[0].any()):
             fail("paged_flash_decode: a row of length 0 is not 0")
 
+    # K3's split cases over the paged layout, n_split forced through
+    # _num_splits.force (shared by both kernels): most splits empty (one
+    # valid slot of 8192), a window that empties the early splits, pages of
+    # 4 / 16 / 128 (tiles spanning pages), groups of 5..8 heads at D 64 /
+    # 128 with and without a window
+    pcases = [((2, 12, 2, 128, 16, 512), None, n, "one") for n in (1, 2, 7)]
+    pcases += [((4, 12, 2, 128, 16, 63), 100, n, "full") for n in (None, 5)]
+    pcases += [((3, 12, 2, 128, page, -(-1000 // page)), None, None,
+                "ragged") for page in (4, 16, 128)]
+    pcases += [((3, 2 * G, 2, D, 8, 10), w, n, "ragged")
+               for G in (5, 6, 7, 8) for D in (64, 128)
+               for w, n in [(None, None), (30, 3)]]
+    try:
+        for shape, window, force, kind in pcases:
+            B, H, Hkv, D, page, maxp = shape
+            C = maxp * page
+            lens = ([C] * B if kind == "full" else [1] * B if kind == "one"
+                    else [max(1, C * (b + 1) // (B + 1)) for b in range(B)])
+            _num_splits.force = force
+            for dtype in ("float32", "bfloat16"):
+                args = paged_case(*shape, lens, dtype, gen)
+                n_split = _paged_splits(B, Hkv, maxp, page, window,
+                                        args[0].dtype, D, _sm_count(
+                                            args[0].device))
+                check(f"window={window} n_split={n_split} {kind}",
+                      paged_decode_attention(*args, window=window),
+                      paged_decode_attention_ref(*args, window=window),
+                      dtype, shape)
+    finally:
+        _num_splits.force = None
+
     # the main path (32 slots, pages of 128, lengths up to prompt + 128)
     # and the long shape
     cap = prompt_len + new_tokens
     main = (32, 12, 2, 128, 128, -(-cap // 128))
     long = (64, 12, 2, 128, 128, 64)
+    main_lens = torch.randint(prompt_len, cap + 1, (32,), generator=gen,
+                              device="cuda").tolist()
     for shape in (main, long):
         B, H, Hkv, D, page, maxp = shape
-        lens = (torch.randint(prompt_len, cap + 1, (B,), generator=gen,
-                              device="cuda").tolist() if shape == main
-                else [8192] * B)
+        lens = main_lens if shape == main else [8192] * B
         for dtype in ("float32", "bfloat16"):
             args = paged_case(*shape, lens, dtype, gen)
             check("lengths " + ("mixed" if shape == main else "8192"),
@@ -341,14 +385,45 @@ def paged_kernel_phase(prompt_len, new_tokens):
                                   flush),
                 library_ms=_time_ms(lambda: F.scaled_dot_product_attention(
                     qt, kd, vd, attn_mask=mask, enable_gqa=True), flush),
-                bound_ms=bound, bound_by=by)
+                bound_ms=bound, bound_by=by,
+                n_split=_paged_splits(B, Hkv, maxp, page, None, q.dtype, D,
+                                      _sm_count(q.device)))
             del kd, vd
             torch.cuda.synchronize()
     for shape, t in timings.items():
         say(f"  time paged {shape} bfloat16: kernel {t['ms']:.4f} ms, bound "
             f"{t['bound_ms']:.4f} ms ({t['bound_by']}), plain "
             f"{t['plain_ms']:.4f} ms, sdpa over the pre-gathered cache "
-            f"(gather not timed) {t['library_ms']:.4f} ms")
+            f"(gather not timed) {t['library_ms']:.4f} ms, n_split "
+            f"{t['n_split']}")
+
+    # the split count against time: n_split forced, and the default
+    split_sweep = {}
+    try:
+        for shape in (main, (8, 12, 2, 128, 128, 64), long):
+            B, H, Hkv, D, page, maxp = shape
+            lens = main_lens if shape == main else [8192] * B
+            for dtype in ("float32", "bfloat16"):
+                args = paged_case(*shape, lens, dtype, gen)
+                row = {}
+                for force in (1, 2, 4, 8, None):
+                    _num_splits.force = force
+                    n = _paged_splits(B, Hkv, maxp, page, None,
+                                      args[0].dtype, D,
+                                      _sm_count(args[0].device))
+                    key = "default" if force is None else str(n)
+                    row[key] = dict(n_split=n, ms=_time_ms(
+                        lambda: paged_decode_attention(*args), flush))
+                split_sweep[f"{dtype} {shape}"] = row
+                say(f"  time paged {shape} {dtype} by n_split: "
+                    + ", ".join(f"{key} {r['ms']:.4f} ms" if key != "default"
+                                else f"default ({r['n_split']}) "
+                                     f"{r['ms']:.4f} ms"
+                                for key, r in row.items()))
+                del args
+                torch.cuda.synchronize()
+    finally:
+        _num_splits.force = None
     say(f"kernels: paged_flash_decode holds to its plain version at every "
         f"shape ({stats['checks']} checks)")
     return dict(
@@ -358,7 +433,8 @@ def paged_kernel_phase(prompt_len, new_tokens):
         max_abs_err=stats["max_abs_err"], checks=stats["checks"],
         library="scaled_dot_product_attention over the pre-gathered dense "
                 "cache (gather not timed)",
-        **timings[main], long=dict(shape=long, **timings[long]))
+        **timings[main], long=dict(shape=long, **timings[long]),
+        split_sweep=split_sweep)
 
 
 def mlstm_case(B, S, H, D, dtype, gen):
@@ -401,12 +477,63 @@ def mlstm_work(B, S, H, D, chunk, itemsize):
                                           + 4.0 * chunk * D ** 2)
 
 
-def ssm_kernel_phase(train_len):
-    """Hold the mLSTM scan kernel (K4) to its plain chunkwise version in
-    float32 and bfloat16, the final carry included; time the main-path
-    and long shapes.  Returns its record of the result line."""
+def _pass_ms(fn, names, reps=5):
+    """Device ms per call of each kernel of ``fn`` whose name holds one of
+    ``names`` (torch.profiler, ``reps`` calls, L2 not flushed)."""
     import torch
-    from repro_torch.kernels.ssm_scan.ops import mlstm_scan
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {name: sum(e.device_time_total for e in prof.key_averages()
+                      if name in e.key) / reps / 1e3 for name in names}
+
+
+def _simt_scan(q, k, v, ig, fg, chunk, return_state=False):
+    """K4's CUDA-core kernel (csrc/mlstm_scan.cu) through its C entry,
+    whatever the dtype, on the model layout with the wrapper's padding and
+    flattening: the wrapper sends bfloat16 at D in MMA_D to the tensor-core
+    kernel, so this is how the phase holds the older design to the plain
+    version in bfloat16 too, and times it beside the new one.  Not counted
+    as a launch."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ssm_scan import ops
+
+    def flat(q, k, v, ig, fg, chunk, return_state):
+        BH, S, D = q.shape
+        h = torch.empty_like(q)
+        state = ops._empty_state(BH, D, q.device) if return_state else None
+        lib = ops._lib("simt")
+        err = lib.mlstm_scan(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), ig.data_ptr(),
+            fg.data_ptr(), h.data_ptr(), *ops._state_ptrs(state), BH, S, D,
+            chunk, 1.0 / math.sqrt(D), ops._DTYPES[q.dtype],
+            q.device.index or 0,
+            torch.cuda.current_stream(q.device).cuda_stream)
+        _build.check(lib, "mlstm_scan", err)
+        return (h, state) if return_state else h
+
+    B, _, H, D = q.shape
+    out = ops._on_flat(flat, q, k, v, ig, fg, chunk, return_state)
+    if not return_state:
+        return out
+    h, (C, n, m) = out
+    return h, (C.reshape(B, H, D, D), n.reshape(B, H, D), m.reshape(B, H))
+
+
+def ssm_kernel_phase(train_len):
+    """Hold both mLSTM scan kernels (K4: ``_variant`` picks "mma" for bf16
+    at D in MMA_D, "simt" otherwise) to the plain chunkwise version in
+    float32 and bfloat16, the final carry included; time the main-path and
+    long shapes, the CUDA-core kernel in bf16 beside the tensor-core one.
+    Returns its record of the result line."""
+    import torch
+    from repro_torch.kernels.ssm_scan.ops import _variant, mlstm_scan
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
@@ -419,50 +546,88 @@ def ssm_kernel_phase(train_len):
         say(f"  mlstm_scan {shape} {what} {dtype}: ok, max err "
             f"{_max_err(got, want):.2e}")
 
-    # the CPU test sweep (B, S, H, D, chunk), S = 50 the padding path;
-    # then the xlstm-1.3b train batch of the launcher (8 x 4 heads, S 160
-    # padded to 192), its prefill (S 33) and a long shape
+    # the CPU test sweep (B, S, H, D, chunk), S = 50 the padding path, and
+    # the same at the D the tensor-core kernel is built for; then the
+    # xlstm-1.3b train batch of the launcher (8 x 4 heads, S 160 padded to
+    # 192), its prefill (S 33) and a long shape
     main = (8, train_len, 4, 512, chunk)
     prefill = (8, 33, 4, 512, chunk)
     long = (4, 4096, 4, 512, chunk)
-    shapes = [(1, 16, 1, 8, 8), (2, 50, 4, 16, 16), (1, 64, 2, 32, 32),
-              main, prefill, long]
-    for shape in shapes:
+    sweep = [(1, 16, 1, 8, 8), (2, 50, 4, 16, 16), (1, 64, 2, 32, 32)]
+    sweep += [(B, S, H, D, T) for (B, S, H, _, T), D in
+              zip(sweep, (64, 128, 256))]
+    with_state = (prefill, main, (2, 50, 4, 16, 16), (2, 50, 4, 128, 16))
+    for shape in sweep + [main, prefill, long]:
         B, S, H, D, T = shape
         for dtype in ("float32", "bfloat16"):
             args = mlstm_case(B, S, H, D, dtype, gen)
-            check("h", mlstm_scan(*args, chunk=T),
-                  mlstm_plain(*args, T), dtype, shape)
-            if shape in (prefill, main, (2, 50, 4, 16, 16)):
-                h, state = mlstm_scan(*args, chunk=T, return_state=True)
+            variant = _variant(args[0].dtype, D)
+            before = dict(mlstm_scan.launches_by_variant)
+            got = mlstm_scan(*args, chunk=T)
+            if (mlstm_scan.launches_by_variant[variant]
+                    != before[variant] + 1):
+                fail(f"mlstm_scan {shape} {dtype}: variant counts {before} "
+                     f"-> {mlstm_scan.launches_by_variant}, expected one "
+                     f"{variant} launch")
+            want = mlstm_plain(*args, T)
+            check(f"h ({variant})", got, want, dtype, shape)
+            if variant == "mma":
+                check("h (simt)", _simt_scan(*args, T), want, dtype, shape)
+            del got, want
+            if shape in with_state:
                 h_ref, ref = mlstm_plain(*args, T, return_state=True)
-                check("h with state", h, h_ref, dtype, shape)
-                for name, got, want in zip("Cnm", state, ref):
-                    check(f"final {name}", got, want, dtype, shape)
+                runs = {variant: mlstm_scan(*args, chunk=T,
+                                            return_state=True)}
+                if variant == "mma":
+                    runs["simt"] = _simt_scan(*args, T, return_state=True)
+                for name, (h, state) in runs.items():
+                    check(f"h with state ({name})", h, h_ref, dtype, shape)
+                    for part, got, want in zip("Cnm", state, ref):
+                        check(f"final {part} ({name})", got, want, dtype,
+                              shape)
+                del runs, h_ref, ref
             if shape in (main, long):
+                if dtype == "bfloat16" and variant != "mma":
+                    fail(f"mlstm_scan {shape} bf16 took {variant}")
                 n_bytes, flops = mlstm_work(B, S, H, D, T,
                                             args[0].element_size())
                 bound, by = _bound_ms(n_bytes, flops, dtype)
-                timings[(shape, dtype)] = dict(
+                t = dict(
                     ms=_time_ms(lambda: mlstm_scan(*args, chunk=T), flush),
                     plain_ms=_time_ms(lambda: mlstm_plain(*args, T), flush),
-                    library_ms=None, bound_ms=bound, bound_by=by)
+                    library_ms=None, bound_ms=bound, bound_by=by,
+                    variant=variant)
+                if variant == "mma":
+                    t["simt_ms"] = _time_ms(lambda: _simt_scan(*args, T),
+                                            flush)
+                    t["passes_ms"] = _pass_ms(lambda: mlstm_scan(
+                        *args, chunk=T), ("mlstm_intra", "mlstm_carry"))
+                timings[(shape, dtype)] = t
             del args
             torch.cuda.synchronize()
     for (shape, dtype), t in timings.items():
-        say(f"  time mlstm_scan {shape} {dtype}: kernel {t['ms']:.4f} ms, "
-            f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}), plain "
-            f"{t['plain_ms']:.4f} ms, no single PyTorch call")
-    say(f"kernels: mlstm_scan holds to its plain version at every shape "
-        f"({stats['checks']} checks)")
+        extra = (f", CUDA-core kernel {t['simt_ms']:.4f} ms, by pass "
+                 + ", ".join(f"{k} {v:.4f} ms" for k, v in
+                             t["passes_ms"].items())
+                 if "simt_ms" in t else "")
+        say(f"  time mlstm_scan {shape} {dtype} ({t['variant']}): kernel "
+            f"{t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_by']}), plain {t['plain_ms']:.4f} ms, no single "
+            f"PyTorch call{extra}")
+    say(f"kernels: mlstm_scan (both kernels) holds to its plain version at "
+        f"every shape ({stats['checks']} checks)")
     return dict(
-        route="cuda", source="src/repro_torch/kernels/csrc/mlstm_scan.cu",
+        route="cuda",
+        source="src/repro_torch/kernels/csrc/mlstm_scan_sm90.cu",
+        sources={"mma": "src/repro_torch/kernels/csrc/mlstm_scan_sm90.cu",
+                 "simt": "src/repro_torch/kernels/csrc/mlstm_scan.cu"},
         replaces="src/repro/kernels/ssm_scan/kernel.py:87",
         max_abs_err=stats["max_abs_err"], checks=stats["checks"],
         library="none: no single PyTorch call computes the mLSTM scan",
         **timings[(main, "bfloat16")],
         float32=timings[(main, "float32")],
-        long=dict(shape=long, **timings[(long, "bfloat16")]))
+        long=dict(shape=long, **timings[(long, "bfloat16")]),
+        long_float32=timings[(long, "float32")])
 
 
 def flash_grad_phase():
@@ -775,9 +940,13 @@ def _wrappers():
 def _reset_counts():
     for fn in _wrappers().values():
         fn.launches = 0
-    flash = _wrappers()["flash_attention_fwd"]
-    for variant in flash.launches_by_variant:
-        flash.launches_by_variant[variant] = 0
+        for variant in getattr(fn, "launches_by_variant", {}):
+            fn.launches_by_variant[variant] = 0
+
+
+def _scan_variants():
+    """K4's launches by kernel since the last _reset_counts()."""
+    return dict(_wrappers()["mlstm_scan"].launches_by_variant)
 
 
 def _expect_variants(what, want):
@@ -892,7 +1061,8 @@ def serve_phase():
         f"ms/step over {m['decode_steps']} steps (host clock)")
     engine.gen = GenConfig(max_new_tokens=9, greedy=True)
     gen["profile"] = profile_decode(lambda: engine.generate(tasks),
-                                    "flash_decode(_mma)?_kernel", "generate")
+                                    "decode_(mma_)?kernel<.*DenseRows",
+                                    "generate")
     gen["flash_launches_by_variant"] = variants
     del engine, store
     torch.cuda.empty_cache()
@@ -1028,7 +1198,7 @@ def paged_serve_phase():
     engine.gen = GenConfig(max_new_tokens=9, greedy=True)
     summary["profile"] = profile_decode(
         lambda: engine.generate_groups(tasks[:4], 8),
-        "paged_flash_decode_kernel", "generate_groups")
+        "decode_(mma_)?kernel<.*PagedRows", "generate_groups")
     del engine, store
     torch.cuda.empty_cache()
     return launches, summary
@@ -1125,21 +1295,26 @@ def profile_decode(call, kernel, name):
         _, m = call()
         torch.cuda.synchronize()
     kernels = _trace_kernels(prof, name)
-    # "flash_decode_kernel" is also a substring of the paged kernel's name
-    starts = [k[0] for k in kernels if re.search(rf"\b{kernel}", k[2])]
-    if not starts:
+    # K2 and K3 are instances of the same split-cache kernels: the layout
+    # (DenseRows, PagedRows) in the name tells them apart
+    mine = [k for k in kernels if re.search(rf"\b{kernel}", k[2])]
+    if not mine:
         say(f"profile {name}: the trace holds no {kernel}: device busy "
             "share not measured")
         return None
+    starts = [k[0] for k in mine]
     b = _busy(kernels, starts[0], m["decode_steps"])
     out = dict(decode_steps=m["decode_steps"],
                window_ms_per_step=b["window_ms"],
                busy_ms_per_step=b["busy_ms"], idle_share=b["idle_share"],
+               kernel_ms_per_step=sum(e - s for s, e, _ in mine) / 1e3
+               / m["decode_steps"],
                top_kernels_ms_per_step=b["top_kernels_ms"])
     say(f"profile {name} (torch.profiler, {m['decode_steps']} decode steps): "
         f"{out['window_ms_per_step']:.3f} ms/step, device busy "
         f"{out['busy_ms_per_step']:.3f} ms/step, idle share "
-        f"{out['idle_share']:.3f}; top kernels ms/step "
+        f"{out['idle_share']:.3f}; the decode kernel "
+        f"{out['kernel_ms_per_step']:.4f} ms/step; top kernels ms/step "
         + ", ".join(f"{k} {v:.3f}" for k, v in
                     out["top_kernels_ms_per_step"].items()))
     # before the first decode kernel: the weight fetch and the prefill
@@ -1201,6 +1376,10 @@ def train_phase():
         counts = _read_counts()
         what = f"train.run --arch {arch} --steps {steps}"
         _expect_train_counts(what, family, out["n_layers"], out, counts)
+        scan_variants = _scan_variants()
+        if scan_variants != {"simt": counts["mlstm_scan"], "mma": 0}:
+            fail(f"{what}: mlstm_scan launches by kernel {scan_variants}, "
+                 "expected every one on the CUDA-core kernel (float32)")
         hist = out["steps"]
         if len(hist) != steps or out["produced"] != steps:
             fail(f"{what}: {len(hist)} steps from {out['produced']} produce "
@@ -1240,7 +1419,7 @@ def train_phase():
                 f"{m['train_s'] * 1e3:.1f} ms (host clock)")
         say(f"{what}: {out['seconds']:.2f} s, peak memory "
             f"{summary['peak_mem_gib']:.2f} GiB, buffer {out['buffer']}")
-        results[arch] = (counts, summary)
+        results[arch] = (counts, summary, scan_variants)
         del out
         torch.cuda.empty_cache()
     return results
@@ -1294,18 +1473,22 @@ def xlstm_step_phase():
         counts = _read_counts()
         want = dict.fromkeys(counts, 0)
         want["mlstm_scan"] = 2 * cfg.n_layers      # forward + remat recompute
-        if counts != want or not (math.isfinite(loss) and math.isfinite(gnorm)):
-            fail(f"xlstm bf16 train step: launches {counts} (expected "
-                 f"{want}), loss {loss}, grad_norm {gnorm}")
+        variants = _scan_variants()
+        want_variants = {"simt": 0, "mma": want["mlstm_scan"]}
+        if counts != want or variants != want_variants or not (
+                math.isfinite(loss) and math.isfinite(gnorm)):
+            fail(f"xlstm bf16 train step: launches {counts} by kernel "
+                 f"{variants} (expected {want}, {want_variants}), loss "
+                 f"{loss}, grad_norm {gnorm}")
     out = dict(step_ms=times[1:], loss=loss, grad_norm=gnorm,
-               launches=counts["mlstm_scan"],
+               launches=counts["mlstm_scan"], launches_by_variant=variants,
                params=sum(p.numel() for p in params.parameters()),
                peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
     say(f"xlstm-1.3b published config (bfloat16, vocab 50304, remat) GRPO "
         f"train step, B=8 S=160: {out['params'] / 1e9:.3f} B params, "
         f"{' / '.join(f'{t:.1f}' for t in times)} ms (first is warm-up; "
         f"host clock, synchronised), mlstm_scan launches "
-        f"{out['launches']} per step, loss {loss:.5f}, grad_norm "
+        f"{out['launches']} per step ({variants}), loss {loss:.5f}, grad_norm "
         f"{gnorm:.4f}, peak memory {out['peak_mem_gib']:.2f} GiB")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1317,13 +1500,16 @@ def xlstm_step_phase():
             "busy share not measured")
         return out
     out["profile"] = p = _busy(kernels, kernels[0][0], 1)
+    p["mlstm_scan_ms"] = sum(e - s for s, e, name in kernels
+                             if "mlstm_" in name) / 1e3
     # where the host's time goes: operators by their own CPU time
     host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
     p["top_host_ops_ms"] = {e.key: e.self_cpu_time_total / 1e3
                             for e in host[:8]}
     say(f"profile xlstm train step (torch.profiler): window "
         f"{p['window_ms']:.1f} ms, device busy {p['busy_ms']:.1f} ms, idle "
-        f"share {p['idle_share']:.3f}; top kernels ms " + ", ".join(
+        f"share {p['idle_share']:.3f}, K4 kernels (forward and remat "
+        f"recompute) {p['mlstm_scan_ms']:.2f} ms; top kernels ms " + ", ".join(
             f"{k} {v:.2f}" for k, v in p["top_kernels_ms"].items())
         + "; top host ops ms (self CPU) " + ", ".join(
             f"{k} {v:.1f}" for k, v in p["top_host_ops_ms"].items()))
@@ -1482,6 +1668,7 @@ def xlstm_teacher_forced_phase():
             fail(f"xlstm card vs cpu {what}: max |card - cpu| / max |cpu| = "
                  f"{rel:.3e} > 1e-3")
 
+    _reset_counts()
     with torch.inference_mode():
         compare("forward logits", xlstm.forward(on_card, cfg, toks.cuda()),
                 xlstm.forward(on_cpu, cfg, toks))
@@ -1499,6 +1686,12 @@ def xlstm_teacher_forced_phase():
             lg_gpu, c_gpu = xlstm.decode_step(on_card, cfg, c_gpu,
                                               tok.cuda(), pos.cuda())
             lg_cpu, c_cpu = xlstm.decode_step(on_cpu, cfg, c_cpu, tok, pos)
+    # one scan per layer for the forward and for the prefill, all float32
+    variants = _scan_variants()
+    if variants != {"simt": 2 * cfg.n_layers, "mma": 0}:
+        fail(f"xlstm teacher-forced: mlstm_scan launches by kernel "
+             f"{variants}, expected {2 * cfg.n_layers} on the CUDA-core "
+             "kernel")
     say("xlstm teacher-forced card vs cpu (4 layers, float32, forward, "
         f"prefill + carry, {steps} decode steps): worst max |card - cpu| / "
         "max |cpu| " + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
@@ -1539,9 +1732,11 @@ def train_step_parity_phase():
                 counts = _read_counts()
                 key = ("mlstm_scan" if cfg.family == "ssm"
                        else "flash_attention_fwd")
-                if counts[key] != cfg.n_layers:
-                    fail(f"train step parity {arch}: launches {counts}, "
-                         f"expected {cfg.n_layers} {key}")
+                if counts[key] != cfg.n_layers or (
+                        key == "mlstm_scan" and _scan_variants()["mma"]):
+                    fail(f"train step parity {arch}: launches {counts} (scan "
+                         f"by kernel {_scan_variants()}), expected "
+                         f"{cfg.n_layers} {key}, none on the bf16 kernel")
         del card, params
         rel = [abs(a - b) / abs(b) for a, b in zip(*res)]
         if not all(math.isfinite(x) and x <= 1e-3 for x in rel):
@@ -1590,9 +1785,19 @@ def main() -> None:
         # dense run for the attention kernels
         arch = "xlstm-1.3b" if name == "mlstm_scan" else ARCH
         rec["train_launches"] = train[arch][0][name]
-    for arch, (_, summary) in train.items():
+    for arch, (_, summary, _) in train.items():
         say(f"train summary {arch} " + json.dumps(summary))
-    say("xlstm train step summary " + json.dumps(xlstm_step_phase()))
+    step = xlstm_step_phase()
+    say("xlstm train step summary " + json.dumps(step))
+    # K4 by kernel over the training runs: the float32 launcher run and the
+    # published-config (bf16) step
+    scan_by_variant = {v: train["xlstm-1.3b"][2][v]
+                       + step["launches_by_variant"][v]
+                       for v in ("simt", "mma")}
+    if min(scan_by_variant.values()) < 1:
+        fail(f"a K4 kernel was not launched on the training path: "
+             f"{scan_by_variant}")
+    records["mlstm_scan"]["launches_by_variant"] = scan_by_variant
     teacher_forced_phase()
     paged_teacher_forced_phase()
     xlstm_teacher_forced_phase()

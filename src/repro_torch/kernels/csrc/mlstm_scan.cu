@@ -26,11 +26,12 @@
 // Bound on the H100: per chunk and row 4 T^2 D + 4 T D^2 FLOPs (q k^T,
 // scores v, q C, the C update; 75.5 MFLOP per 64-step chunk and row at
 // D = 512) against 4 T D elements moved, so in bf16 the bytes and the
-// tensor-core rate give about the same floor.  Not yet fast: products run
-// on the fp32 CUDA cores with synchronous staging, and every value-column
-// block recomputes the [T, T] scores; tensor-core mma over bf16 tiles, a
-// split into an intra-chunk pass and an inter-chunk carry pass, and TMA
-// come later.
+// tensor-core rate give about the same floor.  Products run on the fp32
+// CUDA cores with synchronous staging, and every value-column block
+// recomputes the [T, T] scores.  Since mlstm_scan_sm90.cu (the tensor
+// cores, an intra-chunk pass and a carry pass) serves bfloat16 at D = 64,
+// 128, 256 and 512, this kernel serves float32, whose 1e-4 tolerance rules
+// out bf16 and TF32 operands, and bfloat16 at other D.
 #include "common.cuh"
 
 namespace {

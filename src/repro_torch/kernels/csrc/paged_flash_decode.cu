@@ -1,5 +1,5 @@
 // Paged flash decode for Hopper (sm_90a): one query token per sequence over
-// a KV cache kept in fixed-size pages of a global pool.
+// a KV cache kept in fixed-size pages of a global pool, split across blocks.
 //
 // Replaces the Pallas TPU kernel repro/kernels/paged_attention/kernel.py
 // ::paged_flash_decode (body _paged_kernel).  Same semantics: q
@@ -9,122 +9,98 @@
 // i > lengths[b] - 1 - window.  fp32 online softmax, output
 // acc / max(l, 1e-30); a row with nothing to attend to gives 0.  Table ids
 // are clamped into [0, P-1] here, as the reference wrapper clamps them, so
-// a stale id never addresses outside the pool.
+// a stale id never addresses outside the pool, and the table is never read
+// past its maxp entries.
 //
 // Bound on the H100: HBM bytes.  A step reads each attended slot's K and V
 // row once, 2 * Hkv * D elements per slot, against ~4 FLOPs per element:
 // far below the ~295 FLOP/byte ridge, so the floor is
 // itemsize * D * (2 * B * H + 2 * Hkv * sum_b min(len_b, window)) bytes
 // over 3.35 TB/s.
-// Design: the TPU walked a sequential grid axis over all maxp pages with
-// scalar-prefetched tables and DMA'd every table entry, even of pages past
-// the length (hence the null page 0).  Here one block per (KV head, row)
-// loads its own length and table row and loops over only the slots the
-// mask can reach, from the window's first slot to min(len, maxp * page):
-// no byte of a page wholly past the length (or before the window) is read.
-// Each tile of kTile logical slots is staged through shared memory with the
-// slot -> (page, offset) lookup done once per slot, so a tile may span a
-// page boundary and any page size works.  The G query heads of the group
-// score against each staged tile, so the pool is read once per step for
-// the whole group (the GQA saving, as in flash_decode.cu, whose tile loop
-// this kernel shares through decode_tile.cuh).  Not yet fast: B * Hkv
-// blocks (64 at B=32, Hkv=2) under-fill the 132 SMs and tiles are staged
-// synchronously; a split over pages with a reduce pass and cp.async/TMA
-// double buffering are the next steps.
-#include "decode_tile.cuh"
+// Design: the split-cache machinery of flash_decode.cu (split_decode.cuh)
+// over one more layout.  The TPU walked a sequential grid axis over all
+// maxp pages with scalar-prefetched tables and DMA'd every table entry,
+// even of pages past the length (hence the null page 0).  Here a row's run
+// is only the slots the mask can reach, [lo, end) with
+// lo = max(0, len - window) and end = min(len, maxp * page), so no byte of
+// a page wholly past the length (or before the window) is read, and the
+// n_split blocks of a (row, KV head) cut that run, not the table's width:
+// a short row's work is spread over all its splits.  A slot's page id is
+// its layout's fetch, read a tile ahead of the copy, so a tile of 16 slots
+// may span pages of any size.  bf16 at D = 64 or 128 scores and sums on
+// the tensor cores (mma.sync), other cases on the CUDA cores; both stream
+// the pool with cp.async several tiles deep and merge the splits in the
+// same launch.  The host picks n_split from B, Hkv and the table width
+// (never from the lengths, which stay on the card).
+#include "split_decode.cuh"
 
 namespace {
 
-namespace dec = repro::decode;
+namespace sd = repro::split;
 
-template <typename T, int G>
-__global__ void __launch_bounds__(dec::kThreads)
-paged_flash_decode_kernel(const T* __restrict__ q,
-                          const T* __restrict__ k_pages,
-                          const T* __restrict__ v_pages,
-                          const int* __restrict__ tables,
-                          const int* __restrict__ lengths,
-                          T* __restrict__ o, int P, int page, int maxp,
-                          int Hkv, int D, int window, float scale) {
-  const int hk = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
-  const int H = Hkv * G;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const dec::Smem s = dec::carve(smem_raw, G, D);
-
-  float acc[dec::kJ][G];
-  const size_t head0 = ((size_t)b * H + (size_t)hk * G) * D;
-  dec::load_q<T, G>(s, q + head0, D, scale, acc);
-
-  const int len = lengths[b];
-  const int end = min(len, maxp * page);      // the table covers maxp pages
-  const int lo = window < 0 ? 0 : max(0, len - window);
-  const int* tb = tables + (size_t)b * maxp;
-  const long long slot_stride = (long long)Hkv * D;
-
-  for (int c0 = lo; c0 < end; c0 += dec::kTile) {
-    __syncthreads();   // the previous tile is consumed; q/m/l are ready
-    if (tid < dec::kTile) {
-      const int slot = c0 + tid;
-      const bool ok = slot < end;
-      s.ok[tid] = ok;
-      if (ok) {
-        const int pid = min(max(tb[slot / page], 0), P - 1);
-        s.off[tid] = ((long long)pid * page + slot % page) * slot_stride +
-                     (long long)hk * D;
-      }
-    }
-    __syncthreads();
-    dec::stage_rows(s, k_pages, v_pages, D);
-    __syncthreads();
-    dec::attend_tile<G>(s, D, acc);
+// Slot i of a row's run is logical slot lo + i; its K/V row of head hk is
+// ((pid * page + (lo + i) % page) * Hkv + hk) * D.
+struct PagedSlots {
+  const int* tb;    // table row b
+  int P, page, maxp, lo, n;
+  long long head, slot_stride;
+  __device__ int fetch(int i) const {
+    if (i >= n) return 0;          // past the run: the table is not read
+    const int pid = __ldg(tb + min((lo + i) / page, maxp - 1));
+    return min(max(pid, 0), P - 1);
   }
-  dec::store_out<T, G>(s, o + head0, D, acc);
-}
+  __device__ bool attended(int i, int) const { return i < n; }
+  __device__ long long offset(int i, int pid) const {
+    return ((long long)pid * page + (lo + i) % page) * slot_stride + head;
+  }
+};
 
-template <typename T>
-cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
-                   const void* tables, const void* lengths, void* o, int B,
-                   int P, int page, int maxp, int Hkv, int G, int D,
-                   int window, float scale, cudaStream_t stream) {
-  const size_t smem = dec::smem_bytes(G, D);
-  return dec::with_group(G, [&](auto g) {
-    auto kernel = paged_flash_decode_kernel<T, decltype(g)::value>;
-    cudaError_t err = repro::allow_smem(kernel, smem);
-    if (err != cudaSuccess) return err;
-    kernel<<<dim3(Hkv, B), dec::kThreads, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k_pages),
-        static_cast<const T*>(v_pages), static_cast<const int*>(tables),
-        static_cast<const int*>(lengths), static_cast<T*>(o), P, page, maxp,
-        Hkv, D, window, scale);
-    return cudaGetLastError();
-  });
-}
+struct PagedRows {
+  const int *tables, *lengths;
+  int P, page, maxp, Hkv, D, window;
+  __device__ PagedSlots at(int b, int hk, int& n) const {
+    const int len = lengths[b];
+    const int end = min(len, maxp * page);   // the table covers maxp pages
+    const int lo = window < 0 ? 0 : max(0, len - window);
+    n = max(0, end - lo);
+    return PagedSlots{tables + (size_t)b * maxp, P, page, maxp, lo, n,
+                      (long long)hk * D, (long long)Hkv * D};
+  }
+};
 
 }  // namespace
 
 // q [B, Hkv*G, D], k_pages/v_pages [P, page, Hkv, D], tables [B, maxp] and
 // lengths [B] (int32), o [B, Hkv*G, D]; all contiguous.  dtype 0 = float32,
-// 1 = bfloat16.  window < 0 means no window.  Returns cudaGetLastError() of
-// the launch.
+// 1 = bfloat16.  window < 0 means no window.  n_split is at most the tiles
+// of maxp * page slots; with n_split > 1, part_acc float32
+// [B, Hkv, n_split, G, D], part_ml float32 [B, Hkv, n_split, G, 2] and
+// counters int32 [B * Hkv], 0 before the launch and left 0 by it (shared
+// with flash_decode: launches must run in stream order).  Returns
+// cudaGetLastError() of the launch.
 extern "C" int paged_flash_decode(const void* q, const void* k_pages,
                                   const void* v_pages, const void* tables,
-                                  const void* lengths, void* o, int B, int P,
-                                  int page, int maxp, int Hkv, int G, int D,
-                                  int window, float scale, int dtype,
-                                  int device, void* stream) {
+                                  const void* lengths, void* o,
+                                  void* part_acc, void* part_ml,
+                                  void* counters, int B, int P, int page,
+                                  int maxp, int Hkv, int G, int D,
+                                  int n_split, int window, float scale,
+                                  int dtype, int device, void* stream) {
   if (B < 1 || P < 1 || page < 1 || maxp < 1 || Hkv < 1 || G < 1 ||
-      G > dec::kMaxG || D < 1 || D > dec::kMaxD)
+      G > sd::kMaxG || D < 1 || D > sd::kMaxD || B > 65535 || Hkv > 65535 ||
+      (long long)maxp * page > (1 << 30) || n_split < 1 ||
+      n_split > ((long long)maxp * page + sd::kTile - 1) / sd::kTile ||
+      (n_split > 1 && (!part_acc || !part_ml || !counters)))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch<float>(q, k_pages, v_pages, tables, lengths, o, B, P, page,
-                         maxp, Hkv, G, D, window, scale, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k_pages, v_pages, tables, lengths, o, B,
-                                 P, page, maxp, Hkv, G, D, window, scale, s);
-  return cudaErrorInvalidValue;
+  const PagedRows rows{static_cast<const int*>(tables),
+                       static_cast<const int*>(lengths), P, page, maxp, Hkv,
+                       D, window};
+  const sd::Launch a{q, k_pages, v_pages, o, part_acc, part_ml, counters, B,
+                     Hkv, G, D, n_split, scale,
+                     static_cast<cudaStream_t>(stream)};
+  return sd::dispatch_dtype(rows, a, dtype);
 }
 
 extern "C" const char* paged_flash_decode_error_string(int err) {

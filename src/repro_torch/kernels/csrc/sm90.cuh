@@ -1,7 +1,7 @@
 // PTX wrappers for Hopper (sm_90a) used by the hand-written kernels: shared
 // memory addresses, mbarriers, TMA tensor loads, wgmma (descriptors, fences,
-// the m64n64k16 bf16 products) and cp.async.  Only nvcc is needed: nothing
-// here comes from CUTLASS or CuTe.
+// the m64n64k16 bf16 products), ldmatrix and mma.sync, and cp.async.  Only
+// nvcc is needed: nothing here comes from CUTLASS or CuTe.
 #pragma once
 
 #include <cstdint>
@@ -172,6 +172,40 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float (&d)[32],
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// ------------------------------------------------------------- mma.sync
+// Four 8x8 b16 matrices from shared memory into registers: lane l gives
+// the address of row l % 8 of matrix l / 8; trans transposes each matrix.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p,
+                                            bool trans) {
+  const uint32_t a = sm90::smem_u32(p);
+  if (trans)
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+        "[%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(a));
+  else
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(a));
+}
+
+// c[16 x 8] += a[16 x 16] * b[16 x 8], bf16 in, fp32 accumulate, in the
+// fragments of the PTX ISA's m16n8k16 .row.col layout: lane (g = l / 4,
+// t4 = l % 4) holds a {(g, 2t4..), (g + 8, 2t4..), (g, 2t4 + 8..),
+// (g + 8, 2t4 + 8..)}, b {(k 2t4.., n g), (k 2t4 + 8.., n g)} and
+// c {(g, 2t4), (g, 2t4 + 1), (g + 8, 2t4), (g + 8, 2t4 + 1)}.
+__device__ __forceinline__ void mma_m16n8k16(float (&c)[4],
+                                             const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3},"
+      " {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // -------------------------------------------------------------- cp.async

@@ -1,10 +1,12 @@
-// Split-cache one-token decode for Hopper: the block-level machinery that a
-// decode kernel over any cache layout builds on (flash_decode.cu, dense).
+// Split-cache one-token decode for Hopper: the kernels that a decode over
+// any cache layout launches (flash_decode.cu, dense; paged_flash_decode.cu,
+// the paged pool), and their launch and dispatch.
 //
 // A launch has grid (n_split, Hkv, B).  Block (s, hk, b) takes a contiguous
-// run of whole tiles of kTile slots of row b's cache (split s of n_split;
-// splits differ by at most one tile) and serves the G query heads of KV
-// head hk.  Two block bodies:
+// run of whole tiles of kTile slots of row b's run of slots (split s of
+// n_split; splits differ by at most one tile) and serves the G query heads
+// of KV head hk.  The run is the row's whole cache for the dense layout and
+// the slots the mask can reach for the paged one.  Two block bodies:
 //
 // decode_block_mma (bf16, D = 64 or 128): each of the 4 warps takes every
 //   4th tile of the split, copies it with 16-byte cp.async into its own
@@ -37,11 +39,12 @@
 // attended at all), so it adds nothing and no NaN; a head with nothing
 // attended writes 0.
 //
-// A layout supplies, for a slot of the row: fetch(slot), a value read
-// ahead of the copy (the slot's position for the dense cache; slots past
-// the row's end must give one that is not attended), attended(slot,
-// fetched), and offset(slot, fetched), the element offset of its K/V row
-// of head hk.
+// A layout supplies, for a slot of the row's run (0 .. C-1, C set per row
+// by Rows::at): fetch(slot), a value read ahead of the copy (the slot's
+// position for the dense cache, its page id for the paged pool; slots past
+// the run's end must give one that is not attended, without reading past
+// the row's own data), attended(slot, fetched), and offset(slot, fetched),
+// the element offset of its K/V row of head hk.
 #pragma once
 
 #include <type_traits>
@@ -477,22 +480,6 @@ __device__ __forceinline__ void decode_block(
 }
 
 // ---------------------------------------------------- tensor-core body
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p,
-                                            bool trans) {
-  const uint32_t a = sm90::smem_u32(p);
-  if (trans)
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-        "[%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(a));
-  else
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(a));
-}
-
 // c[16 x 8] += a[16 x 16] * b[16 x 8], bf16 in, fp32 accumulate; rows
 // 8..15 of a are zero here (at most 8 heads), so a1 = a3 = 0.
 __device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0,
@@ -614,8 +601,9 @@ __device__ __forceinline__ void decode_block_mma(
     for (int kk = 0; kk < D / 16; ++kk) {
       const int mi = lane / 8, r = lane % 8;
       uint32_t b[4];
-      ldmatrix_x4(b, ks + (r + 8 * (mi / 2)) * kRow + (16 * kk + 8 * (mi % 2))
-                                                           * 2, false);
+      sm90::ldmatrix_x4(
+          b, ks + (r + 8 * (mi / 2)) * kRow + (16 * kk + 8 * (mi % 2)) * 2,
+          false);
       mma_bf16(sc[0], qa[kk][0], qa[kk][1], b[0], b[1]);
       mma_bf16(sc[1], qa[kk][0], qa[kk][1], b[2], b[3]);
     }
@@ -654,8 +642,9 @@ __device__ __forceinline__ void decode_block_mma(
     for (int j = 0; j < kN; j += 2) {
       const int mi = lane / 8, r = lane % 8;
       uint32_t b[4];
-      ldmatrix_x4(b, vs + (r + 8 * (mi % 2)) * kRow + (8 * j + 8 * (mi / 2))
-                                                          * 2, true);
+      sm90::ldmatrix_x4(
+          b, vs + (r + 8 * (mi % 2)) * kRow + (8 * j + 8 * (mi / 2)) * 2,
+          true);
       mma_bf16(acc[j], pa0, pa2, b[0], b[1]);
       mma_bf16(acc[j + 1], pa0, pa2, b[2], b[3]);
     }
@@ -686,6 +675,53 @@ __device__ __forceinline__ void decode_block_mma(
                n_split);
 }
 
+// ------------------------------------------------------ kernels, launch
+// A cache layout for the launch: rows.at(b, hk, C) returns the Layout of
+// row b, KV head hk, and sets C to the number of slots of the row's run,
+// which split_tiles cuts (the whole cache for the dense layout; the
+// reachable slots [lo, end) of one row for the paged pool, so the splits
+// share a short row's own tiles and not the table's width).
+template <typename Rows, int D>
+__global__ void __launch_bounds__(kThreads)
+decode_mma_kernel(const Rows rows, const __nv_bfloat16* __restrict__ q,
+                  const __nv_bfloat16* __restrict__ k,
+                  const __nv_bfloat16* __restrict__ v,
+                  __nv_bfloat16* __restrict__ o, float* __restrict__ part_acc,
+                  float* __restrict__ part_ml, int* __restrict__ counters,
+                  int G, float scale_log2) {
+  const int split = blockIdx.x, n_split = gridDim.x;
+  const int hk = blockIdx.y, b = blockIdx.z;
+  extern __shared__ __align__(16) unsigned char smem[];
+  int C;
+  const auto lay = rows.at(b, hk, C);
+  const size_t bh = (size_t)b * gridDim.y + hk;
+  const size_t head0 = bh * G * D;
+  decode_block_mma<D>(lay, k, v, q + head0, o + head0,
+                      part_acc + bh * n_split * G * D,
+                      part_ml + bh * n_split * G * 2, counters + bh, C, G,
+                      scale_log2, split, n_split, smem);
+}
+
+template <typename Rows, typename T, int G, int VEC, int NC, bool WIDE>
+__global__ void __launch_bounds__(kThreads)
+decode_kernel(const Rows rows, const T* __restrict__ q,
+              const T* __restrict__ k, const T* __restrict__ v,
+              T* __restrict__ o, float* __restrict__ part_acc,
+              float* __restrict__ part_ml, int* __restrict__ counters, int D,
+              int W, float scale_log2) {
+  const int split = blockIdx.x, n_split = gridDim.x;
+  const int hk = blockIdx.y, b = blockIdx.z;
+  extern __shared__ __align__(16) unsigned char smem[];
+  int C;
+  const auto lay = rows.at(b, hk, C);
+  const size_t bh = (size_t)b * gridDim.y + hk;
+  const size_t head0 = bh * G * D;
+  decode_block<T, G, VEC, NC, WIDE>(
+      lay, k, v, q + head0, o + head0, part_acc + bh * n_split * G * D,
+      part_ml + bh * n_split * G * 2, counters + bh, C, D, W, scale_log2,
+      split, n_split, smem);
+}
+
 // Call f(std::integral_constant<int, G>{}) for a run-time G in 1..kMaxG.
 template <typename F>
 cudaError_t with_group(int G, F&& f) {
@@ -700,6 +736,78 @@ cudaError_t with_group(int G, F&& f) {
     case 8: return f(std::integral_constant<int, 8>{});
     default: return cudaErrorInvalidValue;
   }
+}
+
+// Pointers and sizes of one launch: q/o [B, Hkv * G, D]; k/v the cache
+// (the layout addresses it); part_acc / part_ml / counters the merge
+// scratch when n_split > 1.
+struct Launch {
+  const void *q, *k, *v;
+  void *o, *part_acc, *part_ml, *counters;
+  int B, Hkv, G, D, n_split;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <typename Rows, typename T, int VEC, int NC, bool WIDE = false>
+cudaError_t launch_core(const Rows& rows, const Launch& a, int W) {
+  const size_t smem = core_smem_bytes(sizeof(T), a.G, a.D, W);
+  return with_group(a.G, [&](auto g) {
+    auto kernel = decode_kernel<Rows, T, decltype(g)::value, VEC, NC, WIDE>;
+    cudaError_t err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<dim3(a.n_split, a.Hkv, a.B), kThreads, smem, a.stream>>>(
+        rows, static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+        static_cast<const T*>(a.v), static_cast<T*>(a.o),
+        static_cast<float*>(a.part_acc), static_cast<float*>(a.part_ml),
+        static_cast<int*>(a.counters), a.D, W, a.scale * kLog2e);
+    return cudaGetLastError();
+  });
+}
+
+template <typename Rows, int D>
+cudaError_t launch_mma(const Rows& rows, const Launch& a) {
+  using bf16 = __nv_bfloat16;
+  const size_t smem = mma_smem_bytes(a.G, D);
+  auto kernel = decode_mma_kernel<Rows, D>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(a.n_split, a.Hkv, a.B), kThreads, smem, a.stream>>>(
+      rows, static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<bf16*>(a.o),
+      static_cast<float*>(a.part_acc), static_cast<float*>(a.part_ml),
+      static_cast<int*>(a.counters), a.G, a.scale * kLog2e);
+  return cudaGetLastError();
+}
+
+// bf16 at D = 64 or 128 on the tensor cores; otherwise the CUDA cores,
+// with 16-byte pieces where D and the cache's alignment allow them and a
+// row fits 32 lanes, one element a piece where not.
+template <typename T, typename Rows>
+cudaError_t dispatch(const Rows& rows, const Launch& a) {
+  constexpr int kVec = 16 / sizeof(T);
+  const int D = a.D;
+  const bool aligned = reinterpret_cast<uintptr_t>(a.k) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(a.v) % 16 == 0;
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (aligned && reinterpret_cast<uintptr_t>(a.q) % 4 == 0) {
+      if (D == 64) return launch_mma<Rows, 64>(rows, a);
+      if (D == 128) return launch_mma<Rows, 128>(rows, a);
+    }
+  }
+  if (aligned && D == 32 * kVec)
+    return launch_core<Rows, T, kVec, 1, true>(rows, a, 32);
+  if (aligned && D % kVec == 0 && D / kVec <= 32)
+    return launch_core<Rows, T, kVec, 1>(rows, a, lanes_per_row(D / kVec));
+  return launch_core<Rows, T, 1, kMaxD / 32>(rows, a, lanes_per_row(D));
+}
+
+// dtype 0 = float32, 1 = bfloat16
+template <typename Rows>
+cudaError_t dispatch_dtype(const Rows& rows, const Launch& a, int dtype) {
+  if (dtype == 0) return dispatch<float>(rows, a);
+  if (dtype == 1) return dispatch<__nv_bfloat16>(rows, a);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace split

@@ -72,6 +72,20 @@ def _counters(device: torch.device, n: int) -> torch.Tensor:
     return buf
 
 
+def _split_scratch(B: int, Hkv: int, G: int, D: int, n_split: int,
+                   device: torch.device):
+    """The merge scratch of a launch with ``n_split`` splits: the fp32
+    partials ``(acc, m, l)`` and the tickets; ``(None,) * 3`` for one
+    split."""
+    if n_split == 1:
+        return None, None, None
+    return (torch.empty(B * Hkv * n_split * G * D, dtype=torch.float32,
+                        device=device),
+            torch.empty(B * Hkv * n_split * G * 2, dtype=torch.float32,
+                        device=device),
+            _counters(device, B * Hkv))
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_decode")
     fn = lib.flash_decode
@@ -137,19 +151,12 @@ def decode_attention(
     o = torch.empty_like(q)
     n_split = _num_splits(B, Hkv, C, _sm_count(q.device),
                           waves=_waves(q.dtype, D), force=_num_splits.force)
-    part_acc = part_ml = counters = None
-    if n_split > 1:
-        part_acc = torch.empty(B * Hkv * n_split * G * D,
-                               dtype=torch.float32, device=q.device)
-        part_ml = torch.empty(B * Hkv * n_split * G * 2,
-                              dtype=torch.float32, device=q.device)
-        counters = _counters(q.device, B * Hkv)
+    scratch = _split_scratch(B, Hkv, G, D, n_split, q.device)
     lib = _lib()
     err = lib.flash_decode(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
         k_pos.data_ptr(), o.data_ptr(),
-        *(0 if t is None else t.data_ptr()
-          for t in (part_acc, part_ml, counters)),
+        *(0 if t is None else t.data_ptr() for t in scratch),
         B, C, Hkv, G, D, n_split,
         -1 if window is None else int(window), float(scale),
         _DTYPES[q.dtype], q.device.index or 0,

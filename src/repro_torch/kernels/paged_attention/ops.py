@@ -4,7 +4,10 @@ Replaces the Pallas TPU kernel ``repro/kernels/paged_attention/kernel.py
 ::paged_flash_decode``.  The CUDA source is
 ``kernels/csrc/paged_flash_decode.cu``; its header says what bounds it on
 the H100 (HBM: the attended slots' K/V bytes / 3.35 TB/s) and what the
-design does about that.
+design does about that: the split-cache kernels of K3
+(``csrc/split_decode.cuh``) over the paged layout, each row's reachable
+slots cut into ``_paged_splits`` runs whose fp32 partials merge in the
+same launch.
 
 ``paged_decode_attention`` takes ``[B, H, D]`` and returns ``[B, H, D]`` as
 the JAX entry point does.  On a CPU tensor it runs
@@ -25,6 +28,8 @@ from typing import Optional
 import torch
 
 from .. import _build
+from ..decode_attention.ops import (_num_splits, _sm_count, _split_scratch,
+                                    _waves)
 from .ref import paged_decode_attention_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -34,11 +39,23 @@ MAX_D = 256
 __all__ = ["paged_decode_attention", "paged_decode_attention_ref"]
 
 
+def _paged_splits(B: int, Hkv: int, maxp: int, page: int,
+                  window: Optional[int], dtype: torch.dtype, D: int,
+                  n_sm: int) -> int:
+    """Blocks per (row, KV head): ``decode_attention.ops._num_splits`` over
+    the most slots a row can reach, the table's ``maxp * page`` (or the
+    window, if shorter), never over the lengths, which stay on the card.
+    ``_num_splits.force`` applies here too."""
+    reach = maxp * page if window is None else min(maxp * page, window)
+    return _num_splits(B, Hkv, max(1, reach), n_sm, waves=_waves(dtype, D),
+                       force=_num_splits.force)
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("paged_flash_decode")
     fn = lib.paged_flash_decode
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                           ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -95,13 +112,19 @@ def paged_decode_attention(
     if not all(t.is_contiguous()
                for t in (q, k_pages, v_pages, block_tables, lengths)):
         raise ValueError("paged_decode_attention: inputs must be contiguous")
+    G = H // Hkv
     o = torch.empty_like(q)
+    n_split = _paged_splits(B, Hkv, maxp, page, window, q.dtype, D,
+                            _sm_count(q.device))
+    scratch = _split_scratch(B, Hkv, G, D, n_split, q.device)
     lib = _lib()
     err = lib.paged_flash_decode(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        block_tables.data_ptr(), lengths.data_ptr(), o.data_ptr(), B, P,
-        page, maxp, Hkv, H // Hkv, D, -1 if window is None else int(window),
-        float(scale), _DTYPES[q.dtype], q.device.index or 0,
+        block_tables.data_ptr(), lengths.data_ptr(), o.data_ptr(),
+        *(0 if t is None else t.data_ptr() for t in scratch),
+        B, P, page, maxp, Hkv, G, D, n_split,
+        -1 if window is None else int(window), float(scale),
+        _DTYPES[q.dtype], q.device.index or 0,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, "paged_flash_decode", err)
     paged_decode_attention.launches += 1

@@ -7,7 +7,10 @@ test shapes only).  ``mlstm_chunkwise_ref`` is the chunked form of
 ``repro/models/xlstm.py::mlstm_chunk`` / ``mlstm_chunkwise``: within a
 chunk the recurrence is a decay-masked ``[T, T]`` product, across chunks
 the ``(C, n, m)`` carry (true state = state * e^m) moves on.  It is what
-the kernel computes, chunk for chunk, and what its backward recomputes.
+the kernels compute, chunk for chunk, and what their backward recomputes.
+``mlstm_two_pass_ref`` is the same arithmetic split as the tensor-core
+kernel splits it: an intra-chunk pass, then a carry pass over blocks of
+value columns.
 """
 from __future__ import annotations
 
@@ -136,3 +139,78 @@ def mlstm_chunkwise_ref(q: Tensor, k: Tensor, v: Tensor, ig: Tensor,
         hs.append(h)
     h = torch.cat(hs, dim=1)[:, :S].to(q.dtype)
     return (h, carry) if return_state else h
+
+
+def mlstm_two_pass_ref(q: Tensor, k: Tensor, v: Tensor, ig: Tensor,
+                       fg: Tensor, chunk: int = 64, dv: int = 64,
+                       return_state: bool = False, terms: int = 2):
+    """The two passes of ``csrc/mlstm_scan_sm90.cu`` in plain PyTorch, on
+    the flat layout (q/k/v [BH, S, D], ig/fg [BH, S]).
+
+    Intra-chunk pass, row by row over its chunks, in fp32: the gate cumsum
+    b, the stabiliser m_t, ``P = (q k^T) o e^(dmat - m_t)``, ``inter_t``,
+    ``den_t = max(|rowsum(P)_t + inter_t q.n|, e^(-m_t))`` from the fp32
+    P, the carry scale ``sc``, ``w_end`` and the (n, m) carry.  Carry pass,
+    per block of ``dv`` value columns (the last may be narrower), over the
+    chunks: ``h = (P v + inter o (q C)) / den``, then ``C = sc C + k^T
+    (v o w_end)``.  With bfloat16 inputs the fp32 operands the kernel
+    gives the tensor cores in bfloat16 are rounded so here too: P, the copy
+    of C in ``q C`` and ``v o w_end``, each as ``terms`` bf16 terms (the
+    kernel's two: ``hi = bf16(x)``, ``lo = bf16(x - hi)``); C itself stays
+    fp32.  Returns h [BH, S, D] in q's dtype (and the final fp32
+    ``(C, n, m)``)."""
+    BH, S, D = q.shape
+
+    def operand(x: Tensor) -> Tensor:
+        if q.dtype == torch.float32:
+            return x
+        hi = x.to(q.dtype).float()
+        return hi if terms == 1 else hi + (x - hi).to(q.dtype).float()
+
+    q, k, v, ig, fg = pad_to_chunk(q, k, v, ig, fg, chunk)
+    qf = q.float() * (1.0 / math.sqrt(D))
+    kf, vf = k.float(), v.float()
+    T = chunk
+    tri = torch.ones((T, T), dtype=torch.bool, device=q.device).tril()
+    n = torch.zeros((BH, D), dtype=torch.float32, device=q.device)
+    m = torch.zeros((BH,), dtype=torch.float32, device=q.device)
+    scratch = []                     # per chunk: P, inter, den, w_end, sc
+    for c0 in range(0, q.shape[1], T):
+        sl = slice(c0, c0 + T)
+        b = torch.cumsum(log_sigmoid(fg[:, sl].float()), dim=-1)
+        g = ig[:, sl].float()
+        dmat = b[:, :, None] - b[:, None, :] + g[:, None, :]
+        dmat = torch.where(tri, dmat, torch.full_like(dmat, NEG))
+        alpha = m[:, None] + b
+        m_t = torch.maximum(alpha, torch.amax(dmat, dim=-1))
+        P = (qf[:, sl] @ kf[:, sl].transpose(1, 2)) * torch.exp(
+            dmat - m_t[:, :, None])
+        inter = torch.exp(alpha - m_t)
+        qn = torch.sum(qf[:, sl] * n[:, None, :], dim=-1)
+        den = torch.maximum(torch.abs(P.sum(dim=-1) + inter * qn),
+                            torch.exp(-m_t))
+        b_end = b[:, -1]
+        m_new = torch.maximum(m + b_end,
+                              torch.amax(b_end[:, None] - b + g, dim=-1))
+        sc = torch.exp(m + b_end - m_new)
+        w = torch.exp(b_end[:, None] - b + g - m_new[:, None])
+        n = sc[:, None] * n + torch.sum(kf[:, sl] * w[:, :, None], dim=1)
+        m = m_new
+        scratch.append((operand(P), inter, den, w, sc))
+
+    h = torch.empty_like(qf)
+    C_out = torch.empty((BH, D, D), dtype=torch.float32, device=q.device)
+    for j0 in range(0, D, dv):
+        cols = slice(j0, min(D, j0 + dv))
+        C = torch.zeros((BH, D, cols.stop - j0), dtype=torch.float32,
+                        device=q.device)
+        for i, (P, inter, den, w, sc) in enumerate(scratch):
+            sl = slice(i * T, (i + 1) * T)
+            vc = vf[:, sl, cols]
+            h[:, sl, cols] = (P @ vc + inter[:, :, None]
+                              * (qf[:, sl] @ operand(C))) / den[:, :, None]
+            C = (sc[:, None, None] * C
+                 + kf[:, sl].transpose(1, 2) @ operand(vc * w[:, :, None]))
+        C_out[:, :, cols] = C
+    h = h[:, :S].to(q.dtype)
+    return (h, (C_out, n, m)) if return_state else h
