@@ -31,7 +31,11 @@ Phases (any failure exits non-zero before the result line):
    (bfloat16 at D 64..512) runs through the wrapper at the CPU sweep's
    shapes widened to D 64 / 128 / 256 and at D 512 (train, prefill and
    long shapes), the CUDA-core kernel through its C entry beside it, both
-   with the final carry.  Times
+   with the final carry.  GQA groups: K3 and K2 at G = 7 and 5 (the
+   7B / 14B configs, 28 / 4 and 40 / 8 heads) and above 8, G = 12 (48 / 4,
+   starcoder2-15b) and 16 (64 / 4), D = 128, at one split and at splits
+   forced above 1, one launch a call; K1 prefill at the 7B / 14B head
+   counts; bf16 times at G = 12 / 16.  Times
    (CUDA events, median of 20 launches, L2 flushed before each) for the
    kernel, its plain version and ``scaled_dot_product_attention`` as a
    yardstick (for the paged kernel over the pre-gathered dense cache: the
@@ -61,6 +65,21 @@ Phases (any failure exits non-zero before the result line):
    scans all on K4's CUDA-core kernel; qwen 2 steps), then timed and
    profiled GRPO steps of xlstm-1.3b on the published config (bfloat16,
    remat): 2 x 48 scan launches a step, all on the tensor-core kernel.
+   The launcher's qwen run writes ``--trace``: the Chrome JSON must load
+   and hold a produce span per produce, a train_step span per step and a
+   publish instant per publish.  qwen-distill-1.5b's published config
+   (bfloat16, vocab 151936, remat) takes a GRPO step in float32 and in
+   bfloat16 from the same weights (losses within 5e-2), then timed and
+   profiled bf16 steps: 2 x 28 K1 launches a step, all on the
+   tensor-core kernel.  Checkpoints: ``launch.train --smoke
+   --crash-after 2`` in a fresh process on the card exits 17 and its
+   ``--resume`` finishes; qwen's launcher setup at full width and 2
+   layers saves after 2 steps and restores into a fresh trainer bit for
+   bit, then takes a third step.  qwen-distill-7B and -14B on their
+   published configs (bfloat16, random init on the card, published and
+   freed before the engines fetch) through ``RolloutEngine.generate`` and
+   ``PagedEngine.generate_groups`` (pool sized from the free memory), B=8,
+   32 new tokens, greedy, with exact launch counts.
 4. Card against CPU, teacher-forced: the full width cut to 4 layers in
    float32, same params on both, 2 prompts.  Static: prefill + 8 decode
    steps fed the CPU's greedy tokens.  Paged: prefill in chunks of 16 over
@@ -68,6 +87,7 @@ Phases (any failure exits non-zero before the result line):
    inactive third slot.  Logits agree within 1e-3 of max |logit|.  xlstm:
    forward, prefill carry and 8 decode steps (its scans on the CUDA-core
    kernel); one train step of each family, loss and grad_norm within 1e-3.
+   The 7B and 14B at full width cut to 2 layers, static path as above.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -94,6 +114,7 @@ MLSTM_TOL = {"float32": dict(atol=1e-4, rtol=1e-4),
              "bfloat16": dict(atol=5e-2, rtol=5e-2)}
 ARCH = "qwen-distill-1.5b"
 EMPTY = -(2 ** 30)
+CARD = {}          # nvidia-smi name and power limit, printed beside numbers
 
 
 def fail(msg: str) -> None:
@@ -117,7 +138,8 @@ def setup():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    say(smi.stdout.strip().splitlines()[0])
+    CARD["card"] = smi.stdout.strip().splitlines()[0]
+    say(CARD["card"])
     say(f"torch {torch.__version__} cuda {torch.version.cuda} python "
         f"{sys.version.split()[0]} device {torch.cuda.get_device_name(0)}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -435,6 +457,148 @@ def paged_kernel_phase(prompt_len, new_tokens):
                 "cache (gather not timed)",
         **timings[main], long=dict(shape=long, **timings[long]),
         split_sweep=split_sweep)
+
+
+def gqa_phase(prompt_len, new_tokens):
+    """K3 and K2 at the GQA groups of the repo's configs, G = 7 (7B,
+    28 / 4), 5 (14B, 40 / 8), 12 (starcoder2-15b, 48 / 4) and 16
+    (qwen3-moe, 64 / 4), D = 128, in float32 and bfloat16 at one split and
+    at splits forced above 1 (above G = 8 the head groups must keep their
+    merge tickets apart), held to the plain versions; K1 prefill at the 7B
+    and 14B head counts; bf16 times at G = 12 and 16 at the main and long
+    shapes.  Returns {kernel: record part}."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention.ops import (
+        _head_groups, _num_splits, _sm_count, _waves, decode_attention,
+        decode_attention_ref)
+    from repro_torch.kernels.flash_attention.ops import (
+        _variant, flash_attention, flash_attention_ref)
+    from repro_torch.kernels.paged_attention.ops import (
+        _paged_splits, paged_decode_attention, paged_decode_attention_ref)
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    stats = {name: {"checks": 0, "max_abs_err": 0.0} for name in
+             ("flash_attention_fwd", "flash_decode", "paged_flash_decode")}
+    groups = [(28, 4), (40, 8), (48, 4), (64, 4)]
+
+    def once(wrapper, name, call, want, dtype, shape, what):
+        before = wrapper.launches
+        got = call()
+        if wrapper.launches != before + 1:
+            fail(f"{name} {shape} {dtype}: {wrapper.launches - before} "
+                 "launches for one call")
+        _check(name, got, want(), dtype, shape, stats[name])
+        say(f"  {name} {shape} {what} {dtype}: ok, max err "
+            f"{stats[name]['max_abs_err']:.2e}")
+
+    for H, Hkv in groups[:2]:
+        shape = (8, prompt_len, prompt_len, H, Hkv, 128)
+        for dtype in ("float32", "bfloat16"):
+            q, k, v = flash_case(*shape, dtype, gen)
+            variant = _variant(q.dtype, 128)
+            n = flash_attention.launches_by_variant[variant]
+            once(flash_attention, "flash_attention_fwd",
+                 lambda: flash_attention(q, k, v),
+                 lambda: flash_attention_ref(q, k, v), dtype, shape,
+                 f"({variant})")
+            if flash_attention.launches_by_variant[variant] != n + 1:
+                fail(f"flash_attention {shape} {dtype}: not on {variant}")
+    try:
+        for H, Hkv in groups:
+            G = H // Hkv
+            for B, C, forces in [(8, prompt_len + 32, (1, 3)),
+                                 (4, 8192, (1, 4))]:
+                valid = [max(1, C * (b + 1) // B) for b in range(B)]
+                for force in forces:
+                    _num_splits.force = force
+                    for dtype in ("float32", "bfloat16"):
+                        shape = (B, H, Hkv, 128, C)
+                        q, k, v, q_pos, k_pos = decode_case(*shape, valid,
+                                                            dtype, gen)
+                        once(decode_attention, "flash_decode",
+                             lambda: decode_attention(q, k, v, q_pos, k_pos),
+                             lambda: decode_attention_ref(q, k, v, q_pos,
+                                                          k_pos),
+                             dtype, shape, f"G={G} n_split={force}")
+                        del q, k, v
+                        page = 128
+                        maxp = -(-C // page)
+                        pshape = (B, H, Hkv, 128, page, maxp)
+                        args = paged_case(*pshape, valid, dtype, gen)
+                        once(paged_decode_attention, "paged_flash_decode",
+                             lambda: paged_decode_attention(*args),
+                             lambda: paged_decode_attention_ref(*args),
+                             dtype, pshape, f"G={G} n_split={force}")
+                        del args
+                        torch.cuda.synchronize()
+    finally:
+        _num_splits.force = None
+
+    # bf16 times at G = 12 and 16: the main path's shape and the long one
+    timings = {"flash_decode": {}, "paged_flash_decode": {}}
+    for H, Hkv in groups[2:]:
+        G = H // Hkv
+        for B, C in [(32, prompt_len + new_tokens), (64, 8192)]:
+            shape = (B, H, Hkv, 128, C)
+            valid = [C] * B
+            q, k, v, q_pos, k_pos = decode_case(*shape, valid, "bfloat16",
+                                                gen)
+            qt = q[:, :, None]
+            kt, vt = (x.transpose(1, 2).contiguous() for x in (k, v))
+            mask = ((k_pos >= 0) & (k_pos <= q_pos[:, None]))[:, None, None]
+            bound, by = _bound_ms(*decode_work(*shape, valid, 2), "bfloat16")
+            timings["flash_decode"][f"G={G} {shape}"] = dict(
+                ms=_time_ms(lambda: decode_attention(q, k, v, q_pos, k_pos),
+                            flush),
+                plain_ms=_time_ms(lambda: decode_attention_ref(
+                    q, k, v, q_pos, k_pos), flush),
+                library_ms=_time_ms(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, enable_gqa=True), flush),
+                bound_ms=bound, bound_by=by,
+                n_split=_num_splits(B, Hkv * _head_groups(G)[0], C,
+                                    _sm_count(q.device),
+                                    waves=_waves(q.dtype, 128)),
+                head_groups=_head_groups(G)[0])
+            del q, k, v, kt, vt
+            page = 128
+            maxp = -(-C // page)
+            pshape = (B, H, Hkv, 128, page, maxp)
+            args = paged_case(*pshape, valid, "bfloat16", gen)
+            qp, kp, vp, bt, lengths = args
+            kd, vd = (x[bt.long()].reshape(B, maxp * page, Hkv, 128)
+                      .transpose(1, 2).contiguous() for x in (kp, vp))
+            pmask = (torch.arange(maxp * page, device="cuda")[None]
+                     < lengths[:, None])[:, None, None]
+            pt = qp[:, :, None]
+            bound, by = _bound_ms(*paged_work(*pshape, valid, 2), "bfloat16")
+            timings["paged_flash_decode"][f"G={G} {pshape}"] = dict(
+                ms=_time_ms(lambda: paged_decode_attention(*args), flush),
+                plain_ms=_time_ms(lambda: paged_decode_attention_ref(*args),
+                                  flush),
+                library_ms=_time_ms(lambda: F.scaled_dot_product_attention(
+                    pt, kd, vd, attn_mask=pmask, enable_gqa=True), flush),
+                bound_ms=bound, bound_by=by,
+                n_split=_paged_splits(B, Hkv, maxp, page, None, qp.dtype,
+                                      128, _sm_count(qp.device), G),
+                head_groups=_head_groups(G)[0])
+            del args, qp, kp, vp, kd, vd
+            torch.cuda.synchronize()
+    for name, rows in timings.items():
+        for key, t in rows.items():
+            say(f"  time {name} {key} bfloat16: kernel {t['ms']:.4f} ms, "
+                f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}), plain "
+                f"{t['plain_ms']:.4f} ms, sdpa {t['library_ms']:.4f} ms, "
+                f"n_split {t['n_split']}, head groups {t['head_groups']} "
+                f"({CARD['card']})")
+    say("kernels: K1 at the 7B / 14B head counts, K3 and K2 at G = 5, 7, "
+        "12, 16 hold to their plain versions ("
+        + ", ".join(f"{k} {v['checks']} checks" for k, v in stats.items())
+        + "), one launch a call")
+    return {name: dict(stats[name], **({"times_bf16": timings[name]}
+                                       if name in timings else {}))
+            for name in stats}
 
 
 def mlstm_case(B, S, H, D, dtype, gen):
@@ -1204,6 +1368,146 @@ def paged_serve_phase():
     return launches, summary
 
 
+def big_serve_phase(arch):
+    """``arch`` (qwen-distill-7b or -14b) on its published config
+    (bfloat16, full vocab, depth and width; random init on the card) served
+    through both engines, B = 8, 32 new tokens, greedy: the weights are
+    made on the card, published to the host store and freed before the
+    first fetch, so the card never holds two copies.  Static: one warm-up
+    call, then a timed ``RolloutEngine.generate`` (exact K1 / K3 launches,
+    all K1 on the tensor-core kernel).  Paged: the pool sized from the free
+    memory left after the engine's fetch (at least the worst case of its 8
+    slots, or the phase fails), a warm-up, then a timed
+    ``PagedEngine.generate_groups`` of 2 tasks x group 8 through 8 slots
+    (exact K2 launches).  Returns the summary."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.tasks import MathTaskGenerator
+    from repro_torch.models import transformer
+    from repro_torch.rl.rollout import GenConfig, RolloutEngine
+    from repro_torch.rl.weight_sync import WeightStore, tree_bytes
+    from repro_torch.serve import PagedEngine, ServeConfig
+
+    cfg = get_config(arch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = transformer.init(0, cfg, "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    store = WeightStore()
+    t0 = time.perf_counter()
+    store.publish(params)
+    publish_s = time.perf_counter() - t0
+    del params
+    torch.cuda.empty_cache()
+    weights = tree_bytes(store.fetch()[0])
+    out = dict(params=n_params, weight_gib=weights / 2 ** 30,
+               init_s=init_s, publish_s=publish_s,
+               init_peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    tasks = MathTaskGenerator(seed=0).batch(8)
+    plen = max(len(t.prompt_ids) for t in tasks)
+
+    # static engine
+    torch.cuda.reset_peak_memory_stats()
+    engine = RolloutEngine(cfg, store, GenConfig(max_new_tokens=2,
+                                                 greedy=True), device="cuda")
+    engine.generate(tasks)                       # warm-up (shapes, cuBLAS)
+    engine.gen = GenConfig(max_new_tokens=32, greedy=True)
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    rollouts, m = engine.generate(tasks)
+    dt = time.perf_counter() - t0
+    what = f"{arch} generate bf16 B=8"
+    counts = _read_counts()
+    _expect_counts(what, cfg.n_layers, m["decode_steps"], counts)
+    _expect_variants(what, {"simt": 0, "wgmma": cfg.n_layers})
+    _check_rollouts(what, rollouts, cfg.vocab, 32)
+    n_tok = sum(len(r.completion_ids) for r in rollouts)
+    out["static"] = dict(
+        tokens=n_tok, seconds=dt, tok_per_s=n_tok / dt,
+        gen_tok_per_s=n_tok / (m["prefill_s"] + m["decode_s"]),
+        fetch_ms=m["fetch_s"] * 1e3, prefill_ms=m["prefill_s"] * 1e3,
+        decode_ms_per_step=m["decode_s"] * 1e3 / m["decode_steps"],
+        decode_steps=m["decode_steps"], launches=counts,
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    s = out["static"]
+    say(f"{what} max_new=32: {n_tok} tokens in {dt:.3f} s = "
+        f"{s['tok_per_s']:.1f} tok/s ({s['gen_tok_per_s']:.1f} without the "
+        f"weight fetch); fetch {s['fetch_ms']:.1f} ms ({out['weight_gib']:.2f}"
+        f" GiB, pageable host copy), prefill {s['prefill_ms']:.2f} ms, decode "
+        f"{s['decode_ms_per_step']:.3f} ms/step over {m['decode_steps']} "
+        f"steps (host clock); peak memory {s['peak_mem_gib']:.2f} GiB")
+    del engine, rollouts
+    torch.cuda.empty_cache()
+
+    # paged engine: the pool from the memory left after its own fetch
+    torch.cuda.reset_peak_memory_stats()
+    free, total = torch.cuda.mem_get_info()
+    page, slots, max_len = 128, 8, plen + 32
+    per_page = 2 * cfg.n_layers * page * cfg.n_kv_heads * cfg.hd * 2
+    headroom = 8 * 2 ** 30                # activations, logits, scratch
+    num_pages = int((free - weights - headroom) // per_page)
+    worst = 1 + slots * -(-max_len // page)
+    if num_pages < worst:
+        fail(f"{arch} paged: {free / 2 ** 30:.1f} GiB free leaves "
+             f"{num_pages} pages of {per_page / 2 ** 20:.1f} MiB after "
+             f"{weights / 2 ** 30:.1f} GiB of weights: fewer than the "
+             f"{worst} the engine needs")
+    clock = SpanClock()
+    t0 = time.perf_counter()
+    engine = PagedEngine(cfg, store, GenConfig(max_new_tokens=2, greedy=True),
+                         ServeConfig(max_slots=slots, max_len=max_len,
+                                     page_size=page, num_pages=num_pages),
+                         tracer=clock, device="cuda")
+    torch.cuda.synchronize()
+    fetch_s = time.perf_counter() - t0
+    if engine.kv.num_pages != num_pages:
+        fail(f"{arch} paged: pool of {engine.kv.num_pages} pages, asked "
+             f"for {num_pages}")
+    engine.generate_groups(tasks[:1], 2)         # warm-up
+    engine.gen = GenConfig(max_new_tokens=32, greedy=True)
+    torch.cuda.synchronize()
+    clock.reset()
+    _reset_counts()
+    t0 = time.perf_counter()
+    rollouts, m = engine.generate_groups(tasks[:2], 8)
+    dt = time.perf_counter() - t0
+    what = f"{arch} generate_groups bf16 2 tasks x 8 slots=8"
+    counts = _read_counts()
+    _expect_paged_counts(what, cfg.n_layers, m["decode_steps"], counts)
+    _check_rollouts(what, rollouts, cfg.vocab, 32)
+    if len(rollouts) != 16 or m["forks"] < 1:
+        fail(f"{what}: {len(rollouts)} rollouts, forks {m['forks']}: "
+             "expected 16, >= 1")
+    n_tok = sum(len(r.completion_ids) for r in rollouts)
+    steps = clock.count["decode_step"]
+    out["paged"] = dict(
+        tokens=n_tok, seconds=dt, tok_per_s=n_tok / dt,
+        decode_steps=m["decode_steps"],
+        decode_ms_per_step=clock.total["decode_step"] * 1e3 / steps,
+        prefill_ms=clock.total.get("prefill_chunk", 0.0) * 1e3,
+        prefill_chunks=clock.count.get("prefill_chunk", 0),
+        fetch_ms=fetch_s * 1e3, num_pages=num_pages,
+        pool_gib=num_pages * per_page / 2 ** 30, forks=m["forks"],
+        launches=counts,
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    p = out["paged"]
+    say(f"{what} max_new=32: {n_tok} tokens in {dt:.3f} s = "
+        f"{p['tok_per_s']:.1f} tok/s; decode {p['decode_ms_per_step']:.3f} "
+        f"ms/step over {steps} steps, prefill {p['prefill_ms']:.2f} ms in "
+        f"{p['prefill_chunks']} chunks (host clock); engine build with the "
+        f"weight fetch {p['fetch_ms']:.1f} ms; pool {num_pages} pages of "
+        f"{page} ({p['pool_gib']:.2f} GiB, sized from {free / 2 ** 30:.2f} "
+        f"GiB free), forks {m['forks']}; peak memory {p['peak_mem_gib']:.2f} "
+        "GiB")
+    del engine, rollouts, store
+    torch.cuda.empty_cache()
+    return out
+
+
 def model_step_ms(params, cfg, context):
     """Host-clock time of one decode step of the model alone (no engine,
     no sampling), synchronised, median of 10: the paged step over 32
@@ -1368,13 +1672,18 @@ def train_phase():
     from repro_torch.launch.train import run
 
     results = {}
+    trace = ROOT / "build" / "trace_train_run.json"
+    trace.parent.mkdir(exist_ok=True)
     for arch, steps in (("xlstm-1.3b", 3), (ARCH, 2)):
         family = get_config(arch).family
         torch.cuda.reset_peak_memory_stats()
+        argv = ["--arch", arch, "--steps", str(steps), "--quiet"]
+        if arch == ARCH:
+            argv += ["--trace", str(trace)]
         _reset_counts()
-        out = run(["--arch", arch, "--steps", str(steps), "--quiet"])
+        out = run(argv)
         counts = _read_counts()
-        what = f"train.run --arch {arch} --steps {steps}"
+        what = f"train.run " + " ".join(argv[:4])
         _expect_train_counts(what, family, out["n_layers"], out, counts)
         scan_variants = _scan_variants()
         if scan_variants != {"simt": counts["mlstm_scan"], "mma": 0}:
@@ -1400,6 +1709,8 @@ def train_phase():
         # zero loss and gradient; the run as a whole must move the weights
         if not any(m["grad_norm"] > 0 for m in hist):
             fail(f"{what}: every step had a zero gradient")
+        if "--trace" in argv:
+            spans = _check_trace(what, trace, out)
         summary = dict(
             seconds=out["seconds"],
             peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
@@ -1417,12 +1728,47 @@ def train_phase():
                 f"{m['decode_s'] * 1e3 / max(m['decode_steps'], 1):.2f} ms "
                 f"per step over {m['decode_steps']}), train step "
                 f"{m['train_s'] * 1e3:.1f} ms (host clock)")
+        if "--trace" in argv:
+            summary["trace_spans_ms"] = spans
         say(f"{what}: {out['seconds']:.2f} s, peak memory "
             f"{summary['peak_mem_gib']:.2f} GiB, buffer {out['buffer']}")
         results[arch] = (counts, summary, scan_variants)
         del out
         torch.cuda.empty_cache()
     return results
+
+
+def _check_trace(what, path, out):
+    """The Chrome trace ``--trace`` wrote: it loads, and holds one
+    stage/generation/produce span per produce, one stage/train/train_step
+    span per step and one publish instant per publish (one a step).
+    Returns the spans' summed ms by name."""
+    doc = json.loads(Path(path).read_text())
+    evs = doc["traceEvents"]
+    lanes = {}
+    for e in evs:
+        if e["ph"] == "M" and e["name"] == "process_name":
+            lanes[e["pid"]] = e["args"]["name"]
+    tracks = {(e["pid"], e["tid"]): (lanes[e["pid"]], e["args"]["name"])
+              for e in evs if e["ph"] == "M" and e["name"] == "thread_name"}
+    count, total = {}, {}
+    for e in evs:
+        if e["ph"] in ("X", "i"):
+            key = (*tracks[(e["pid"], e["tid"])], e["name"], e["ph"])
+            count[key] = count.get(key, 0) + 1
+            total[e["name"]] = total.get(e["name"], 0.0) + e.get("dur", 0) / 1e3
+    steps = len(out["steps"])
+    want = {("stage", "generation", "produce", "X"): out["produced"],
+            ("stage", "train", "train_step", "X"): steps,
+            ("stage", "sync", "publish", "i"): steps}
+    got = {k: count.get(k, 0) for k in want}
+    if got != want:
+        fail(f"{what}: trace {path} holds {count}, expected {want}")
+    say(f"{what}: trace {path.name} loads; "
+        + ", ".join(f"{'/'.join(k[:3])} x{v}" for k, v in got.items())
+        + f" ({len(evs)} events; spans ms "
+        + ", ".join(f"{k} {v:.1f}" for k, v in total.items() if v) + ")")
+    return total
 
 
 def _train_batch(cfg, B, S, prompt, device, seed=0):
@@ -1518,8 +1864,257 @@ def xlstm_step_phase():
     return out
 
 
+def qwen_step_phase():
+    """One GRPO train step of qwen-distill-1.5b on the published config
+    (bfloat16, vocab 151936, remat) at the launcher's batch (8 x 160, 48
+    response tokens): first the same step in float32 from the same
+    weights (the loss to hold the bf16 loss to, within 5e-2 relative),
+    then a warm-up bf16 step (its loss is the one compared), two timed
+    steps and one profiled step (device busy time, idle share, K1's time,
+    top kernels).  The behaviour log-probs are the float32 model's own, as
+    a rollout's would be, so the ratio starts at 1.  Every bf16 step
+    launches K1 2 x 28 times (the forward and the remat recompute of each
+    layer; the gradient of attention is the plain version's, no kernel),
+    all on the tensor-core kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    from repro_torch.models.params import Params, tree_map
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.rl.grpo import make_train_step, token_logp_from_logits
+
+    cfg = get_config(ARCH)
+    cfg32 = cfg.replace(dtype="float32")
+    opt = AdamWConfig(lr=3e-5)
+    B, S, prompt = 8, 160, 112
+    torch.cuda.empty_cache()
+    p32 = transformer.init(0, cfg32, "cuda")
+    p16 = Params(tree_map(lambda t: t.to(torch.bfloat16), p32))
+    batch = _train_batch(cfg, B, S, prompt, "cuda")
+    with torch.no_grad():
+        lp = token_logp_from_logits(
+            transformer.forward(p32, cfg32, batch["tokens"])[:, :-1],
+            batch["tokens"][:, 1:])
+    batch["behavior_logp"] = torch.cat(
+        [torch.zeros_like(lp[:, :1]), lp], 1) * batch["loss_mask"]
+    del lp
+    # the float32 step from the same weights: K1 on the CUDA-core kernel
+    p32.requires_grad_(True)
+    _reset_counts()
+    _, _, m = make_train_step(cfg32, opt)(p32, adamw_init(p32, opt), batch)
+    loss32, gnorm32 = float(m["loss"]), float(m["grad_norm"])
+    _expect_variants("qwen f32 train step", {"simt": 2 * cfg.n_layers,
+                                             "wgmma": 0})
+    del p32, m
+    torch.cuda.empty_cache()
+
+    p16.requires_grad_(True)
+    state = adamw_init(p16, opt)
+    step = make_train_step(cfg, opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses, gnorms = [], [], []
+    want = {"flash_attention_fwd": 2 * cfg.n_layers, "flash_decode": 0,
+            "paged_flash_decode": 0, "mlstm_scan": 0}
+    for i in range(3):
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, m = step(p16, state, batch)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+        gnorms.append(gnorm)
+        counts = _read_counts()
+        if counts != want or not (math.isfinite(loss)
+                                  and math.isfinite(gnorm)):
+            fail(f"qwen bf16 train step: launches {counts} (expected "
+                 f"{want}), loss {loss}, grad_norm {gnorm}")
+        variants = _expect_variants(f"qwen bf16 train step {i + 1}",
+                                    {"simt": 0, "wgmma": 2 * cfg.n_layers})
+    rel = abs(losses[0] - loss32) / abs(loss32)
+    if not rel <= 5e-2:
+        fail(f"qwen bf16 train step: loss {losses[0]} vs float32 {loss32} "
+             f"from the same weights, relative {rel:.3e} > 5e-2")
+    gnorm_rel = abs(gnorms[0] - gnorm32) / abs(gnorm32)
+    out = dict(step_ms=times[1:], warmup_ms=times[0], loss=losses[0],
+               loss_float32=loss32, loss_rel=rel, grad_norm=gnorms[0],
+               grad_norm_float32=gnorm32, grad_norm_rel=gnorm_rel,
+               losses=losses, grad_norms=gnorms,
+               launches=counts["flash_attention_fwd"],
+               launches_by_variant=variants,
+               params=sum(p.numel() for p in p16.parameters()),
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    say(f"qwen-distill-1.5b published config (bfloat16, vocab 151936, remat) "
+        f"GRPO train step, B=8 S=160: {out['params'] / 1e9:.3f} B params, "
+        f"{' / '.join(f'{t:.1f}' for t in times)} ms (first is warm-up; host "
+        f"clock, synchronised), flash_attention launches {out['launches']} "
+        f"per step ({variants}), loss {losses[0]:.6f} vs float32 "
+        f"{loss32:.6f} from the same weights (relative {rel:.2e} <= 5e-2), "
+        f"grad_norm {gnorms[0]:.4f} vs float32 {gnorm32:.4f} (relative "
+        f"{gnorm_rel:.2e}; the later steps' losses "
+        f"{', '.join(f'{x:.6f}' for x in losses[1:])} and grad norms "
+        f"{', '.join(f'{x:.4f}' for x in gnorms[1:])} follow the updates), "
+        f"peak memory {out['peak_mem_gib']:.2f} GiB")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(p16, state, batch)
+        torch.cuda.synchronize()
+    kernels = _trace_kernels(prof, "qwen_train_step")
+    if kernels:
+        out["profile"] = p = _busy(kernels, kernels[0][0], 1)
+        p["flash_attention_ms"] = sum(e - s for s, e, name in kernels
+                                      if "flash_fwd_sm90" in name) / 1e3
+        host = sorted(prof.key_averages(),
+                      key=lambda e: -e.self_cpu_time_total)
+        p["top_host_ops_ms"] = {e.key: e.self_cpu_time_total / 1e3
+                                for e in host[:8]}
+        say(f"profile qwen train step (torch.profiler): window "
+            f"{p['window_ms']:.1f} ms, device busy {p['busy_ms']:.1f} ms, "
+            f"idle share {p['idle_share']:.3f}, K1 tensor-core kernel "
+            f"(forward and remat recompute) {p['flash_attention_ms']:.2f} ms;"
+            " top kernels ms " + ", ".join(
+                f"{k} {v:.2f}" for k, v in p["top_kernels_ms"].items())
+            + "; top host ops ms (self CPU) " + ", ".join(
+                f"{k} {v:.1f}" for k, v in p["top_host_ops_ms"].items()))
+    else:
+        say("profile qwen train step: the trace holds no kernel: device "
+            "busy share not measured")
+    del p16, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def ckpt_launcher_phase():
+    """The launcher as a user runs it, on the card (no ``--device``): a
+    ``--crash-after 2`` run of ``--smoke --steps 4 --ckpt-every 1`` must
+    exit 17 and leave ``step-00000002`` and no ``tmp-*``; ``--resume``
+    from the same directory must report a resume from step 2 and finish
+    step 4.  The directory is a temporary one, removed at the end."""
+    import os
+    import shutil
+    import tempfile
+
+    ckpt = Path(tempfile.mkdtemp(prefix="ckpt-smoke-"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    base = [sys.executable, "-m", "repro_torch.launch.train", "--smoke",
+            "--steps", "4", "--ckpt-dir", str(ckpt), "--json"]
+    try:
+        t0 = time.perf_counter()
+        crash = subprocess.run(base + ["--ckpt-every", "1", "--crash-after",
+                                       "2"], env=env, cwd=ROOT,
+                               capture_output=True, text=True, timeout=300)
+        crash_s = time.perf_counter() - t0
+        left = sorted(p.name for p in ckpt.iterdir())
+        if crash.returncode != 17 or "step-00000002" not in left or any(
+                n.startswith("tmp-") for n in left):
+            fail(f"train --crash-after 2: exit {crash.returncode} (expected "
+                 f"17), left {left}: {crash.stdout[-2000:]}"
+                 f"{crash.stderr[-2000:]}")
+        t0 = time.perf_counter()
+        res = subprocess.run(base + ["--resume"], env=env, cwd=ROOT,
+                             capture_output=True, text=True, timeout=300)
+        resume_s = time.perf_counter() - t0
+        logs = [json.loads(line) for line in res.stdout.splitlines()
+                if line.startswith("{")]
+        resumed = [m["resumed_step"] for m in logs if "resumed_step" in m]
+        reached = max((m["step"] for m in logs if "step" in m), default=0)
+        if res.returncode != 0 or resumed != [2] or reached != 4:
+            fail(f"train --resume: exit {res.returncode}, resumed from "
+                 f"{resumed} (expected [2]), reached step {reached} "
+                 f"(expected 4): {res.stdout[-2000:]}{res.stderr[-2000:]}")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    say(f"train --smoke --crash-after 2 on the card: exit 17 in "
+        f"{crash_s:.1f} s, left {left}; --resume: resumed from step 2, "
+        f"reached step 4, exit 0 in {resume_s:.1f} s (each a fresh process)")
+    return dict(crash_s=crash_s, resume_s=resume_s, left=left)
+
+
+def ckpt_full_width_phase():
+    """qwen-distill-1.5b's launcher setup (float32, tokenizer vocab, no
+    remat) at full width cut to 2 layers, on the card: 2 steps, a save,
+    a restore into a fresh trainer from the same seed (the launcher's
+    ``resume``), every parameter and AdamW moment, the step count and the
+    weight version equal bit for bit; then one more step.  One save is
+    about 1.1 GB (a full-depth float32 save would be about 13 GB)."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.ckpt.checkpoint import (restore_checkpoint,
+                                             save_checkpoint, trainer_state)
+    from repro_torch.launch.train import (launcher_config, make_trainer,
+                                          parser, resume, train_loop)
+    from repro_torch.obs import log
+
+    args = parser().parse_args(["--steps", "3", "--quiet", "--device",
+                                "cuda"])
+    log.configure(args)
+    cfg = launcher_config(args).replace(n_layers=2)
+    ckpt = Path(tempfile.mkdtemp(prefix="ckpt-full-"))
+    try:
+        first = make_trainer(args, cfg)
+        train_loop(first, 2)
+        t0 = time.perf_counter()
+        path = save_checkpoint(ckpt, 2, trainer_state(
+            first.params, first.opt_state, first.store.version))
+        save_s = time.perf_counter() - t0
+        size = (path / "state.pkl").stat().st_size
+        t0 = time.perf_counter()
+        step, state = restore_checkpoint(ckpt, device="cuda")
+        restore_s = time.perf_counter() - t0
+        fresh = make_trainer(args, cfg)
+        if all(torch.equal(a, b) for a, b in zip(
+                first.params.parameters(), fresh.params.parameters())):
+            fail("checkpoint full width: a fresh trainer already equals the "
+                 "trained one; the comparison would prove nothing")
+        resume(fresh, state)
+        version = int(state["version"])
+        del state
+        n = 0
+        for name, p in first.params.named_parameters():
+            q = fresh.params.get_parameter(name)
+            pairs = [(p, q), (first.opt_state["m"][name],
+                              fresh.opt_state["m"][name]),
+                     (first.opt_state["v"][name],
+                      fresh.opt_state["v"][name])]
+            for a, b in pairs:
+                if a.dtype != b.dtype or not torch.equal(a, b):
+                    fail(f"checkpoint full width: {name} differs after "
+                         "the restore")
+                n += 1
+        if (step, fresh.opt_state["count"], version) != (
+                2, first.opt_state["count"], first.store.version):
+            fail(f"checkpoint full width: step {step}, count "
+                 f"{fresh.opt_state['count']} / {first.opt_state['count']}, "
+                 f"version {version} / {first.store.version}")
+        del first
+        torch.cuda.empty_cache()
+        out = train_loop(fresh, 3, step0=2)
+        last = out["steps"][-1]
+        if (len(out["steps"]) != 1 or last["step"] != 3
+                or not math.isfinite(last["loss"])):
+            fail(f"checkpoint full width: the step after the restore gave "
+                 f"{out['steps']}")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    say(f"checkpoint full width ({cfg.name}, 2 layers, float32, on the card):"
+        f" save {size / 2 ** 30:.2f} GiB in {save_s:.2f} s, restore "
+        f"{restore_s:.2f} s; {n} tensors (params, m, v), count and version "
+        f"bit-exact; step 3 after the restore: loss {last['loss']:.5f}")
+    del fresh
+    torch.cuda.empty_cache()
+    return dict(save_gib=size / 2 ** 30, save_s=save_s, restore_s=restore_s,
+                tensors=n)
+
+
 # ------------------------------------------------------------------ phase 4
-def teacher_forced_phase():
+def teacher_forced_phase(arch=ARCH, n_layers=4):
+    """``arch`` at full width cut to ``n_layers`` in float32, the same
+    params on the card and the CPU: prefill + 8 decode steps fed the CPU's
+    greedy tokens, logits within 1e-3 of max |logit|."""
     import numpy as np
     import torch
     from repro_torch.bridge import params_from_jax
@@ -1527,7 +2122,7 @@ def teacher_forced_phase():
     from repro_torch.data.tasks import MathTaskGenerator, Tokenizer
     from repro_torch.models import transformer
 
-    cfg = get_config(ARCH).replace(n_layers=4, dtype="float32")
+    cfg = get_config(arch).replace(n_layers=n_layers, dtype="float32")
     on_card = transformer.init(1, cfg, "cuda")
     on_cpu = params_from_jax(on_card.tree(), "cpu")
     tasks = MathTaskGenerator(seed=2).batch(2)
@@ -1546,8 +2141,8 @@ def teacher_forced_phase():
             rel = float((a - b).abs().max() / b.abs().max())
             worst = max(worst, rel)
             if not (torch.isfinite(a).all() and rel <= 1e-3):
-                fail(f"teacher-forced step {t}: max |card - cpu| / max |cpu| "
-                     f"= {rel:.3e} > 1e-3")
+                fail(f"teacher-forced {arch} step {t}: max |card - cpu| / "
+                     f"max |cpu| = {rel:.3e} > 1e-3")
             if t == steps:
                 break
             tok = torch.argmax(b[:, :cfg.vocab], dim=-1).to(torch.int32)
@@ -1556,9 +2151,11 @@ def teacher_forced_phase():
                                                     tok.cuda(), pos.cuda())
             lg_cpu, c_cpu = transformer.decode_step(on_cpu, cfg, c_cpu, tok,
                                                     pos)
-    say(f"teacher-forced card vs cpu (4 layers, float32, prefill + {steps} "
-        f"decode steps): worst max |card - cpu| / max |cpu| = {worst:.2e} "
-        "<= 1e-3")
+    say(f"teacher-forced card vs cpu ({arch}, {n_layers} layers, float32, "
+        f"prefill + {steps} decode steps): worst max |card - cpu| / max "
+        f"|cpu| = {worst:.2e} <= 1e-3")
+    del on_card, c_gpu, lg_gpu
+    torch.cuda.empty_cache()
     return worst
 
 
@@ -1765,6 +2362,8 @@ def main() -> None:
         max(len(t.prompt_ids) for t in MathTaskGenerator(seed=0).batch(8)),
         128)
     records["mlstm_scan"] = ssm_kernel_phase(160)
+    for name, part in gqa_phase(prompt_len, 128).items():
+        records[name]["gqa_groups"] = part
     flash_grad_phase()
     counts, gen = serve_phase()
     records["flash_attention_fwd"]["launches"] = counts["flash_attention_fwd"]
@@ -1798,7 +2397,23 @@ def main() -> None:
         fail(f"a K4 kernel was not launched on the training path: "
              f"{scan_by_variant}")
     records["mlstm_scan"]["launches_by_variant"] = scan_by_variant
+    qstep = qwen_step_phase()
+    say("qwen train step summary " + json.dumps(dict(qstep, **CARD)))
+    records["flash_attention_fwd"]["train_step_launches_by_variant"] = (
+        qstep["launches_by_variant"])
+    say("checkpoint summary " + json.dumps(dict(
+        launcher=ckpt_launcher_phase(), full_width=ckpt_full_width_phase())))
+    for arch in ("qwen-distill-7b", "qwen-distill-14b"):
+        big = big_serve_phase(arch)
+        say(f"{arch} serve summary " + json.dumps(dict(big, **CARD)))
+        for name, engine in (("flash_attention_fwd", "static"),
+                             ("flash_decode", "static"),
+                             ("paged_flash_decode", "paged")):
+            records[name].setdefault("serve_launches", {})[arch] = (
+                big[engine]["launches"][name])
     teacher_forced_phase()
+    for arch in ("qwen-distill-7b", "qwen-distill-14b"):
+        teacher_forced_phase(arch, 2)
     paged_teacher_forced_phase()
     xlstm_teacher_forced_phase()
     train_step_parity_phase()

@@ -11,11 +11,13 @@
 // Bound on the H100: HBM bytes.  Each step reads the whole cache once
 // (2 * B * C * Hkv * D elements) against ~4 FLOPs per element, far below
 // the card's ~295 FLOP/byte ridge, so the floor is cache bytes / 3.35 TB/s.
-// Design (split_decode.cuh): the grid is (n_split, Hkv, B), so a step fills
-// the 132 SMs even at small B * Hkv (ops._num_splits picks n_split); each
-// block streams its run of the cache in 16-byte cp.async pieces, several
-// tiles deep, with the G query heads of the group on chip, so K and V are
-// read from HBM once per step for all G heads; the splits merge in the
+// Design (split_decode.cuh): the grid is (n_split, Hkv * NG, B), so a step
+// fills the 132 SMs even at small B * Hkv (ops._num_splits picks n_split);
+// each block streams its run of the cache in 16-byte cp.async pieces,
+// several tiles deep, with the G query heads of the group on chip, so K and
+// V are read from HBM once per step for all G heads (NG = 1 for G <= 8;
+// above, each of the NG = ceil(G / 8) head groups reads them); the splits
+// merge in the
 // same launch (last-block ticket).  bf16 at D = 64 or 128 scores and sums
 // on the tensor cores (mma.sync, the heads as the rows of an m16 tile);
 // float32 and other D on the CUDA cores.  The TPU's sequential cache axis
@@ -60,11 +62,13 @@ struct DenseRows {
 }  // namespace
 
 // q [B, Hkv*G, D], k/v [B, C, Hkv, D], q_pos [B], k_pos [B, C] (int32),
-// o [B, Hkv*G, D]; all contiguous.  dtype 0 = float32, 1 = bfloat16.
-// window < 0 means no window.  With n_split > 1: part_acc float32
-// [B, Hkv, n_split, G, D], part_ml float32 [B, Hkv, n_split, G, 2] and
-// counters int32 [B * Hkv], all 0 before the first launch (each launch
-// leaves them 0); launches sharing counters must run in stream order.
+// o [B, Hkv*G, D]; all contiguous; any G >= 1.  dtype 0 = float32,
+// 1 = bfloat16.  window < 0 means no window.  With n_split > 1, over
+// NG = ceil(G / 8) head groups of Gc = ceil(G / NG) heads: part_acc float32
+// [B, Hkv, NG, n_split, Gc, D], part_ml float32 [B, Hkv, NG, n_split, Gc, 2]
+// and counters int32 [B * Hkv * NG], all 0 before the first launch (each
+// launch leaves them 0); launches sharing counters must run in stream
+// order.
 // Returns cudaGetLastError() of the launch.
 extern "C" int flash_decode(const void* q, const void* k, const void* v,
                             const void* q_pos, const void* k_pos, void* o,
@@ -73,9 +77,9 @@ extern "C" int flash_decode(const void* q, const void* k, const void* v,
                             int window, float scale, int dtype, int device,
                             void* stream) {
   const int n_tiles = (C + sd::kTile - 1) / sd::kTile;
-  if (B < 1 || C < 1 || Hkv < 1 || G < 1 || G > sd::kMaxG || D < 1 ||
-      D > sd::kMaxD || n_split < 1 || n_split > n_tiles || B > 65535 ||
-      Hkv > 65535 ||
+  if (B < 1 || C < 1 || Hkv < 1 || G < 1 || D < 1 || D > sd::kMaxD ||
+      n_split < 1 || n_split > n_tiles || B > 65535 ||
+      (long long)Hkv * sd::head_groups(G) > 65535 ||
       (n_split > 1 && (!part_acc || !part_ml || !counters)))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);

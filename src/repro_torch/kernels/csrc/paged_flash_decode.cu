@@ -71,12 +71,13 @@ struct PagedRows {
 }  // namespace
 
 // q [B, Hkv*G, D], k_pages/v_pages [P, page, Hkv, D], tables [B, maxp] and
-// lengths [B] (int32), o [B, Hkv*G, D]; all contiguous.  dtype 0 = float32,
-// 1 = bfloat16.  window < 0 means no window.  n_split is at most the tiles
-// of maxp * page slots; with n_split > 1, part_acc float32
-// [B, Hkv, n_split, G, D], part_ml float32 [B, Hkv, n_split, G, 2] and
-// counters int32 [B * Hkv], 0 before the launch and left 0 by it (shared
-// with flash_decode: launches must run in stream order).  Returns
+// lengths [B] (int32), o [B, Hkv*G, D]; all contiguous; any G >= 1.
+// dtype 0 = float32, 1 = bfloat16.  window < 0 means no window.  n_split
+// is at most the tiles of maxp * page slots; with n_split > 1, the merge
+// scratch of flash_decode.cu (per head group: part_acc float32
+// [B, Hkv, NG, n_split, Gc, D], part_ml float32 [B, Hkv, NG, n_split, Gc, 2]
+// and counters int32 [B * Hkv * NG]), 0 before the launch and left 0 by it
+// (shared with flash_decode: launches must run in stream order).  Returns
 // cudaGetLastError() of the launch.
 extern "C" int paged_flash_decode(const void* q, const void* k_pages,
                                   const void* v_pages, const void* tables,
@@ -87,7 +88,8 @@ extern "C" int paged_flash_decode(const void* q, const void* k_pages,
                                   int n_split, int window, float scale,
                                   int dtype, int device, void* stream) {
   if (B < 1 || P < 1 || page < 1 || maxp < 1 || Hkv < 1 || G < 1 ||
-      G > sd::kMaxG || D < 1 || D > sd::kMaxD || B > 65535 || Hkv > 65535 ||
+      D < 1 || D > sd::kMaxD || B > 65535 ||
+      (long long)Hkv * sd::head_groups(G) > 65535 ||
       (long long)maxp * page > (1 << 30) || n_split < 1 ||
       n_split > ((long long)maxp * page + sd::kTile - 1) / sd::kTile ||
       (n_split > 1 && (!part_acc || !part_ml || !counters)))

@@ -2,11 +2,16 @@
 // any cache layout launches (flash_decode.cu, dense; paged_flash_decode.cu,
 // the paged pool), and their launch and dispatch.
 //
-// A launch has grid (n_split, Hkv, B).  Block (s, hk, b) takes a contiguous
-// run of whole tiles of kTile slots of row b's run of slots (split s of
-// n_split; splits differ by at most one tile) and serves the G query heads
-// of KV head hk.  The run is the row's whole cache for the dense layout and
-// the slots the mask can reach for the paged one.  Two block bodies:
+// A launch has grid (n_split, Hkv * NG, B).  Block (s, hk * NG + hg, b)
+// takes a contiguous run of whole tiles of kTile slots of row b's run of
+// slots (split s of n_split; splits differ by at most one tile) and serves
+// head group hg of KV head hk's G query heads.  A group holds at most
+// kMaxG heads: NG = ceil(G / kMaxG) groups of Gc = ceil(G / NG) heads (the
+// last may hold fewer), so for G <= kMaxG there is one group of all G
+// heads, and above it each group's blocks read the KV head's tiles again
+// (K/V bytes times NG).  The run is the row's whole cache for the dense
+// layout and the slots the mask can reach for the paged one.  Two block
+// bodies:
 //
 // decode_block_mma (bf16, D = 64 or 128): each of the 4 warps takes every
 //   4th tile of the split, copies it with 16-byte cp.async into its own
@@ -33,7 +38,10 @@
 // Otherwise it writes its fp32 partial (acc[G][D], m[G], l[G]) to scratch,
 // and the last block of a (b, hk) to finish (a __threadfence, then an
 // atomicAdd ticket on a counter that starts at 0) merges the n_split
-// partials, writes o and resets the counter to 0 for the next launch.  A
+// partials, writes o and resets the counter to 0 for the next launch.
+// The scratch and the ticket are per (b, hk, hg): part_acc
+// [B, Hkv, NG, n_split, Gc, D], part_ml [B, Hkv, NG, n_split, Gc, 2],
+// counters [B * Hkv * NG], so two head groups never share a ticket.  A
 // split, warp or row group that attended nothing has m = -1e30 and l = 0
 // and weighs exp2(-1e30 - M) = 0 in a merge (or 1 x l = 0 when nothing was
 // attended at all), so it adds nothing and no NaN; a head with nothing
@@ -61,7 +69,8 @@ constexpr int kTile = 16;          // cache slots per tile
 constexpr int kCoreStages = 4;     // decode_block: tiles staged per thread
 constexpr int kMmaStages = 3;      // decode_block_mma: tiles staged per warp
 constexpr int kMaxSlots = kTile / (kThreads / 32);  // per row group (W = 32)
-constexpr int kMaxG = 8;
+constexpr int kMaxG = 8;           // heads of a group (the m16 tile's rows
+                                   // 0..7 on the tensor cores)
 constexpr int kMaxD = 256;
 constexpr int kMmaPad = 16;        // bytes after each staged row (no bank
                                    // conflicts for ldmatrix)
@@ -96,15 +105,17 @@ inline size_t mma_smem_bytes(int G, int D) {
 // ---------------------------------------------------------------- merge
 // Merge RG partials (a_s [RG][G][D], m_s / l_s [RG][G], in shared memory,
 // synced) into o (one split) or into this split's scratch, and let the last
-// split of the (b, hk) merge the splits.  All threads call it.
+// split of the (b, hk, hg) merge the splits.  Heads 0..Gw-1 (Gw <= G) are
+// the block's; the rest pad the template's G and are never written.  All
+// threads call it.
 template <typename T>
 __device__ __forceinline__ void finish(
     const float* a_s, const float* m_s, const float* l_s, int* last, int RG,
-    int G, int D, T* __restrict__ o_head, float* __restrict__ part_acc,
-    float* __restrict__ part_ml, int* __restrict__ counter, int split,
-    int n_split) {
+    int G, int Gw, int D, T* __restrict__ o_head,
+    float* __restrict__ part_acc, float* __restrict__ part_ml,
+    int* __restrict__ counter, int split, int n_split) {
   const int tid = threadIdx.x;
-  for (int i = tid; i < G * D; i += kThreads) {
+  for (int i = tid; i < Gw * D; i += kThreads) {
     const int g = i / D, d = i - g * D;
     float mx = kNegInf;
     for (int r = 0; r < RG; ++r) mx = fmaxf(mx, m_s[r * G + g]);
@@ -133,7 +144,7 @@ __device__ __forceinline__ void finish(
   __syncthreads();
   if (!*last) return;
   __threadfence();
-  for (int i = tid; i < G * D; i += kThreads) {
+  for (int i = tid; i < Gw * D; i += kThreads) {
     const int g = i / D;
     float mx = kNegInf;
     for (int s = 0; s < n_split; ++s)
@@ -214,9 +225,10 @@ __device__ __forceinline__ void exchange(float (&x)[32], int lane) {
   }
 }
 
-// q_head points at head 0 of the group ([G][D]), o_head likewise;
-// part_acc [n_split][G][D] and part_ml [n_split][G][2] are this (b, hk)'s
-// scratch, counter its ticket.  VEC elements make a piece; a lane holds up
+// q_head points at head 0 of the group ([Gw][D]), o_head likewise; heads
+// Gw..G-1 pad the group (q = 0, never written).  part_acc [n_split][G][D]
+// and part_ml [n_split][G][2] are this (b, hk, hg)'s scratch, counter its
+// ticket.  VEC elements make a piece; a lane holds up
 // to NC pieces of a row; W lanes share a row.  WIDE (W = 32, NC = 1: a
 // warp per row group, 4 slots a tile) reduces the 4 x 8 partial dots of a
 // tile (heads padded to 8) by halving exchanges, 31 shuffles where 4 G
@@ -226,7 +238,7 @@ __device__ __forceinline__ void decode_block(
     const Layout& lay, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ q_head, T* __restrict__ o_head,
     float* __restrict__ part_acc, float* __restrict__ part_ml,
-    int* __restrict__ counter, int C, int D, int W, float scale_log2,
+    int* __restrict__ counter, int C, int Gw, int D, int W, float scale_log2,
     int split, int n_split, unsigned char* smem) {
   constexpr int S = kCoreStages;
   const int tid = threadIdx.x, rg = tid / W, ch = tid % W;
@@ -245,7 +257,7 @@ __device__ __forceinline__ void decode_block(
 #pragma unroll
       for (int e = 0; e < VEC; ++e) {
         const int d = pc * VEC + e;
-        q[j][g][e] = pc < pieces && d < D
+        q[j][g][e] = pc < pieces && d < D && g < Gw
                          ? to_f32(q_head[(size_t)g * D + d]) * scale_log2
                          : 0.f;
         acc[j][g][e] = 0.f;
@@ -475,8 +487,8 @@ __device__ __forceinline__ void decode_block(
     }
   }
   __syncthreads();
-  finish<T>(a_s, m_s, l_s, reinterpret_cast<int*>(l_s + RG * G), RG, G, D,
-            o_head, part_acc, part_ml, counter, split, n_split);
+  finish<T>(a_s, m_s, l_s, reinterpret_cast<int*>(l_s + RG * G), RG, G, Gw,
+            D, o_head, part_acc, part_ml, counter, split, n_split);
 }
 
 // ---------------------------------------------------- tensor-core body
@@ -671,7 +683,7 @@ __device__ __forceinline__ void decode_block_mma(
   }
   __syncthreads();
   finish<bf16>(a_s, m_s, l_s, reinterpret_cast<int*>(l_s + kWarps * G),
-               kWarps, G, D, o_head, part_acc, part_ml, counter, split,
+               kWarps, G, G, D, o_head, part_acc, part_ml, counter, split,
                n_split);
 }
 
@@ -681,6 +693,24 @@ __device__ __forceinline__ void decode_block_mma(
 // which split_tiles cuts (the whole cache for the dense layout; the
 // reachable slots [lo, end) of one row for the paged pool, so the splits
 // share a short row's own tiles and not the table's width).
+//
+// The head group of a block: blockIdx.y = hk * NG + hg covers heads
+// g0 = hg * Gc .. g0 + Gw - 1 of KV head hk's G; its scratch region and
+// ticket are those of (b, hk, hg).
+struct Group {
+  int hk, Gw;
+  size_t blk, head0;   // (b, hk, hg) index; offset of head g0 in q / o
+};
+
+__device__ __forceinline__ Group head_group(int G, int NG, int Gc, int D) {
+  const int hk = blockIdx.y / NG, hg = blockIdx.y - hk * NG;
+  const int g0 = hg * Gc;
+  const size_t Hkv = gridDim.y / NG;
+  return Group{hk, min(Gc, G - g0),
+               (size_t)blockIdx.z * gridDim.y + blockIdx.y,
+               (((size_t)blockIdx.z * Hkv + hk) * G + g0) * D};
+}
+
 template <typename Rows, int D>
 __global__ void __launch_bounds__(kThreads)
 decode_mma_kernel(const Rows rows, const __nv_bfloat16* __restrict__ q,
@@ -688,38 +718,46 @@ decode_mma_kernel(const Rows rows, const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ v,
                   __nv_bfloat16* __restrict__ o, float* __restrict__ part_acc,
                   float* __restrict__ part_ml, int* __restrict__ counters,
-                  int G, float scale_log2) {
+                  int G, int NG, int Gc, float scale_log2) {
   const int split = blockIdx.x, n_split = gridDim.x;
-  const int hk = blockIdx.y, b = blockIdx.z;
   extern __shared__ __align__(16) unsigned char smem[];
+  const Group grp = head_group(G, NG, Gc, D);
   int C;
-  const auto lay = rows.at(b, hk, C);
-  const size_t bh = (size_t)b * gridDim.y + hk;
-  const size_t head0 = bh * G * D;
-  decode_block_mma<D>(lay, k, v, q + head0, o + head0,
-                      part_acc + bh * n_split * G * D,
-                      part_ml + bh * n_split * G * 2, counters + bh, C, G,
-                      scale_log2, split, n_split, smem);
+  const auto lay = rows.at(blockIdx.z, grp.hk, C);
+  decode_block_mma<D>(lay, k, v, q + grp.head0, o + grp.head0,
+                      part_acc + grp.blk * n_split * Gc * D,
+                      part_ml + grp.blk * n_split * Gc * 2,
+                      counters + grp.blk, C, grp.Gw, scale_log2, split,
+                      n_split, smem);
 }
 
-template <typename Rows, typename T, int G, int VEC, int NC, bool WIDE>
+// Gc, the heads of a full group, is the template's G.
+template <typename Rows, typename T, int Gc, int VEC, int NC, bool WIDE>
 __global__ void __launch_bounds__(kThreads)
 decode_kernel(const Rows rows, const T* __restrict__ q,
               const T* __restrict__ k, const T* __restrict__ v,
               T* __restrict__ o, float* __restrict__ part_acc,
-              float* __restrict__ part_ml, int* __restrict__ counters, int D,
-              int W, float scale_log2) {
+              float* __restrict__ part_ml, int* __restrict__ counters, int G,
+              int NG, int D, int W, float scale_log2) {
   const int split = blockIdx.x, n_split = gridDim.x;
-  const int hk = blockIdx.y, b = blockIdx.z;
   extern __shared__ __align__(16) unsigned char smem[];
+  const Group grp = head_group(G, NG, Gc, D);
   int C;
-  const auto lay = rows.at(b, hk, C);
-  const size_t bh = (size_t)b * gridDim.y + hk;
-  const size_t head0 = bh * G * D;
-  decode_block<T, G, VEC, NC, WIDE>(
-      lay, k, v, q + head0, o + head0, part_acc + bh * n_split * G * D,
-      part_ml + bh * n_split * G * 2, counters + bh, C, D, W, scale_log2,
-      split, n_split, smem);
+  const auto lay = rows.at(blockIdx.z, grp.hk, C);
+  decode_block<T, Gc, VEC, NC, WIDE>(
+      lay, k, v, q + grp.head0, o + grp.head0,
+      part_acc + grp.blk * n_split * Gc * D,
+      part_ml + grp.blk * n_split * Gc * 2, counters + grp.blk, C, grp.Gw, D,
+      W, scale_log2, split, n_split, smem);
+}
+
+// Head groups of G query heads: NG = ceil(G / kMaxG) groups of
+// Gc = ceil(G / NG) heads (kernels/decode_attention/ops.py::_head_groups
+// sizes the scratch by the same rule).
+inline int head_groups(int G) { return (G + kMaxG - 1) / kMaxG; }
+inline int group_heads(int G) {
+  const int NG = head_groups(G);
+  return (G + NG - 1) / NG;
 }
 
 // Call f(std::integral_constant<int, G>{}) for a run-time G in 1..kMaxG.
@@ -738,9 +776,9 @@ cudaError_t with_group(int G, F&& f) {
   }
 }
 
-// Pointers and sizes of one launch: q/o [B, Hkv * G, D]; k/v the cache
-// (the layout addresses it); part_acc / part_ml / counters the merge
-// scratch when n_split > 1.
+// Pointers and sizes of one launch: q/o [B, Hkv * G, D] (any G >= 1); k/v
+// the cache (the layout addresses it); part_acc / part_ml / counters the
+// merge scratch when n_split > 1, sized for the head groups.
 struct Launch {
   const void *q, *k, *v;
   void *o, *part_acc, *part_ml, *counters;
@@ -751,16 +789,17 @@ struct Launch {
 
 template <typename Rows, typename T, int VEC, int NC, bool WIDE = false>
 cudaError_t launch_core(const Rows& rows, const Launch& a, int W) {
-  const size_t smem = core_smem_bytes(sizeof(T), a.G, a.D, W);
-  return with_group(a.G, [&](auto g) {
+  const int NG = head_groups(a.G), Gc = group_heads(a.G);
+  const size_t smem = core_smem_bytes(sizeof(T), Gc, a.D, W);
+  return with_group(Gc, [&](auto g) {
     auto kernel = decode_kernel<Rows, T, decltype(g)::value, VEC, NC, WIDE>;
     cudaError_t err = allow_smem(kernel, smem);
     if (err != cudaSuccess) return err;
-    kernel<<<dim3(a.n_split, a.Hkv, a.B), kThreads, smem, a.stream>>>(
+    kernel<<<dim3(a.n_split, a.Hkv * NG, a.B), kThreads, smem, a.stream>>>(
         rows, static_cast<const T*>(a.q), static_cast<const T*>(a.k),
         static_cast<const T*>(a.v), static_cast<T*>(a.o),
         static_cast<float*>(a.part_acc), static_cast<float*>(a.part_ml),
-        static_cast<int*>(a.counters), a.D, W, a.scale * kLog2e);
+        static_cast<int*>(a.counters), a.G, NG, a.D, W, a.scale * kLog2e);
     return cudaGetLastError();
   });
 }
@@ -768,15 +807,16 @@ cudaError_t launch_core(const Rows& rows, const Launch& a, int W) {
 template <typename Rows, int D>
 cudaError_t launch_mma(const Rows& rows, const Launch& a) {
   using bf16 = __nv_bfloat16;
-  const size_t smem = mma_smem_bytes(a.G, D);
+  const int NG = head_groups(a.G), Gc = group_heads(a.G);
+  const size_t smem = mma_smem_bytes(Gc, D);
   auto kernel = decode_mma_kernel<Rows, D>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(a.n_split, a.Hkv, a.B), kThreads, smem, a.stream>>>(
+  kernel<<<dim3(a.n_split, a.Hkv * NG, a.B), kThreads, smem, a.stream>>>(
       rows, static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
       static_cast<const bf16*>(a.v), static_cast<bf16*>(a.o),
       static_cast<float*>(a.part_acc), static_cast<float*>(a.part_ml),
-      static_cast<int*>(a.counters), a.G, a.scale * kLog2e);
+      static_cast<int*>(a.counters), a.G, NG, Gc, a.scale * kLog2e);
   return cudaGetLastError();
 }
 

@@ -11,7 +11,9 @@ merge in the same launch (``csrc/split_decode.cuh``).
 JAX entry point does.  On a CPU tensor it runs ``decode_attention_ref``; on
 a CUDA tensor it launches the kernel (or raises) and counts the launch in
 ``decode_attention.launches``.  The kernel needs no padding of D or C (the
-TPU wrapper padded D to 128 and C to ``block_c``).
+TPU wrapper padded D to 128 and C to ``block_c``), and takes any group of
+``G = H / Hkv`` query heads: above ``MAX_GROUP`` the launch adds head
+groups (``_head_groups``), still one launch.
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ from .. import _build
 from .ref import decode_attention_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_GROUP = 8          # query heads per KV head the kernel is built for
+MAX_GROUP = 8          # query heads a block serves (split_decode.cuh kMaxG)
 TILE = 16              # cache slots per tile (split_decode.cuh kTile)
 MIN_SPLIT_TILES = 8    # tiles a split holds at least
 N_SM = 132             # the H100's SMs
@@ -59,8 +61,18 @@ def _waves(dtype: torch.dtype, D: int) -> float:
     return 0.5 if dtype == torch.bfloat16 and D in (64, 128) else 2.0
 
 
-# per device: the merge tickets, one int32 per (row, KV head), zeroed once
-# at creation; every launch leaves its counters at 0 again
+def _head_groups(G: int):
+    """(NG, Gc): the kernel serves G query heads per KV head as NG =
+    ceil(G / MAX_GROUP) groups of Gc = ceil(G / NG) heads (the last group
+    may hold fewer), one block per group and split; NG = 1 for G <=
+    MAX_GROUP.  ``split_decode.cuh::head_groups`` / ``group_heads`` apply
+    the same rule."""
+    ng = -(-G // MAX_GROUP)
+    return ng, -(-G // ng)
+
+
+# per device: the merge tickets, one int32 per (row, KV head, head group),
+# zeroed once at creation; every launch leaves its counters at 0 again
 _COUNTERS: Dict[torch.device, torch.Tensor] = {}
 
 
@@ -74,16 +86,18 @@ def _counters(device: torch.device, n: int) -> torch.Tensor:
 
 def _split_scratch(B: int, Hkv: int, G: int, D: int, n_split: int,
                    device: torch.device):
-    """The merge scratch of a launch with ``n_split`` splits: the fp32
-    partials ``(acc, m, l)`` and the tickets; ``(None,) * 3`` for one
-    split."""
+    """The merge scratch of a launch with ``n_split`` splits, per (row, KV
+    head, head group): the fp32 partials ``(acc, m, l)`` and the tickets;
+    ``(None,) * 3`` for one split."""
     if n_split == 1:
         return None, None, None
-    return (torch.empty(B * Hkv * n_split * G * D, dtype=torch.float32,
+    ng, gc = _head_groups(G)
+    blocks = B * Hkv * ng
+    return (torch.empty(blocks * n_split * gc * D, dtype=torch.float32,
                         device=device),
-            torch.empty(B * Hkv * n_split * G * 2, dtype=torch.float32,
+            torch.empty(blocks * n_split * gc * 2, dtype=torch.float32,
                         device=device),
-            _counters(device, B * Hkv))
+            _counters(device, blocks))
 
 
 def _lib() -> ctypes.CDLL:
@@ -133,9 +147,9 @@ def decode_attention(
         raise ValueError(f"decode_attention: shapes q {tuple(q.shape)} "
                          f"k {tuple(k.shape)} v {tuple(v.shape)} q_pos "
                          f"{tuple(q_pos.shape)} k_pos {tuple(k_pos.shape)}")
-    if H % Hkv or H // Hkv > MAX_GROUP or D > 256:
+    if H % Hkv or D > 256:
         raise ValueError(f"decode_attention: H={H} Hkv={Hkv} D={D} (needs "
-                         f"H % Hkv == 0, H/Hkv <= {MAX_GROUP}, D <= 256)")
+                         f"H % Hkv == 0 and D <= 256)")
     for t in (k, v, q_pos, k_pos):
         if t.device != q.device:
             raise ValueError("decode_attention: inputs on different devices")
@@ -149,8 +163,9 @@ def decode_attention(
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     G = H // Hkv
     o = torch.empty_like(q)
-    n_split = _num_splits(B, Hkv, C, _sm_count(q.device),
-                          waves=_waves(q.dtype, D), force=_num_splits.force)
+    n_split = _num_splits(B, Hkv * _head_groups(G)[0], C,
+                          _sm_count(q.device), waves=_waves(q.dtype, D),
+                          force=_num_splits.force)
     scratch = _split_scratch(B, Hkv, G, D, n_split, q.device)
     lib = _lib()
     err = lib.flash_decode(

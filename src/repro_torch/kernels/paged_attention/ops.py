@@ -28,12 +28,11 @@ from typing import Optional
 import torch
 
 from .. import _build
-from ..decode_attention.ops import (_num_splits, _sm_count, _split_scratch,
-                                    _waves)
+from ..decode_attention.ops import (_head_groups, _num_splits, _sm_count,
+                                    _split_scratch, _waves)
 from .ref import paged_decode_attention_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_GROUP = 8          # query heads per KV head the kernel is built for
 MAX_D = 256
 
 __all__ = ["paged_decode_attention", "paged_decode_attention_ref"]
@@ -41,14 +40,16 @@ __all__ = ["paged_decode_attention", "paged_decode_attention_ref"]
 
 def _paged_splits(B: int, Hkv: int, maxp: int, page: int,
                   window: Optional[int], dtype: torch.dtype, D: int,
-                  n_sm: int) -> int:
-    """Blocks per (row, KV head): ``decode_attention.ops._num_splits`` over
-    the most slots a row can reach, the table's ``maxp * page`` (or the
-    window, if shorter), never over the lengths, which stay on the card.
-    ``_num_splits.force`` applies here too."""
+                  n_sm: int, G: int = 1) -> int:
+    """Blocks per (row, KV head, head group): ``decode_attention.ops
+    ._num_splits`` over the most slots a row can reach, the table's
+    ``maxp * page`` (or the window, if shorter), never over the lengths,
+    which stay on the card; the head groups of ``G`` query heads
+    (``_head_groups``) count as more KV heads.  ``_num_splits.force``
+    applies here too."""
     reach = maxp * page if window is None else min(maxp * page, window)
-    return _num_splits(B, Hkv, max(1, reach), n_sm, waves=_waves(dtype, D),
-                       force=_num_splits.force)
+    return _num_splits(B, Hkv * _head_groups(G)[0], max(1, reach), n_sm,
+                       waves=_waves(dtype, D), force=_num_splits.force)
 
 
 def _lib() -> ctypes.CDLL:
@@ -93,10 +94,9 @@ def paged_decode_attention(
             f"{tuple(k_pages.shape)} v_pages {tuple(v_pages.shape)} "
             f"block_tables {tuple(block_tables.shape)} lengths "
             f"{tuple(lengths.shape)}")
-    if H % Hkv or H // Hkv > MAX_GROUP or D > MAX_D:
+    if H % Hkv or D > MAX_D:
         raise ValueError(f"paged_decode_attention: H={H} Hkv={Hkv} D={D} "
-                         f"(needs H % Hkv == 0, H/Hkv <= {MAX_GROUP}, "
-                         f"D <= {MAX_D})")
+                         f"(needs H % Hkv == 0 and D <= {MAX_D})")
     for t in (k_pages, v_pages, block_tables, lengths):
         if t.device != q.device:
             raise ValueError("paged_decode_attention: inputs on different "
@@ -115,7 +115,7 @@ def paged_decode_attention(
     G = H // Hkv
     o = torch.empty_like(q)
     n_split = _paged_splits(B, Hkv, maxp, page, window, q.dtype, D,
-                            _sm_count(q.device))
+                            _sm_count(q.device), G)
     scratch = _split_scratch(B, Hkv, G, D, n_split, q.device)
     lib = _lib()
     err = lib.paged_flash_decode(

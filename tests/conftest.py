@@ -15,6 +15,9 @@ def pytest_configure(config):
         "markers",
         "slow: long model-forward tests excluded from the CI budget "
         "(run with -m slow or no -m filter)")
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs an NVIDIA GPU; skips inside the test without one")
 
 
 @pytest.fixture(scope="session")
