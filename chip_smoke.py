@@ -60,9 +60,19 @@ Phases (any failure exits non-zero before the result line):
    kernel.  Profiled ``generate`` and ``generate_groups`` calls then split
    a decode step into device busy time and idle share (torch.profiler
    trace), and report the device busy time before the first decode kernel
-   (weight fetch and prefill).  Training: ``repro_torch.launch.train`` at
+   (weight fetch and prefill).  The scheduler on the card's measurements:
+   the timed ``generate_groups`` run's ``EngineStats`` as an
+   ``EngineReport`` filed under the H800 profile (decode steps > 0, g_eff
+   > 1), whose ``ServingCostModel`` must give the clipped measured slot
+   occupancy and g_eff for H800 and the analytic factors for H20; MILP
+   plans of qwen-distill-1.5B / 7B / 14B on 8 H800 + 8 H20 (and 1.5B on
+   16 H800) beside the analytic ones, with the scheduler's wall time on
+   the card's host, and ``fit_gen_time`` over the run's samples.
+   Training: ``repro_torch.launch.train`` at
    full width with the launcher's setup (float32: xlstm-1.3b 3 steps, its
-   scans all on K4's CUDA-core kernel; qwen 2 steps), then timed and
+   scans all on K4's CUDA-core kernel; qwen 2 steps with ``--schedule``,
+   whose plan must split 16 devices into disjoint D_T / D_I with finite
+   positive gamma, C_T and C_I), then timed and
    profiled GRPO steps of xlstm-1.3b on the published config (bfloat16,
    remat): 2 x 48 scan launches a step, all on the tensor-core kernel.
    The launcher's qwen run writes ``--trace``: the Chrome JSON must load
@@ -94,6 +104,8 @@ The line before the last is ``{"kernels": [...]}``; the last line is
 """
 from __future__ import annotations
 
+import copy
+import dataclasses
 import json
 import math
 import re
@@ -1262,7 +1274,8 @@ def paged_serve_phase():
     """The paged engine at full width: the launcher (single- and
     multi-turn), then a timed GRPO ``generate_groups`` on the published
     config and a profiled one.  Returns (paged launches of the launcher's
-    run, summary)."""
+    run, summary, the timed run's measurements for the scheduler: its
+    ``EngineStats``, mean prompt length and tokens per second)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data.tasks import MathTaskGenerator
@@ -1319,11 +1332,15 @@ def paged_serve_phase():
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     clock.reset()
+    before = copy.deepcopy(engine.stats)
     _reset_counts()
     t0 = time.perf_counter()
     rollouts, m = engine.generate_groups(tasks, 8)
     dt = time.perf_counter() - t0
     counts = _read_counts()
+    measured = dict(stats=_stats_since(before, engine.stats),
+                    prompt_len=sum(len(t.prompt_ids) for t in tasks)
+                    / len(tasks))
     what = "generate_groups bf16 8 tasks x 8 slots=32"
     _expect_paged_counts(what, cfg.n_layers, m["decode_steps"], counts)
     _check_rollouts(what, rollouts, cfg.vocab, 128)
@@ -1345,6 +1362,7 @@ def paged_serve_phase():
         slot_occupancy=m["slot_occupancy"],
         page_occupancy=m["page_occupancy"],
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    measured["tok_per_s"] = summary["tok_per_s"]
     say(f"{what} max_new=128: {n_tok} tokens in {dt:.3f} s = "
         f"{summary['tok_per_s']:.1f} tok/s; decode "
         f"{summary['decode_ms_per_step']:.3f} ms/step over {steps} steps, "
@@ -1365,7 +1383,143 @@ def paged_serve_phase():
         "decode_(mma_)?kernel<.*PagedRows", "generate_groups")
     del engine, store
     torch.cuda.empty_cache()
-    return launches, summary
+    return launches, summary, measured
+
+
+def _stats_since(base, now):
+    """The ``EngineStats`` of the engine calls made after ``base`` (a copy
+    of the stats taken before them)."""
+    fields = {}
+    for f in dataclasses.fields(now):
+        a, b = getattr(base, f.name), getattr(now, f.name)
+        if f.name == "max_slots":
+            fields[f.name] = b
+        elif f.name == "gen_samples":
+            fields[f.name] = list(b[len(a):])
+        else:
+            fields[f.name] = b - a
+    return type(now)(**fields)
+
+
+def schedule_feedback_phase(measured):
+    """The serving -> scheduler loop on the card's own measurements: the
+    timed ``generate_groups`` run of ``paged_serve_phase`` (8 tasks x
+    group 8 through 32 slots, copy-on-write forks) as an ``EngineReport``,
+    priced by ``ServingCostModel`` and scheduled by Algorithm 1 for the
+    paper's three models on its 8 H800 + 8 H20 cluster, beside the
+    analytic plans; and ``fit_gen_time`` over the run's per-request
+    samples.  The report is filed under the H800 profile: the scheduler
+    has no H100 profile, and the H800 is the same GH100 die with the same
+    80 GB of HBM3 and a cut NVLink.  Only the engine-level factors (slot
+    occupancy, g_eff) come from the report; the roofline constants stay
+    the paper's.  Returns a summary."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import milp
+    from repro_torch.core.cluster import (PROFILES, paper_heterogeneous,
+                                          paper_homogeneous_h800)
+    from repro_torch.core.cost_model import ANALYTIC
+    from repro_torch.core.scheduler import schedule
+    from repro_torch.serve.feedback import (EngineReport, ServingCostModel,
+                                            fit_gen_time)
+
+    if not milp._HAVE_SCIPY:
+        fail("scipy.optimize.milp is missing: the rollout plans would be "
+             "the greedy fallback's, not the MILP's")
+    stats = measured["stats"]
+    report = EngineReport.from_stats(stats, "H800",
+                                     tokens_per_sec=measured["tok_per_s"])
+    if report.decode_steps <= 0 or not report.g_eff > 1.0:
+        fail(f"EngineReport from the card: decode_steps "
+             f"{report.decode_steps}, g_eff {report.g_eff}: expected > 0 "
+             "and > 1 (GRPO forks share each group's prompt)")
+    say(f"EngineReport of the card ({CARD['card']}) filed as H800 (the "
+        f"same GH100 die and 80 GB HBM3; only slot occupancy and g_eff are "
+        f"taken from it, the roofline constants stay the paper's): "
+        f"slot_occupancy {report.slot_occupancy:.4f}, g_eff "
+        f"{report.g_eff:.4f}, prefix_hit_rate {report.prefix_hit_rate:.4f}, "
+        f"page_occupancy {report.page_occupancy:.4f}, decode_steps "
+        f"{report.decode_steps}, {report.tokens_per_sec:.1f} tok/s")
+    model = ServingCostModel([report])
+    h800, h20 = PROFILES["H800"], PROFILES["H20"]
+    want_eff = min(0.95, max(0.01, stats.slot_occupancy))
+    if model.decode_engine_eff(h800) != want_eff:
+        fail(f"ServingCostModel.decode_engine_eff(H800) = "
+             f"{model.decode_engine_eff(h800)}, expected the clipped "
+             f"measured slot occupancy {want_eff}")
+    if model.prefill_g_eff(h800) != max(stats.g_eff, 1.0):
+        fail(f"ServingCostModel.prefill_g_eff(H800) = "
+             f"{model.prefill_g_eff(h800)}, expected {max(stats.g_eff, 1.0)}")
+    factors = ("train_mfu", "prefill_mfu", "decode_compute_eff",
+               "decode_engine_eff", "hbm_eff", "prefill_g_eff")
+    for f in factors:
+        if getattr(model, f)(h20) != getattr(ANALYTIC, f)(h20):
+            fail(f"ServingCostModel.{f}(H20) = {getattr(model, f)(h20)}, "
+                 f"expected the analytic {getattr(ANALYTIC, f)(h20)}")
+    summary = dict(slot_occupancy=report.slot_occupancy, g_eff=report.g_eff,
+                   decode_steps=report.decode_steps,
+                   decode_engine_eff_h800=model.decode_engine_eff(h800),
+                   prefill_g_eff_h800=model.prefill_g_eff(h800), plans={})
+
+    def line(plan):
+        return (f"gamma {plan.gamma:.4f} C_T {plan.cost_train:.2f} s C_I "
+                f"{plan.cost_infer:.2f} s tau {plan.rollout_plan.describe()}")
+
+    cases = [(arch, "paper_heterogeneous(8, 8)", paper_heterogeneous(8, 8))
+             for arch in ("qwen-distill-1.5b", "qwen-distill-7b",
+                          "qwen-distill-14b")]
+    # on an all-H800 cluster the rollouts run on H800, so the report
+    # reaches the MILP's replica prices
+    cases.append(("qwen-distill-1.5b", "paper_homogeneous_h800(16)",
+                  paper_homogeneous_h800(16)))
+    for arch, where, cluster in cases:
+        spec = get_config(arch).spec
+        plan = schedule(spec, cluster, cost_provider=model)
+        base = schedule(spec, cluster)
+        for name, p in (("measured", plan), ("analytic", base)):
+            _check_plan(f"{arch} on {where} ({name})", p, len(cluster))
+        say(f"schedule {arch} on {where}: measured {line(plan)}; analytic "
+            f"{line(base)}; scheduler wall time {plan.wall_time_s * 1e3:.1f} "
+            f"ms / {base.wall_time_s * 1e3:.1f} ms (the card's host)")
+        summary["plans"][f"{arch} {where}"] = dict(
+            measured=dict(gamma=plan.gamma, cost_train=plan.cost_train,
+                          cost_infer=plan.cost_infer,
+                          tau=plan.rollout_plan.describe(),
+                          wall_time_s=plan.wall_time_s),
+            analytic=dict(gamma=base.gamma, cost_train=base.cost_train,
+                          cost_infer=base.cost_infer,
+                          tau=base.rollout_plan.describe(),
+                          wall_time_s=base.wall_time_s))
+    samples = list(stats.gen_samples)
+    distinct = len({n for n, _ in samples})
+    fit = fit_gen_time(samples, prompt_len=measured["prompt_len"])
+    if fit is None and distinct >= 3:
+        fail(f"fit_gen_time returned None over {len(samples)} samples with "
+             f"{distinct} distinct lengths")
+    if fit is None:
+        say(f"fit_gen_time: None ({len(samples)} samples, {distinct} "
+            "distinct completion lengths: it needs 3)")
+    else:
+        say(f"fit_gen_time over {len(samples)} samples ({distinct} distinct "
+            f"lengths, prompt {measured['prompt_len']:.1f}): a {fit.a:.6g} "
+            f"s/token, b {fit.b:.6g} s/token^2, t_prefill "
+            f"{fit.t_prefill:.6g} s")
+    summary["gen_time"] = (None if fit is None else dict(
+        a=fit.a, b=fit.b, t_prefill=fit.t_prefill))
+    summary["gen_samples"] = dict(n=len(samples), distinct=distinct)
+    return summary
+
+
+def _check_plan(what, plan, n_devices):
+    """A plan's device sets are disjoint and within the cluster, and its
+    gamma and costs are finite and positive."""
+    d_t, d_i = set(plan.train_devices), set(plan.infer_devices)
+    if not d_t or not d_i or d_t & d_i or len(d_t) + len(d_i) > n_devices:
+        fail(f"{what}: D_T {sorted(d_t)} and D_I {sorted(d_i)} are not "
+             f"disjoint non-empty sets of at most {n_devices} devices")
+    for key in ("gamma", "cost_train", "cost_infer"):
+        v = getattr(plan, key)
+        if not (math.isfinite(v) and v > 0):
+            fail(f"{what}: {key} = {v}, expected finite and positive")
 
 
 def big_serve_phase(arch):
@@ -1679,12 +1833,18 @@ def train_phase():
         torch.cuda.reset_peak_memory_stats()
         argv = ["--arch", arch, "--steps", str(steps), "--quiet"]
         if arch == ARCH:
-            argv += ["--trace", str(trace)]
+            argv += ["--trace", str(trace), "--schedule"]
         _reset_counts()
         out = run(argv)
         counts = _read_counts()
         what = f"train.run " + " ".join(argv[:4])
         _expect_train_counts(what, family, out["n_layers"], out, counts)
+        if "--schedule" in argv:
+            if not out["schedule"]:
+                fail(f"{what} --schedule: run() returned no plan")
+            _check_plan(f"{what} --schedule", out["plan"], 16)
+            say(f"{what} --schedule plan (8 H800 + 8 H20):\n"
+                + out["schedule"])
         scan_variants = _scan_variants()
         if scan_variants != {"simt": counts["mlstm_scan"], "mma": 0}:
             fail(f"{what}: mlstm_scan launches by kernel {scan_variants}, "
@@ -2375,8 +2535,11 @@ def main() -> None:
     records["flash_attention_fwd"]["launches_by_variant"] = by_variant
     records["flash_decode"]["launches"] = counts["flash_decode"]
     say("serve summary " + json.dumps(gen))
-    records["paged_flash_decode"]["launches"], paged = paged_serve_phase()
+    records["paged_flash_decode"]["launches"], paged, measured = (
+        paged_serve_phase())
     say("paged serve summary " + json.dumps(paged))
+    say("schedule feedback summary " + json.dumps(dict(
+        schedule_feedback_phase(measured), **CARD)))
     train = train_phase()
     records["mlstm_scan"]["launches"] = train["xlstm-1.3b"][0]["mlstm_scan"]
     for name, rec in records.items():

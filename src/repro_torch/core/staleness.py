@@ -1,7 +1,7 @@
 """Bounded-staleness control for asynchronous RL (AReaL semantics), the
-port's copy of ``repro.core.staleness`` (``StalenessConfig`` and
-``StalenessController``; the multi-job registry and the adaptive delta
-come with the slices that use them).
+port's copy of ``repro.core.staleness`` (``StalenessConfig``,
+``StalenessController`` and the scheduler's ``adaptive_delta``; the
+multi-job registry comes with the slice that uses it).
 
 The trainer holds weight version v.  Every rollout records the version(s)
 that generated it.  The controller enforces:
@@ -110,3 +110,22 @@ class StalenessController:
     def swap_history(self) -> List[tuple]:
         """[(plan_epoch, version_at_swap), ...] — provenance of replans."""
         return list(self._swap_log)
+
+
+def adaptive_delta(run_window, config: StalenessConfig,
+                   rel_tol: float = 0.05) -> int:
+    """§4.2.2 'Optimize across different δ(η) values': start from δ0 and double
+    until the resulting plan's *per-step* cost stabilizes.
+
+    ``run_window(delta) -> float`` returns the δ-step objective max{C_T,C_I};
+    we normalize per step and stop when successive values agree within rel_tol.
+    """
+    delta = config.delta0()
+    prev = run_window(delta) / delta
+    while delta * 2 <= config.delta_max:
+        nxt = run_window(delta * 2) / (delta * 2)
+        if abs(nxt - prev) <= rel_tol * max(abs(prev), 1e-12):
+            break
+        delta *= 2
+        prev = nxt
+    return delta

@@ -6,6 +6,8 @@
         --steps 4 --ckpt-dir /tmp/ckpt --ckpt-every 1 --crash-after 2
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
         --steps 4 --ckpt-dir /tmp/ckpt --resume --trace /tmp/trace.json
+    PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
+        --schedule --steps 1
 
 The counterpart of ``repro.launch.train``: the same flags for the run
 itself and the same setup (tokenizer vocab, float32 weights, no remat,
@@ -28,11 +30,14 @@ the resumed step is the interrupted run's, its later rollouts are not.
 ``--trace PATH`` writes a Chrome-trace JSON of the run (``obs.Tracer``:
 a produce and a train_step span per step, a publish instant per
 publish); ``--metrics PATH`` the trainer's metrics registry (``buffer/*``
-keys).  ``--schedule`` comes with the port of ``core/`` (the scheduler).
+keys).  ``--schedule`` logs the AReaL-Hex plan (``core.scheduler.schedule``)
+of the arch's published config on the paper's heterogeneous cluster of
+8 H800 + 8 H20 before training, as the reference does.
 
 ``run(argv)`` is the body: it returns the run's numbers as a dict, with
-host-clock seconds of each step's produce and train phases and the step
-it resumed from.  Its pieces (``launcher_config``, ``make_trainer``,
+host-clock seconds of each step's produce and train phases, the step it
+resumed from, and under ``--schedule`` the plan (``plan``) and its
+``describe()`` text (``schedule``).  Its pieces (``launcher_config``, ``make_trainer``,
 ``resume``, ``train_loop``) let a caller drive the same loop with a
 trainer of its own, e.g. at full width and reduced depth.
 """
@@ -69,6 +74,9 @@ def parser() -> argparse.ArgumentParser:
                     help="hard-exit (os._exit(17), no cleanup) after N "
                          "completed steps: crash injection for exercising "
                          "--resume")
+    ap.add_argument("--schedule", action="store_true",
+                    help="log the AReaL-Hex schedule for the paper's "
+                         "heterogeneous cluster before training")
     ap.add_argument("--trace", default="",
                     help="write a Chrome-trace JSON of the run here "
                          "(view: https://ui.perfetto.dev)")
@@ -89,6 +97,16 @@ def launcher_config(args: argparse.Namespace):
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     return cfg.replace(vocab=Tokenizer().vocab_size, dtype="float32",
                        remat=False)
+
+
+def paper_schedule(arch: str):
+    """The AReaL-Hex plan of ``arch``'s published config on the paper's
+    heterogeneous cluster (8 H800 + 8 H20), as the reference launcher
+    prints it."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.cluster import paper_heterogeneous
+    from repro_torch.core.scheduler import schedule
+    return schedule(get_config(arch).spec, paper_heterogeneous(8, 8))
 
 
 def make_trainer(args: argparse.Namespace, cfg, tracer=None, registry=None):
@@ -183,6 +201,11 @@ def run(argv: Optional[List[str]] = None) -> Dict:
         if not resume_dir:
             ap.error("--resume needs a directory (or --ckpt-dir)")
     cfg = launcher_config(args)
+    plan = None
+    if args.schedule:
+        plan = paper_schedule(args.arch)
+        log.info("AReaL-Hex schedule (8 H800 + 8 H20 paper cluster):")
+        log.info(plan.describe(), schedule=plan.describe())
     tracer = None
     if args.trace:
         from repro_torch.obs import Tracer
@@ -221,7 +244,8 @@ def run(argv: Optional[List[str]] = None) -> Dict:
         registry.to_json(args.metrics)
         log.info(f"metrics written to {args.metrics}", metrics=args.metrics)
     log.info("training complete", resumed_from=step0, steps=args.steps)
-    return dict(out, resumed_from=step0, eta=args.eta)
+    return dict(out, resumed_from=step0, eta=args.eta, plan=plan,
+                schedule=plan.describe() if plan is not None else None)
 
 
 if __name__ == "__main__":

@@ -2,8 +2,8 @@
 
 A copy of the reference's ``ModelConfig`` (same fields, same derived
 properties) so the port needs nothing from ``repro``.  ``tdtype`` maps the
-``dtype`` string to a torch dtype; the scheduler's coarse ``spec`` is not
-part of this slice.
+``dtype`` string to a torch dtype; ``spec`` is the scheduler's coarse
+``ModelSpec``, field for field the reference's.
 """
 from __future__ import annotations
 
@@ -12,6 +12,8 @@ from dataclasses import dataclass
 from typing import Optional
 
 import torch
+
+from repro_torch.core.model_spec import ModelSpec
 
 
 def _round_up(x: int, m: int) -> int:
@@ -80,6 +82,22 @@ class ModelConfig:
     @property
     def tdtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
+
+    @property
+    def spec(self) -> ModelSpec:
+        """Coarse spec for the scheduler's analytic cost models."""
+        return ModelSpec(
+            name=self.name, family=self.family, n_layers=self.n_layers,
+            d_model=self.d_model, n_heads=self.n_heads,
+            n_kv_heads=self.n_kv_heads, d_ff=self.d_ff, vocab=self.vocab,
+            head_dim=self.head_dim, n_experts=self.n_experts,
+            top_k=self.top_k, ssm_state=self.ssm_state,
+            attn_window=self.attn_window,
+            n_encoder_layers=self.n_encoder_layers,
+            encoder_seq=self.encoder_seq,
+            tie_embeddings=self.tie_embeddings,
+            mlp_mats=2 if self.mlp_kind == "gelu" else 3,
+        )
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)

@@ -1,6 +1,6 @@
 """Staleness-bounded producer-consumer rollout buffer (AReaL semantics),
-the port of ``repro.rl.buffer`` (``Rollout`` and ``RolloutBuffer``; the
-multi-job ``JobBuffers`` comes with the multi-job slice).
+the port of ``repro.rl.buffer`` (``Rollout``, ``RolloutBuffer`` and the
+multi-job ``JobBuffers``).
 
 Rollout workers push completed trajectories tagged with the weight version
 that generated them; the trainer pops batches subject to the admission
@@ -137,3 +137,67 @@ class RolloutBuffer:
             "plan_epoch": self.ctl.plan_epoch,
             "plan_swaps": len(self.ctl.swap_history()),
         }
+
+
+class JobBuffers:
+    """Per-job rollout buffers over one shared pool (multi-job runtime).
+
+    Each job owns an independent ``RolloutBuffer`` — its own weight-version
+    stream, η_j budget, and capacity (η_j+1)·B_j.  A cross-job device
+    handoff (core/pool.py arbitration) re-homes *hardware*, never data:
+    both jobs see a plan-swap epoch bump and both buffers keep their
+    contents and version streams, so each η_j admission rule is unaffected.
+    """
+
+    def __init__(self):
+        self._bufs: Dict[str, RolloutBuffer] = {}
+
+    def add_job(self, name: str,
+                config: Optional[StalenessConfig] = None) -> RolloutBuffer:
+        if name in self._bufs:
+            raise ValueError(f"job {name!r} already has a buffer")
+        buf = RolloutBuffer(config)
+        self._bufs[name] = buf
+        return buf
+
+    def __getitem__(self, name: str) -> RolloutBuffer:
+        return self._bufs[name]
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._bufs
+
+    def jobs(self) -> List[str]:
+        return sorted(self._bufs)
+
+    def remove_job(self, name: str, *, force: bool = False) -> Dict[str, float]:
+        """Reclaim a departed job's buffer (completion/rejection).
+
+        A clean departure has nothing in flight — the job drained before
+        its slice was reclaimed.  ``force=True`` (preemption/abort) drops
+        whatever is still generating or buffered; the dropped count lands
+        in the returned final stats so no rollout silently vanishes from
+        the ledger.  Returns the buffer's final ``stats()`` snapshot.
+        """
+        if name not in self._bufs:
+            raise KeyError(f"job {name!r} has no buffer")
+        buf = self._bufs[name]
+        if buf.ctl.in_flight and not force:
+            raise RuntimeError(
+                f"job {name!r} still has {buf.ctl.in_flight} rollouts in "
+                f"flight; drain first or remove_job(force=True)")
+        if buf.ctl.in_flight:
+            buf.dropped += buf.ctl.in_flight   # buffered + still generating
+            buf.ctl.drop(buf.ctl.in_flight)
+            buf._items = []
+        final = buf.stats()
+        del self._bufs[name]
+        return final
+
+    def on_device_handoff(self, from_job: str, to_job: str) -> Dict[str, int]:
+        """Devices moved between jobs: both plans swapped, both buffers
+        bump their plan epoch; returns {job: new_epoch}."""
+        return {from_job: self._bufs[from_job].on_plan_swap(),
+                to_job: self._bufs[to_job].on_plan_swap()}
+
+    def stats(self) -> Dict[str, Dict[str, float]]:
+        return {n: b.stats() for n, b in self._bufs.items()}

@@ -17,12 +17,16 @@ Modules:
   * ``model``    — chunked prefill and batched decode over the pool; decode
     attention through the hand-written paged flash-decode kernel.
   * ``engine``   — the continuous scheduler (``PagedEngine``).
-  * ``feedback`` — ``EngineReport``, the engine's observed behavior.
+  * ``feedback`` — ``EngineReport``, the engine's observed behavior, and
+    ``ServingCostModel`` / ``fit_env_model`` / ``fit_gen_time``, which
+    price it for the scheduler (``core.scheduler``).
 """
 from .engine import EngineStats, PagedEngine, ServeConfig
-from .feedback import EngineReport
+from .feedback import (EngineReport, ServingCostModel, fit_env_model,
+                       fit_gen_time)
 from .kv_cache import PagedKVCache
 from .radix import RadixCache
 
 __all__ = ["PagedEngine", "ServeConfig", "EngineStats", "PagedKVCache",
-           "RadixCache", "EngineReport"]
+           "RadixCache", "EngineReport", "ServingCostModel", "fit_env_model",
+           "fit_gen_time"]
