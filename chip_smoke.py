@@ -98,6 +98,34 @@ Phases (any failure exits non-zero before the result line):
    forward, prefill carry and 8 decode steps (its scans on the CUDA-core
    kernel); one train step of each family, loss and grad_norm within 1e-3.
    The 7B and 14B at full width cut to 2 layers, static path as above.
+5. The other model families (qwen2.5-3b, h2o-danube-1.8b, starcoder2-15b,
+   yi-34b, internvl2-2b, qwen3-moe-235b-a22b, grok-1-314b, hymba-1.5b,
+   whisper-small).  Kernels at their shapes in float32 and bfloat16
+   against the plain versions, timed in bfloat16 beside the plain version,
+   SDPA and the bound: K1 at D = 80 with window 4096 (S 33 and 4200, the
+   CUDA-core kernel), non-causal at Sq 33 / Sk 1500 and 1500 / 1500 (H 12,
+   D 64), at 25 / 5 heads with window 1024 and at G = 12 and 16; K3 over
+   rings of 4096 (D = 80) and 1024 slots past the window, over whisper's
+   1500 frames and at G = 16; K2 at D = 80 with window 4096 and lengths
+   past it.  Card against CPU in float32, teacher-forced, logits within
+   1e-3 and greedy tokens identical, with exact K1 / K3 launches: 2 layers
+   at the published width (qwen3-moe 1; grok-1 at its smoke width),
+   h2o-danube over a 4200-token prompt and hymba over 1100 (past their
+   windows), whisper with frames [2, 1500, 768], internvl2 with patches
+   [2, 256, 1024].  Serving in bfloat16 at the published width (random
+   init on the card, published and freed before the fetch), at the
+   published depth or the largest under 16 GiB of weights (starcoder2 20
+   of 40 layers, yi 13 of 60, qwen3-moe 2 of 94, grok-1 1 of 64), B = 8,
+   32 new tokens, greedy, through ``RolloutEngine`` (whisper: through
+   ``prefill(frames=...)`` and ``decode_step``, since no engine passes
+   frames): exact launches (K1 once per attention layer per prefill,
+   whisper 36; K3 once per attention layer per decode step, whisper 24),
+   tok/s with and without the fetch, prefill ms, decode ms/step, and a
+   profiled decode step's device busy time and idle share; h2o-danube and
+   starcoder2 also through ``PagedEngine`` with exact K2 launches.  Timed
+   bf16 GRPO train steps (remat, B = 8 x 160) of qwen2.5-3b at full depth
+   and qwen3-moe at full width and 1 layer: 2 K1 launches per layer a
+   step, finite loss and grad norm, params moved.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -2457,22 +2485,28 @@ def xlstm_teacher_forced_phase():
 
 
 def train_step_parity_phase():
-    """One GRPO train step on the card and on the CPU from the same params
-    and batch, at full width cut to 4 layers in float32: xlstm-1.3b (K4
-    forward, recomputed backward) and qwen-distill-1.5b (K1 forward, its
-    recompute backward).  Loss and grad_norm agree within 1e-3 relative."""
+    """GRPO train steps on the card and on the CPU from the same params
+    and batch in float32: one step of xlstm-1.3b (K4 forward, recomputed
+    backward) and of qwen-distill-1.5b (K1 forward, its recompute
+    backward) at full width cut to 4 layers, and three steps of
+    qwen3-moe's smoke config (the routing backward, and the grad norm's
+    growth from step to step on a fixed batch).  Loss and grad_norm agree
+    within 1e-3 relative at every step."""
     import torch
     from repro_torch.bridge import params_from_jax
-    from repro_torch.configs import get_config
+    from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.models.api import get_model
     from repro_torch.models.params import tree_map
     from repro_torch.optim.adamw import AdamWConfig, adamw_init
     from repro_torch.rl.grpo import make_train_step
 
     out = {}
-    for arch in ("xlstm-1.3b", ARCH):
-        cfg = get_config(arch).replace(n_layers=4, dtype="float32",
-                                       remat=False)
+    for arch, cut, n_steps in (("xlstm-1.3b", "4 layers", 1),
+                               (ARCH, "4 layers", 1),
+                               ("qwen3-moe-235b-a22b", "smoke width", 3)):
+        cfg = (get_config(arch).replace(n_layers=4) if cut == "4 layers"
+               else get_smoke_config(arch)).replace(dtype="float32",
+                                                    remat=False)
         opt = AdamWConfig(lr=3e-5)
         step = make_train_step(cfg, opt)
         card = get_model(cfg).init(4, cfg, "cuda")
@@ -2481,31 +2515,823 @@ def train_step_parity_phase():
         for params in (card, params_from_jax(host, "cpu")):
             dev = params["embed"].device
             params.requires_grad_(True)
+            state = adamw_init(params, opt)
+            batch = _train_batch(cfg, 4, 64, 40, dev, seed=1)
+            res.append([])
             _reset_counts()
-            _, _, m = step(params, adamw_init(params, opt),
-                           _train_batch(cfg, 4, 64, 40, dev, seed=1))
-            res.append((float(m["loss"]), float(m["grad_norm"])))
-            if params is card:
+            for _ in range(n_steps):
+                params, state, m = step(params, state, batch)
+                res[-1] += [float(m["loss"]), float(m["grad_norm"])]
+            if dev.type == "cuda":
                 counts = _read_counts()
                 key = ("mlstm_scan" if cfg.family == "ssm"
                        else "flash_attention_fwd")
-                if counts[key] != cfg.n_layers or (
+                if counts[key] != n_steps * cfg.n_layers or (
                         key == "mlstm_scan" and _scan_variants()["mma"]):
                     fail(f"train step parity {arch}: launches {counts} (scan "
                          f"by kernel {_scan_variants()}), expected "
-                         f"{cfg.n_layers} {key}, none on the bf16 kernel")
-        del card, params
+                         f"{n_steps * cfg.n_layers} {key}, none on the bf16 "
+                         "kernel")
+        del card, params, state
         rel = [abs(a - b) / abs(b) for a, b in zip(*res)]
         if not all(math.isfinite(x) and x <= 1e-3 for x in rel):
-            fail(f"train step parity {arch}: card (loss, grad_norm) "
+            fail(f"train step parity {arch}: card (loss, grad_norm) per step "
                  f"{res[0]} vs cpu {res[1]}: relative {rel}")
-        say(f"train step card vs cpu {arch} (4 layers, float32): loss "
-            f"{res[0][0]:.6f} / {res[1][0]:.6f}, grad_norm "
-            f"{res[0][1]:.6f} / {res[1][1]:.6f}, relative "
-            f"{rel[0]:.2e} / {rel[1]:.2e} <= 1e-3")
+        say(f"train step card vs cpu {arch} ({cut}, float32, {n_steps} "
+            "step(s)): (loss, grad_norm) per step card "
+            + ", ".join(f"{x:.6g}" for x in res[0]) + " / cpu "
+            + ", ".join(f"{x:.6g}" for x in res[1]) + ", worst relative "
+            f"{max(rel):.2e} <= 1e-3")
         out[arch] = rel
         torch.cuda.empty_cache()
     return out
+
+
+# ---------------------------------------------------------- the families
+# the model families beyond qwen-distill and xlstm: their published
+# configs, served at the published depth where the bf16 weights stay under
+# SERVE_BYTES, else at the largest depth under it (SERVE_LAYERS)
+FAMILY_ARCHS = ["qwen2.5-3b", "h2o-danube-1.8b", "starcoder2-15b", "yi-34b",
+                "internvl2-2b", "qwen3-moe-235b-a22b", "grok-1-314b",
+                "hymba-1.5b", "whisper-small"]
+SERVE_BYTES = 16 * 2 ** 30
+SERVE_LAYERS = {"starcoder2-15b": 20, "yi-34b": 13,
+                "qwen3-moe-235b-a22b": 2, "grok-1-314b": 1}
+DEV = "cuda"       # the families' phases run on this device
+
+
+# bfloat16 kernel output against the float32 plain version of the same
+# inputs: each element may be off by its own rounding to bfloat16 (2^-8 of
+# it) plus BF16_ROW_TOL of its row's rms (a row: one query's heads x head
+# dims), which covers the rounding of the probabilities in the P V product
+# (2^-8 each, random, so about 2^-8 of the row's rms over thousands of
+# keys) but not a key dropped or added (about 1/sqrt(keys) of the rms)
+BF16_ROW_TOL = 2e-2
+
+
+def _widened(args):
+    return tuple(a.float() if hasattr(a, "is_floating_point")
+                 and a.is_floating_point() else a for a in args)
+
+
+def _bf16_excess(got, want32):
+    """max over elements of (|got - want32| - 2^-8 |want32|) / the rms of
+    want32 over the element's row (its last two dims: heads x head dim)."""
+    g = got.float().reshape(-1, got.shape[-2] * got.shape[-1])
+    w = want32.float().reshape(g.shape)
+    rms = w.pow(2).mean(-1, keepdim=True).sqrt().clamp_min(1e-30)
+    return float(((g - w).abs() - 2.0 ** -8 * w.abs()).div(rms).max())
+
+
+def _attn_sites(cfg):
+    """(K1 launches per prefill, K3 launches per decode step): one per
+    attention layer; whisper's prefill runs its encoder and the decoder's
+    self- and cross-attention, its decode step the last two."""
+    if cfg.family == "encdec":
+        return cfg.n_encoder_layers + 2 * cfg.n_layers, 2 * cfg.n_layers
+    return cfg.n_layers, cfg.n_layers
+
+
+def _ring_pos(q_pos, C):
+    """k_pos [B, C] of a ring cache of C slots after writing positions
+    0..q_pos of each row at slot ``pos % C``."""
+    import torch
+    rows = []
+    for qp in q_pos:
+        if qp < C:
+            rows.append([s if s <= qp else EMPTY for s in range(C)])
+        else:
+            rows.append([qp - ((qp - s) % C) for s in range(C)])
+    return torch.tensor(rows, dtype=torch.int32, device=DEV)
+
+
+def families_kernel_phase(prompt_len):
+    """K1, K3 and K2 at the shapes the families put them at, in float32 and
+    bfloat16 against their plain versions (one launch a call), timed in
+    bfloat16 beside the plain version, ``scaled_dot_product_attention``
+    and the bound: K1 at D = 80 with window 4096 (h2o-danube, on the
+    CUDA-core kernel) at S 33 and 4200; K1 non-causal at Sq 33 / Sk 1500
+    and 1500 / 1500, H 12, D 64 (whisper's cross-attention and encoder);
+    K1 at hymba's 25 / 5 heads, D 64, window 1024, and at G = 12 and 16
+    (starcoder2, qwen3-moe); K3 at D = 80 over a ring of 4096 slots past
+    the window (rows at 3000, 4100, 4200 and 5000), at hymba's ring of
+    1024, whisper's cross-attention (the query at Se - 1 over 1500 frames)
+    and G = 16, D 128 (qwen3-moe); K2 at D = 80, window 4096, with lengths
+    past the window.  Returns {kernel: {shape: record}}."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention.ops import (
+        decode_attention, decode_attention_ref)
+    from repro_torch.kernels.flash_attention.ops import (
+        _variant, flash_attention, flash_attention_ref)
+    from repro_torch.kernels.paged_attention.ops import (
+        paged_decode_attention, paged_decode_attention_ref)
+
+    gen = torch.Generator(device=DEV).manual_seed(8)
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=DEV)
+    out = {"flash_attention_fwd": {}, "flash_decode": {},
+           "paged_flash_decode": {}}
+
+    def hold(name, wrapper, shape, what, call, plain, library, work,
+             faults=()):
+        """Check one case in both dtypes; in bfloat16 also against the
+        float32 plain version of the same inputs, row by row
+        (``_bf16_excess``), and show that each planted fault in
+        ``faults`` (name, args -> (args, kwargs) of a wrong call) fails
+        that check; time it in bfloat16."""
+        rec = {"max_abs_err": 0.0}
+        for dtype in ("float32", "bfloat16"):
+            args = call(dtype)
+            before = wrapper.launches
+            got = wrapper(*args[0], **args[1])
+            if wrapper.launches != before + 1:
+                fail(f"{name} {shape} {what} {dtype}: "
+                     f"{wrapper.launches - before} launches for one call")
+            stats = {"checks": 0, "max_abs_err": 0.0}
+            _check(name, got, plain(*args[0], **args[1]), dtype, shape, stats)
+            rec["max_abs_err"] = max(rec["max_abs_err"], stats["max_abs_err"])
+            rec[f"max_abs_err_{dtype}"] = stats["max_abs_err"]
+            if dtype == "bfloat16":
+                want32 = plain(*_widened(args[0]), **args[1])
+                rec["bf16_excess"] = _bf16_excess(got, want32)
+                if not rec["bf16_excess"] <= BF16_ROW_TOL:
+                    fail(f"{name} {shape} {what} bfloat16: max (|kernel - "
+                         "float32 plain| - 2^-8 |plain|) / row rms = "
+                         f"{rec['bf16_excess']:.3e} > {BF16_ROW_TOL}")
+                rec["planted"] = {}
+                for fault, wrong in faults:
+                    fargs, fkw = wrong(args)
+                    rec["planted"][fault] = _bf16_excess(
+                        wrapper(*fargs, **fkw), want32)
+                    if rec["planted"][fault] <= BF16_ROW_TOL:
+                        fail(f"{name} {shape} {what}: the planted fault "
+                             f"'{fault}' passes the bfloat16 check "
+                             f"({rec['planted'][fault]:.3e} <= "
+                             f"{BF16_ROW_TOL})")
+                    del fargs, fkw
+                n_bytes, flops = work(2)
+                bound, by = _bound_ms(n_bytes, flops, dtype)
+                rec.update(
+                    ms=_time_ms(lambda: wrapper(*args[0], **args[1]), flush),
+                    plain_ms=_time_ms(lambda: plain(*args[0], **args[1]),
+                                      flush),
+                    library_ms=_time_ms(library(args), flush),
+                    bound_ms=bound, bound_by=by)
+            del args, got
+            torch.cuda.synchronize()
+        out[name][f"{what} {shape}"] = rec
+        planted = "".join(f", planted '{k}' {v:.2e}"
+                          for k, v in rec["planted"].items())
+        say(f"  {name} {shape} {what}: ok, max err float32 "
+            f"{rec['max_abs_err_float32']:.2e}, bfloat16 "
+            f"{rec['max_abs_err_bfloat16']:.2e}; bfloat16 vs float32 plain: "
+            f"row excess {rec['bf16_excess']:.2e} <= {BF16_ROW_TOL}{planted}; "
+            f"bf16 kernel {rec['ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+            f"({rec['bound_by']}), plain {rec['plain_ms']:.4f} ms, sdpa "
+            f"{rec['library_ms']:.4f} ms ({CARD['card']})")
+        return rec
+
+    # -- K1
+    P = prompt_len
+    fcases = [("h2o-danube-1.8b", (1, 33, 33, 32, 8, 80), True, 4096),
+              ("h2o-danube-1.8b", (1, 4200, 4200, 32, 8, 80), True, 4096),
+              ("whisper-small cross", (8, 33, 1500, 12, 12, 64), False, None),
+              ("whisper-small encoder", (8, 1500, 1500, 12, 12, 64), False,
+               None),
+              ("hymba-1.5b", (8, P, P, 25, 5, 64), True, 1024),
+              ("hymba-1.5b", (1, 1100, 1100, 25, 5, 64), True, 1024),
+              ("starcoder2-15b G=12", (8, P, P, 48, 4, 128), True, None),
+              ("qwen3-moe G=16", (8, P, P, 64, 4, 128), True, None),
+              ("qwen3-moe G=16 train", (8, 160, 160, 64, 4, 128), True,
+               None)]
+    # planted faults, each a wrong call the bfloat16 check must reject: the
+    # window one key short, or the keys of the last partial 64-key tile
+    # (1500 = 23 x 64 + 28) left out
+    def short_window(args):
+        q, k, v, causal, window = args[0]
+        return (q, k, v, causal, window - 1), {}
+
+    def last_tile_dropped(args):
+        q, k, v, causal, window = args[0]
+        keep = k.shape[1] - k.shape[1] % 64
+        return (q, k[:, :keep].contiguous(), v[:, :keep].contiguous(),
+                causal, window), {}
+
+    faults = {"h2o-danube-1.8b": [("window 4095", short_window)],
+              "hymba-1.5b": [("window 1023", short_window)],
+              "whisper-small cross": [("keys past 1472 dropped",
+                                       last_tile_dropped)],
+              "whisper-small encoder": [("keys past 1472 dropped",
+                                         last_tile_dropped)]}
+    for what, shape, causal, window in fcases:
+        B, Sq, Sk, H, Hkv, D = shape
+
+        def call(dtype, shape=shape, causal=causal, window=window):
+            q, k, v = flash_case(*shape, dtype, gen)
+            return (q, k, v, causal, window), {}
+
+        def sdpa(args, Sq=Sq, Sk=Sk, causal=causal, window=window):
+            q, k, v = (x.transpose(1, 2).contiguous() for x in args[0][:3])
+            i = torch.arange(Sq, device=DEV)[:, None]
+            j = torch.arange(Sk, device=DEV)[None]
+            ok = (j <= i) if causal else torch.ones_like(i * j, dtype=bool)
+            if window is not None:
+                ok = ok & (j > i - window)
+            return lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=ok, enable_gqa=True)
+
+        rec = hold("flash_attention_fwd", flash_attention, shape,
+                   f"{what} causal={causal} window={window}", call,
+                   flash_attention_ref, sdpa,
+                   lambda item, shape=shape, causal=causal, window=window:
+                   flash_work(*shape, causal, window, item),
+                   faults.get(what, []) if window is None or Sq > window
+                   else [])
+        rec["variant"] = _variant(torch.bfloat16, D)
+
+    # -- K3
+    dcases = [("h2o-danube-1.8b ring", 32, 8, 80, 4096, 4096,
+               [3000, 4100, 4200, 5000]),
+              ("hymba-1.5b ring", 25, 5, 64, 1024, 1024,
+               [600, 1023, 1100, 2000]),
+              ("qwen3-moe G=16", 64, 4, 128, P + 32, None, [P + 31] * 8)]
+    for what, H, Hkv, D, C, window, qps in dcases:
+        B = len(qps)
+        shape = (B, H, Hkv, D, C)
+
+        def call(dtype, shape=shape, qps=qps, window=window):
+            q, k, v, _, _ = decode_case(*shape, [shape[-1]] * shape[0],
+                                        dtype, gen)
+            q_pos = torch.tensor(qps, dtype=torch.int32, device=DEV)
+            return (q, k, v, q_pos, _ring_pos(qps, shape[-1])), dict(
+                window=window)
+
+        def sdpa(args, window=window):
+            q, k, v, q_pos, k_pos = args[0]
+            qt = q[:, :, None]
+            kt, vt = (x.transpose(1, 2).contiguous() for x in (k, v))
+            ok = (k_pos >= 0) & (k_pos <= q_pos[:, None])
+            if window is not None:
+                ok = ok & (k_pos > q_pos[:, None] - window)
+            return lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=ok[:, None, None], enable_gqa=True)
+
+        def dshort(args):
+            return args[0], dict(window=args[1]["window"] - 1)
+
+        attended = [min(qp + 1, C) for qp in qps]
+        hold("flash_decode", decode_attention, shape, what, call,
+             decode_attention_ref, sdpa,
+             lambda item, shape=shape, attended=attended:
+             decode_work(*shape, attended, item),
+             [(f"window {window - 1}", dshort)] if window else [])
+    # whisper's cross-attention decode: every frame visible to a query at
+    # position Se - 1
+    shape = (8, 12, 12, 64, 1500)
+
+    def xcall(dtype):
+        q, k, v, _, _ = decode_case(*shape, [1500] * 8, dtype, gen)
+        q_pos = torch.full((8,), 1499, dtype=torch.int32, device=DEV)
+        k_pos = torch.arange(1500, dtype=torch.int32,
+                             device=DEV).expand(8, 1500).contiguous()
+        return (q, k, v, q_pos, k_pos), {}
+
+    def xsdpa(args):
+        q, k, v = args[0][:3]
+        kt, vt = (x.transpose(1, 2).contiguous() for x in (k, v))
+        return lambda: F.scaled_dot_product_attention(q[:, :, None], kt, vt)
+
+    def xdropped(args):
+        """the last partial 16-slot tile (1500 = 93 x 16 + 12) left out"""
+        q, k, v, q_pos, k_pos = args[0]
+        return (q, *(x[:, :1488].contiguous() for x in (k, v)), q_pos,
+                k_pos[:, :1488].contiguous()), {}
+
+    hold("flash_decode", decode_attention, shape, "whisper-small cross",
+         xcall, decode_attention_ref, xsdpa,
+         lambda item: decode_work(*shape, [1500] * 8, item),
+         [("frames past 1488 dropped", xdropped)])
+
+    # -- K2: D = 80, window 4096, lengths past it, pages of 128
+    lens = [4200, 4500, 300, 4097]
+    page = 128
+    maxp = -(-max(lens) // page)
+    pshape = (4, 32, 8, 80, page, maxp)
+
+    def pcall(dtype):
+        return paged_case(*pshape, lens, dtype, gen), dict(window=4096)
+
+    def psdpa(args):
+        q, kp, vp, bt, lengths = args[0]
+        kd, vd = (x[bt.long()].reshape(4, maxp * page, 8, 80)
+                  .transpose(1, 2).contiguous() for x in (kp, vp))
+        j = torch.arange(maxp * page, device=DEV)[None]
+        ok = (j < lengths[:, None]) & (j >= lengths[:, None] - 4096)
+        return lambda: F.scaled_dot_product_attention(
+            q[:, :, None], kd, vd, attn_mask=ok[:, None, None],
+            enable_gqa=True)
+
+    attended = [min(n, 4096) for n in lens]
+    hold("paged_flash_decode", paged_decode_attention, pshape,
+         "h2o-danube-1.8b window=4096", pcall, paged_decode_attention_ref,
+         psdpa, lambda item: (
+             item * 80 * (2 * 4 * 32 + 2 * 8 * sum(attended))
+             + 4 * 4 * (maxp + 1), 4.0 * 80 * 32 * sum(attended)),
+         [("window 4095", lambda args: (args[0], dict(window=4095)))])
+    say("kernels at the families' shapes: "
+        + ", ".join(f"{k} {len(v)} shapes" for k, v in out.items())
+        + " hold to their plain versions in float32 and bfloat16")
+    return out
+
+
+def _family_inputs(cfg, B, S, seed):
+    """(tokens [B, S] int64, extra model inputs) on the CPU: random prompt
+    tokens, and whisper's frames / internvl2's patches."""
+    import torch
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    toks = torch.randint(3, cfg.vocab, (B, S), generator=gen)
+    extra = {}
+    if cfg.family == "encdec":
+        extra["frames"] = torch.randn((B, cfg.encoder_seq, cfg.enc_dim),
+                                      generator=gen)
+    if cfg.family == "vlm":
+        extra["patches"] = torch.randn((B, cfg.encoder_seq, cfg.enc_dim),
+                                       generator=gen)
+    return toks, extra
+
+
+def family_teacher_forced_phase(arch, n_layers, B, S, steps, smoke=False):
+    """``arch`` in float32 on the card and the CPU from the same params (the
+    published width cut to ``n_layers``, or the smoke config): prefill of
+    a B x S prompt (with frames / patches) and ``steps`` decode steps fed
+    the CPU's greedy tokens.  Logits within 1e-3 of max |logit| and the
+    greedy tokens identical at every step; exact K1 / K3 launches."""
+    import torch
+    from repro_torch.bridge import params_from_jax
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.models.api import get_model
+
+    cfg = (get_smoke_config(arch) if smoke else get_config(arch)).replace(
+        n_layers=n_layers, dtype="float32")
+    model = get_model(cfg)
+    on_card = model.init(1, cfg, DEV)
+    on_cpu = params_from_jax(on_card.tree(), "cpu")
+    toks, extra = _family_inputs(cfg, B, S, seed=3)
+    k1, k3 = _attn_sites(cfg)
+    worst, what = 0.0, f"teacher-forced {arch} ({n_layers} layers" + (
+        ", smoke width" if smoke else "") + f", B={B}, S={S}, float32)"
+
+    def run(params, dev, feed):
+        """Prefill, then the decode steps fed ``feed`` (or, for None, the
+        run's own greedy tokens): (logits per step, fed tokens)."""
+        lg, cache = model.prefill(params, cfg, toks.to(dev), max_len=S + steps,
+                                  **{k: v.to(dev) for k, v in extra.items()})
+        logits, fed = [lg.float().cpu()], []
+        for t in range(steps):
+            tok = (torch.argmax(logits[-1][:, :cfg.vocab], -1).to(torch.int32)
+                   if feed is None else feed[t])
+            fed.append(tok)
+            pos = torch.full((B,), S + t, dtype=torch.int32)
+            lg, cache = model.decode_step(params, cfg, cache, tok.to(dev),
+                                          pos.to(dev))
+            logits.append(lg.float().cpu())
+        return logits, fed
+
+    with torch.inference_mode():
+        want_logits, fed = run(on_cpu, "cpu", None)
+        _reset_counts()
+        got_logits, _ = run(on_card, DEV, fed)
+    counts = _read_counts()
+    for t, (a, b) in enumerate(zip(got_logits, want_logits)):
+        rel = float((a - b).abs().max() / b.abs().max())
+        worst = max(worst, rel)
+        if not (torch.isfinite(a).all() and rel <= 1e-3):
+            fail(f"{what} step {t}: max |card - cpu| / max |cpu| = "
+                 f"{rel:.3e} > 1e-3")
+        got, want = (torch.argmax(x[:, :cfg.vocab], -1) for x in (a, b))
+        if not torch.equal(got, want):
+            top = torch.topk(b[:, :cfg.vocab], 2).values
+            fail(f"{what} step {t}: greedy tokens differ (card "
+                 f"{got.tolist()}, cpu {want.tolist()}; cpu top-2 gaps "
+                 f"{(top[:, 0] - top[:, 1]).tolist()})")
+    counts = _read_counts()
+    want = {"flash_attention_fwd": k1, "flash_decode": k3 * steps,
+            "paged_flash_decode": 0, "mlstm_scan": 0}
+    if counts != want:
+        fail(f"{what}: kernel launches {counts}, expected {want}")
+    say(f"{what}, prefill + {steps} decode steps: worst max |card - cpu| / "
+        f"max |cpu| = {worst:.2e} <= 1e-3, greedy tokens identical; "
+        f"launches {counts}")
+    del on_card, on_cpu
+    torch.cuda.empty_cache()
+    return dict(worst_rel=worst, launches=counts)
+
+
+def families_teacher_forced_phase():
+    """Every family card against CPU: 2 layers at the published width (1
+    for qwen3-moe; grok-1 at its smoke width: one of its layers is about
+    23 GB in float32 on the host).  h2o-danube prefills 4200 tokens past
+    its 4096 window and hymba 1100 past its 1024, so their ring caches and
+    window masks act; whisper runs with frames [2, 1500, 768], internvl2
+    with patches [2, 256, 1024] (its 300-token prompt longer than the
+    patches it replaces)."""
+    runs = [("qwen2.5-3b", 2, 2, 40, 6, False),
+            ("h2o-danube-1.8b", 2, 1, 4200, 6, False),
+            ("starcoder2-15b", 2, 2, 40, 6, False),
+            ("yi-34b", 2, 2, 40, 6, False),
+            ("internvl2-2b", 2, 2, 300, 6, False),
+            ("qwen3-moe-235b-a22b", 1, 2, 40, 4, False),
+            ("grok-1-314b", 2, 2, 40, 6, True),
+            ("hymba-1.5b", 2, 1, 1100, 6, False),
+            ("whisper-small", 2, 2, 40, 6, False)]
+    return {arch: family_teacher_forced_phase(arch, *rest)
+            for arch, *rest in runs}
+
+
+def _weights_split(params):
+    """(bytes of the stacked layer leaves, bytes of everything else)."""
+    layer = other = 0
+    for name, p in params.named_parameters():
+        n = p.numel() * p.element_size()
+        if name.startswith("layers.") or name.startswith("enc_layers."):
+            layer += n
+        else:
+            other += n
+    return layer, other
+
+
+def _serve_config(arch):
+    """The published config at its serving depth, and a line saying so:
+    the published depth, or the largest under SERVE_BYTES of bf16
+    weights."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    layers = SERVE_LAYERS.get(arch, cfg.n_layers)
+    return cfg.replace(n_layers=layers), cfg.n_layers
+
+
+def _timed(m, n_tok, dt):
+    return dict(tokens=n_tok, seconds=dt, tok_per_s=n_tok / dt,
+                gen_tok_per_s=n_tok / (m["prefill_s"] + m["decode_s"]),
+                fetch_ms=m["fetch_s"] * 1e3, prefill_ms=m["prefill_s"] * 1e3,
+                decode_ms_per_step=m["decode_s"] * 1e3 / m["decode_steps"],
+                decode_steps=m["decode_steps"])
+
+
+def _whisper_generate(params, cfg, tokens, frames, max_new):
+    """Greedy generation the way whisper is served (no engine passes
+    frames): ``prefill(frames=...)`` then ``decode_step``.  Returns (token
+    ids [B, max_new], metrics with the engine's names)."""
+    import torch
+    from repro_torch.models import whisper
+    B, S = tokens.shape
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = whisper.prefill(params, cfg, tokens,
+                                        max_len=S + max_new, frames=frames)
+        tok = torch.argmax(logits[:, :cfg.vocab], -1).to(torch.int32)
+        out = [tok.cpu()]
+        t1 = time.perf_counter()
+        for t in range(1, max_new):
+            pos = torch.full((B,), S + t - 1, dtype=torch.int32, device=DEV)
+            logits, cache = whisper.decode_step(params, cfg, cache, tok, pos)
+            tok = torch.argmax(logits[:, :cfg.vocab], -1).to(torch.int32)
+            out.append(tok.cpu())
+        t2 = time.perf_counter()
+    return torch.stack(out, 1), dict(fetch_s=0.0, prefill_s=t1 - t0,
+                                     decode_s=t2 - t1,
+                                     decode_steps=max_new - 1)
+
+
+def family_serve_phase(arch, paged=False):
+    """``arch``'s published config (bfloat16, full vocab and width, random
+    init on the card) at its serving depth, B = 8 math prompts, 32 new
+    tokens, greedy.  The weights are made on the card, published to the
+    host store and freed, then ``RolloutEngine`` fetches them (whisper:
+    ``prefill(frames=...)`` and ``decode_step`` with frames [8, 1500,
+    768], kept on the card).  A warm-up, a timed run with exact K1 / K3
+    launches, and a profiled run of 9 new tokens (device busy time and
+    idle share of a decode step).  ``paged``: then ``PagedEngine`` over 8
+    slots, 2 tasks x group 8, exact K2 launches.  Returns the summary."""
+    import torch
+    from repro_torch.data.tasks import MathTaskGenerator, Tokenizer
+    from repro_torch.kernels.flash_attention.ops import _variant
+    from repro_torch.models.api import get_model
+    from repro_torch.rl.rollout import GenConfig, RolloutEngine
+    from repro_torch.rl.weight_sync import WeightStore
+
+    cfg, published = _serve_config(arch)
+    model = get_model(cfg)
+    k1, k3 = _attn_sites(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(0, cfg, DEV)
+    layer_b, other_b = _weights_split(params)
+    weights = layer_b + other_b
+    per_layer = layer_b / cfg.n_layers
+    if weights > SERVE_BYTES or (cfg.n_layers < published and
+                                 weights + per_layer <= SERVE_BYTES):
+        fail(f"{arch}: {cfg.n_layers} of {published} layers hold "
+             f"{weights / 2 ** 30:.2f} GiB; not the largest depth under "
+             f"{SERVE_BYTES / 2 ** 30:.0f} GiB")
+    out = dict(layers=cfg.n_layers, published_layers=published,
+               params=sum(p.numel() for p in params.parameters()),
+               weight_gib=weights / 2 ** 30)
+    cut = ("full depth" if cfg.n_layers == published else
+           f"cut to {cfg.n_layers} of {published} layers, the most under "
+           f"{SERVE_BYTES / 2 ** 30:.0f} GiB of bf16 weights")
+    tasks = MathTaskGenerator(seed=0).batch(8)
+    variant = _variant(cfg.tdtype, cfg.hd)
+    what = f"{arch} bf16 B=8 ({cut})"
+
+    if cfg.family == "encdec":
+        plen = max(len(t.prompt_ids) for t in tasks)
+        toks = torch.full((8, plen), Tokenizer.PAD, dtype=torch.long)
+        for i, t in enumerate(tasks):
+            toks[i, plen - len(t.prompt_ids):] = torch.tensor(t.prompt_ids)
+        toks = toks.to(DEV)
+        gen = torch.Generator(device=DEV).manual_seed(0)
+        frames = torch.randn((8, cfg.encoder_seq, cfg.enc_dim),
+                             generator=gen, device=DEV).to(cfg.tdtype)
+        _whisper_generate(params, cfg, toks, frames, 2)          # warm-up
+        _reset_counts()
+        t0 = time.perf_counter()
+        ids, m = _whisper_generate(params, cfg, toks, frames, 32)
+        dt = time.perf_counter() - t0
+        counts = _read_counts()
+        n_tok = ids.numel()
+        if not (0 <= int(ids.min()) and int(ids.max()) < cfg.vocab):
+            fail(f"{what}: token ids out of range")
+        out["completions"] = ids[:2, :8].tolist()
+
+        def profiled():
+            return None, _whisper_generate(params, cfg, toks, frames, 9)[1]
+    else:
+        store = WeightStore()
+        store.publish(params)
+        del params
+        torch.cuda.empty_cache()
+        engine = RolloutEngine(cfg, store, GenConfig(max_new_tokens=2,
+                                                     greedy=True),
+                               device=DEV)
+        engine.generate(tasks)                                    # warm-up
+        engine.gen = GenConfig(max_new_tokens=32, greedy=True)
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        rollouts, m = engine.generate(tasks)
+        dt = time.perf_counter() - t0
+        counts = _read_counts()
+        _check_rollouts(what, rollouts, cfg.vocab, 32)
+        n_tok = sum(len(r.completion_ids) for r in rollouts)
+        out["completions"] = [r.completion_ids[:8] for r in rollouts[:2]]
+
+        def profiled():
+            engine.gen = GenConfig(max_new_tokens=9, greedy=True)
+            return engine.generate(tasks)
+    want = {"flash_attention_fwd": k1, "flash_decode": k3 * m["decode_steps"],
+            "paged_flash_decode": 0, "mlstm_scan": 0}
+    if counts != want or m["decode_steps"] < 1:
+        fail(f"{what}: kernel launches {counts}, expected {want} (one "
+             f"prefill, {m['decode_steps']} decode steps)")
+    _expect_variants(what, {"simt": k1 * (variant == "simt"),
+                            "wgmma": k1 * (variant == "wgmma")})
+    out["static"] = dict(_timed(m, n_tok, dt), launches=counts,
+                         k1_variant=variant)
+    s = out["static"]
+    say(f"{what} max_new=32: {n_tok} tokens in {dt:.3f} s = "
+        f"{s['tok_per_s']:.1f} tok/s ({s['gen_tok_per_s']:.1f} without the "
+        f"weight fetch); fetch {s['fetch_ms']:.1f} ms ({out['weight_gib']:.2f}"
+        f" GiB), prefill {s['prefill_ms']:.2f} ms, decode "
+        f"{s['decode_ms_per_step']:.3f} ms/step over {m['decode_steps']} "
+        f"steps (host clock); launches {counts} (= {k1} per prefill, {k3} "
+        f"per decode step), K1 on {variant} ({CARD['card']})")
+    out["static"]["profile"] = profile_decode(
+        profiled, "decode_(mma_)?kernel<.*DenseRows", arch)
+    engine = profiled = None              # the static engine's weights go
+
+    if paged:
+        out["paged"] = _family_paged(arch, cfg, store, tasks)
+    torch.cuda.empty_cache()
+    out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return out
+
+
+def _family_paged(arch, cfg, store, tasks):
+    """``PagedEngine`` on the fetched weights: 8 slots over pages of 128,
+    2 tasks x group 8, 32 new tokens, greedy; exact K2 launches."""
+    import torch
+    from repro_torch.rl.rollout import GenConfig
+    from repro_torch.serve import PagedEngine, ServeConfig
+
+    plen = max(len(t.prompt_ids) for t in tasks)
+    clock = SpanClock()
+    engine = PagedEngine(cfg, store, GenConfig(max_new_tokens=2, greedy=True),
+                         ServeConfig(max_slots=8, max_len=plen + 32,
+                                     page_size=128),
+                         tracer=clock, device=DEV)
+    engine.generate_groups(tasks[:1], 2)                          # warm-up
+    engine.gen = GenConfig(max_new_tokens=32, greedy=True)
+    torch.cuda.synchronize()
+    clock.reset()
+    _reset_counts()
+    t0 = time.perf_counter()
+    rollouts, m = engine.generate_groups(tasks[:2], 8)
+    dt = time.perf_counter() - t0
+    what = f"{arch} PagedEngine bf16 2 tasks x 8, slots=8"
+    counts = _read_counts()
+    _expect_paged_counts(what, cfg.n_layers, m["decode_steps"], counts)
+    _check_rollouts(what, rollouts, cfg.vocab, 32)
+    n_tok = sum(len(r.completion_ids) for r in rollouts)
+    steps = clock.count["decode_step"]
+    out = dict(tokens=n_tok, seconds=dt, tok_per_s=n_tok / dt,
+               decode_steps=m["decode_steps"],
+               decode_ms_per_step=clock.total["decode_step"] * 1e3 / steps,
+               prefill_ms=clock.total.get("prefill_chunk", 0.0) * 1e3,
+               forks=m["forks"], launches=counts)
+    say(f"{what} max_new=32: {n_tok} tokens in {dt:.3f} s = "
+        f"{out['tok_per_s']:.1f} tok/s; decode {out['decode_ms_per_step']:.3f}"
+        f" ms/step over {steps} steps, prefill {out['prefill_ms']:.2f} ms "
+        f"(host clock); forks {m['forks']}; launches {counts}")
+    del engine
+    return out
+
+
+def family_step_phase(arch, n_layers=None):
+    """A timed bf16 GRPO train step of ``arch``'s published config (remat,
+    random init on the card) at the launcher's batch, 8 x 160 with 48
+    response tokens, ``n_layers`` deep (default: the published depth): a
+    warm-up step, two timed steps and a profiled one (device busy time and
+    idle share).  Every step launches K1 twice per layer (the forward and
+    the remat recompute), all on the tensor-core kernel; loss and grad
+    norm must be finite and the params must move (the embedding, wq, bq,
+    the router and the three expert stacks, where the config has them)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import get_model
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.rl.grpo import make_train_step
+
+    cfg = get_config(arch)
+    cfg = cfg.replace(n_layers=n_layers or cfg.n_layers)
+    what = f"{arch} bf16 train step ({cfg.n_layers} layers, B=8 S=160)"
+    opt = AdamWConfig(lr=3e-5)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = get_model(cfg).init(0, cfg, DEV)
+    params.requires_grad_(True)
+    state = adamw_init(params, opt)
+    batch = _train_batch(cfg, 8, 160, 112, DEV)
+    # the first 64 columns of each watched leaf (whole copies of the expert
+    # stacks would add GiBs to the peak memory the step reports)
+    watch = {name: p.detach()[..., :64].clone()
+             for name, p in params.named_parameters()
+             if name in ("embed", "layers.attn.wq", "layers.attn.bq",
+                         "layers.router", "layers.experts.w_gate",
+                         "layers.experts.w_up", "layers.experts.w_down")}
+    step = make_train_step(cfg, opt)
+    want = {"flash_attention_fwd": 2 * cfg.n_layers, "flash_decode": 0,
+            "paged_flash_decode": 0, "mlstm_scan": 0}
+    times, losses, gnorms = [], [], []
+    for i in range(3):
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, m = step(params, state, batch)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+        gnorms.append(gnorm)
+        counts = _read_counts()
+        if counts != want or not (math.isfinite(loss)
+                                  and math.isfinite(gnorm) and gnorm > 0):
+            fail(f"{what}: launches {counts} (expected {want}), loss {loss}, "
+                 f"grad_norm {gnorm}")
+        variants = _expect_variants(f"{what} {i + 1}",
+                                    {"simt": 0, "wgmma": 2 * cfg.n_layers})
+    moved = {name: float((p.detach()[..., :64] - watch[name]).abs().max())
+             for name, p in params.named_parameters() if name in watch}
+    if not moved or min(moved.values()) <= 0:
+        fail(f"{what}: params did not move: {moved}")
+    out = dict(step_ms=times[1:], warmup_ms=times[0], losses=losses,
+               grad_norms=gnorms, launches=counts["flash_attention_fwd"],
+               launches_by_variant=variants, moved=moved,
+               params=sum(p.numel() for p in params.parameters()),
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    say(f"{what}: {out['params'] / 1e9:.3f} B params, "
+        f"{' / '.join(f'{t:.1f}' for t in times)} ms (first is warm-up; host "
+        f"clock, synchronised), K1 launches {out['launches']} per step "
+        f"({variants}), losses {losses}, grad norms {gnorms}, params moved "
+        f"(max |change| {moved}), peak memory {out['peak_mem_gib']:.2f} GiB "
+        f"({CARD['card']})")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(params, state, batch)
+        torch.cuda.synchronize()
+    kernels = _trace_kernels(prof, f"{arch}_train_step")
+    if kernels:
+        out["profile"] = p = _busy(kernels, kernels[0][0], 1)
+        say(f"profile {what} (torch.profiler): window {p['window_ms']:.1f} "
+            f"ms, device busy {p['busy_ms']:.1f} ms, idle share "
+            f"{p['idle_share']:.3f}; top kernels ms " + ", ".join(
+                f"{k} {v:.2f}" for k, v in p["top_kernels_ms"].items()))
+    else:
+        say(f"profile {what}: the trace holds no kernel: device busy share "
+            "not measured")
+    del params, state, watch
+    torch.cuda.empty_cache()
+    return out
+
+
+def families_launcher_phase():
+    """The launchers with the new families' ``--arch`` on the card, as a
+    user runs them (float32, the tokenizer's vocab): ``launch.serve`` of
+    hymba-1.5b at its published size through ``RolloutEngine`` and of
+    h2o-danube-1.8b through ``PagedEngine``; ``launch.train`` (the
+    ``AsyncGRPOTrainer``) for 2 steps of hymba-1.5b at its published size
+    and of qwen3-moe's smoke config.  Exact kernel launches, rollouts in
+    range, finite losses and grad norms.  Returns the summaries."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.tasks import Tokenizer
+    from repro_torch.launch import serve, train
+
+    out = {}
+    vocab = Tokenizer().vocab_size
+    for arch, engine in (("hymba-1.5b", "static"),
+                         ("h2o-danube-1.8b", "paged")):
+        argv = ["--arch", arch, "--engine", engine, "--greedy", "--quiet"]
+        what = "serve.run " + " ".join(argv[:4])
+        _reset_counts()
+        r = serve.run(argv)
+        counts = _read_counts()
+        n_layers = get_config(arch).n_layers
+        if engine == "paged":
+            _expect_paged_counts(what, n_layers, r["decode_steps"], counts)
+        else:
+            _expect_counts(what, n_layers, r["decode_steps"], counts)
+        _check_rollouts(what, r["rollouts"], vocab, 32)
+        out[what] = dict(tokens=r["tokens"], seconds=r["seconds"],
+                         tok_per_s=r["tok_per_s"],
+                         decode_steps=r["decode_steps"], launches=counts)
+        say(f"{what}: {r['tokens']} tokens in {r['seconds']:.2f} s "
+            f"({r['tok_per_s']:.1f} tok/s, host clock; {CARD['card']})")
+        del r
+        torch.cuda.empty_cache()
+    for arch, smoke in (("hymba-1.5b", False),
+                        ("qwen3-moe-235b-a22b", True)):
+        argv = ["--arch", arch, "--steps", "2", "--quiet"] + (
+            ["--smoke"] if smoke else [])
+        what = "train.run " + " ".join(argv)
+        _reset_counts()
+        r = train.run(argv)
+        counts = _read_counts()
+        _expect_train_counts(what, get_config(arch).family, r["n_layers"], r,
+                             counts)
+        hist = r["steps"]
+        if len(hist) != 2 or not all(
+                math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+                for m in hist):
+            fail(f"{what}: steps {[(m['loss'], m['grad_norm']) for m in hist]}")
+        out[what] = dict(seconds=r["seconds"], launches=counts, steps=[
+            {k: m[k] for k in ("loss", "grad_norm", "train_s", "produce_s")}
+            for m in hist])
+        say(f"{what}: {r['seconds']:.2f} s, (loss, grad_norm) per step "
+            + ", ".join(f"({m['loss']:.5f}, {m['grad_norm']:.4f})"
+                        for m in hist) + f" ({CARD['card']})")
+        del r
+        torch.cuda.empty_cache()
+    return out
+
+
+def families(records, prompt_len):
+    """Phase 5: the other model families on the card (their kernel shapes,
+    card against CPU, serving, the launchers, two train steps); their
+    launches go into ``records``."""
+    for name, part in families_kernel_phase(prompt_len).items():
+        records[name]["families"] = part
+    say("families teacher-forced summary " + json.dumps(
+        families_teacher_forced_phase()))
+    for arch in FAMILY_ARCHS:
+        out = family_serve_phase(arch, paged=arch in ("h2o-danube-1.8b",
+                                                      "starcoder2-15b"))
+        say(f"{arch} serve summary " + json.dumps(dict(out, **CARD)))
+        for name in ("flash_attention_fwd", "flash_decode"):
+            records[name].setdefault("serve_launches", {})[arch] = (
+                out["static"]["launches"][name])
+        if "paged" in out:
+            records["paged_flash_decode"].setdefault("serve_launches", {})[
+                arch] = out["paged"]["launches"]["paged_flash_decode"]
+    say("families launcher summary " + json.dumps(
+        dict(families_launcher_phase(), **CARD)))
+    for arch, n_layers in (("qwen2.5-3b", None), ("qwen3-moe-235b-a22b", 1)):
+        out = family_step_phase(arch, n_layers)
+        say(f"{arch} train step summary " + json.dumps(dict(out, **CARD)))
+        records["flash_attention_fwd"].setdefault(
+            "train_step_launches", {})[arch] = out["launches"]
 
 
 # ---------------------------------------------------------------------- main
@@ -2580,6 +3406,7 @@ def main() -> None:
     paged_teacher_forced_phase()
     xlstm_teacher_forced_phase()
     train_step_parity_phase()
+    families(records, prompt_len)
     kernels = [dict(name=name, **rec) for name, rec in records.items()]
     for k in kernels:
         if not all(math.isfinite(k[key]) for key in

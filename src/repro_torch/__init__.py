@@ -12,11 +12,10 @@ It imports ``torch``, ``numpy`` and the standard library only: never
 caller must ask for ``device="cpu"`` explicitly, and then every kernel
 wrapper runs its plain PyTorch version.
 
-Ported so far, for the dense family: the static-engine rollout path
-(``configs`` -> ``models.transformer`` prefill / decode ->
-``rl.rollout.RolloutEngine`` -> ``launch.serve``) and paged
-continuous-batching serving (``serve``: paged KV pool, forks, radix
-cache, ``PagedEngine``; ``rl.agentic``; ``launch.serve --engine paged``),
-with attention through three hand-written Hopper kernels
-(``kernels/csrc``).
+Ported: every model family of the reference (``models``, all 13
+configs), the static-engine rollout path (``rl.rollout.RolloutEngine``,
+``launch.serve``), paged continuous-batching serving (``serve``;
+``rl.agentic``), async GRPO training (``launch.train``), checkpoints,
+tracing and the AReaL-Hex scheduler (``core``), with attention and the
+mLSTM scan through four hand-written Hopper kernels (``kernels/csrc``).
 """

@@ -109,14 +109,20 @@ class ModelConfig:
 
 # ------------------------------------------------------------------ dispatch
 def get_model(cfg: ModelConfig):
-    """Return the family module implementing the model protocol.  The
-    dense and ssm families are ported so far; the others come with their
-    slices."""
-    if cfg.family == "dense":
+    """Return the family module implementing the model protocol."""
+    if cfg.family in ("dense", "vlm"):
         from . import transformer
         return transformer
+    if cfg.family == "moe":
+        from . import moe
+        return moe
     if cfg.family == "ssm":
         from . import xlstm
         return xlstm
-    raise NotImplementedError(
-        f"family {cfg.family!r} is not ported yet (ROADMAP M8)")
+    if cfg.family == "hybrid":
+        from . import hymba
+        return hymba
+    if cfg.family == "encdec":
+        from . import whisper
+        return whisper
+    raise ValueError(f"unknown family {cfg.family!r}")

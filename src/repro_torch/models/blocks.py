@@ -5,9 +5,11 @@ half-split RoPE, the chunked online-softmax ``attention`` with the same
 ``-1e30`` mask and ``-2^30`` empty-slot convention.  ``attention`` is the
 CPU oracle.  On a CUDA tensor it runs the hand-written flash kernel only
 where the caller says the positions are the contiguous ``0..S-1`` case
-(``contiguous_positions=True``, which only the transformer's prompt layer
-sets), as the reference does under ``use_pallas``; every other call,
-such as the paged prefill over gathered pages, takes the masked path.
+(``contiguous_positions=True``, which the families' prompt layers set:
+causal, windowed or, for whisper's encoder and cross-attention,
+non-causal with Sq != Sk), as the reference does under ``use_pallas``;
+every other call, such as the paged prefill over gathered pages, takes
+the masked path.
 """
 from __future__ import annotations
 
@@ -32,6 +34,12 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype) -> Tensor:
     return _trunc_normal((d_in, d_out), 1.0 / math.sqrt(d_in), dtype, gen)
 
 
+def experts_init(gen: torch.Generator, n: int, d_in: int, d_out: int,
+                 dtype) -> Tensor:
+    """``n`` stacked ``dense_init`` matrices, [n, d_in, d_out] (MoE)."""
+    return _trunc_normal((n, d_in, d_out), 1.0 / math.sqrt(d_in), dtype, gen)
+
+
 def embed_init(gen: torch.Generator, vocab: int, d: int, dtype) -> Tensor:
     return _trunc_normal((vocab, d), 0.02, dtype, gen)
 
@@ -43,6 +51,17 @@ def rms_norm(x: Tensor, scale: Tensor, eps: float = 1e-5) -> Tensor:
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps)
     return (out * scale.float()).to(dt)
+
+
+def layer_norm(x: Tensor, scale: Tensor, bias: Tensor,
+               eps: float = 1e-5) -> Tensor:
+    """LayerNorm with fp32 statistics (whisper)."""
+    dt = x.dtype
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out * scale.float() + bias.float()).to(dt)
 
 
 # ---------------------------------------------------------------------- RoPE
@@ -66,6 +85,7 @@ def apply_rope(x: Tensor, positions: Tensor, theta: float) -> Tensor:
 
 # ------------------------------------------------------------- attention core
 NEG_INF = -1e30
+EMPTY_POS = -(2 ** 30)        # k_pos of an empty cache slot: never attended
 
 
 def _mask_value(q_pos: Tensor, k_pos: Tensor, causal: bool,
@@ -150,8 +170,14 @@ def attention(
     if pk:
         k = F.pad(k, (0, 0, 0, 0, 0, pk))
         v = F.pad(v, (0, 0, 0, 0, 0, pk))
-        # padded kv positions = huge -> masked out by causal/window/kv_len
-        k_positions = F.pad(k_positions, (0, pk), value=2 ** 30)
+        # padded kv slots carry the empty-slot position, masked in every
+        # mode.  (The reference pads with 2^30, which only the causal,
+        # window and kv_len masks exclude: its non-causal calls attend the
+        # zero pad keys whenever Sk is not a multiple of kv_chunk, e.g.
+        # whisper's 1500 frames in chunks of 1024.  The port computes the
+        # softmax over the real keys, as the flash kernels and the
+        # reference's own one-token path do.)
+        k_positions = F.pad(k_positions, (0, pk), value=EMPTY_POS)
     Sqp, Skp = Sq + pq, Sk + pk
     nq, nk = Sqp // q_chunk, Skp // kv_chunk
 
@@ -217,6 +243,14 @@ def swiglu(x: Tensor, p) -> Tensor:
     return h @ p["w_down"]
 
 
+def gelu_mlp(x: Tensor, p) -> Tensor:
+    """GELU MLP with biases (whisper, starcoder2).  The tanh form, which is
+    ``jax.nn.gelu``'s default, in fp32."""
+    h = x @ p["w_up"] + p["b_up"].to(x.dtype)
+    h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
+    return h @ p["w_down"] + p["b_down"].to(x.dtype)
+
+
 def init_attn_params(gen, d_model, n_heads, n_kv_heads, head_dim, dtype,
                      bias=False):
     p = {
@@ -238,4 +272,14 @@ def init_swiglu_params(gen, d_model, d_ff, dtype):
         "w_gate": dense_init(gen, d_model, d_ff, dtype),
         "w_up": dense_init(gen, d_model, d_ff, dtype),
         "w_down": dense_init(gen, d_ff, d_model, dtype),
+    }
+
+
+def init_gelu_mlp_params(gen, d_model, d_ff, dtype):
+    dev = gen.device
+    return {
+        "w_up": dense_init(gen, d_model, d_ff, dtype),
+        "b_up": torch.zeros((d_ff,), dtype=dtype, device=dev),
+        "w_down": dense_init(gen, d_ff, d_model, dtype),
+        "b_down": torch.zeros((d_model,), dtype=dtype, device=dev),
     }

@@ -71,8 +71,8 @@ def _pick(parts: Any, i: int) -> Any:
     return parts[i]
 
 
-def layer_views(params: Params) -> list:
-    """Per-layer views of the stacked ``layers`` tree (the same nested
+def layer_views(params: Params, name: str = "layers") -> list:
+    """Per-layer views of the stacked tree ``name`` (the same nested
     names, leaves indexed on their leading ``[L]`` axis).  Views share
     storage, so in-place updates stay visible.  Each leaf is split with one
     ``unbind``, whose backward stacks the L layer gradients once (indexing
@@ -82,11 +82,12 @@ def layer_views(params: Params) -> list:
     params keep the views they built first, until a leaf is made
     trainable."""
     trainable = any(p.requires_grad for p in params.parameters())
-    views = params.__dict__.pop("_layer_views", None)
+    key = f"_views_{name}"
+    views = params.__dict__.pop(key, None)
     if views is None or trainable:
-        parts = _unbind(params["layers"])
-        n = next(iter(params["layers"].parameters())).shape[0]
+        parts = _unbind(params[name])
+        n = next(iter(params[name].parameters())).shape[0]
         views = [_pick(parts, i) for i in range(n)]
     if not trainable:
-        params._layer_views = views
+        params.__dict__[key] = views
     return views

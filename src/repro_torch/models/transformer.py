@@ -1,14 +1,21 @@
-"""Dense decoder-only transformer (qwen / llama family).
+"""Dense decoder-only transformer (llama / qwen / starcoder2 family) and
+the VLM stub.
 
-The port of ``repro.models.transformer`` for ``family="dense"``: stacked
-layers walked by a Python loop, a preallocated ``[L, B, C, Hkv, D]`` KV
-cache written in place, and attention through the hand-written kernels on
-a CUDA tensor (flash prefill: one launch per layer per prefill; flash
-decode: one launch per layer per decode step).
+The port of ``repro.models.transformer``: h2o-danube (SWA), starcoder2
+(GELU MLP), yi, qwen2.5 (QKV bias, tied embeddings), the paper's
+qwen-distill models, and internvl2 (``family="vlm"``: the ViT frontend is
+stubbed, ``patches`` arrive as precomputed patch embeddings and replace
+the first ``encoder_seq`` token positions).  Stacked layers walked by a
+Python loop, a preallocated ``[L, B, C, Hkv, D]`` KV cache written in
+place (a ring of W slots under SWA), and attention through the
+hand-written kernels on a CUDA tensor: the flash kernel (K1) once per
+layer per prefill or training forward, flash decode (K3) once per layer
+per decode step.  ``models.moe`` reuses these passes with its routed FFN
+(the ``ffn`` argument of ``forward``, ``prefill`` and ``decode_step``).
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple, Union
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -21,13 +28,11 @@ from .api import ModelConfig
 from .params import Params, layer_views
 
 Tensor = torch.Tensor
-EMPTY_POS = -(2 ** 30)            # k_pos of an empty cache slot
+EMPTY_POS = blocks.EMPTY_POS
 
 
 # ---------------------------------------------------------------------- init
 def _init_layer(gen: torch.Generator, cfg: ModelConfig) -> Dict:
-    if cfg.mlp_kind != "swiglu":
-        raise NotImplementedError(f"mlp_kind {cfg.mlp_kind!r} (ROADMAP M8)")
     dt, dev = cfg.tdtype, gen.device
     return {
         "attn_norm": torch.ones((cfg.d_model,), dtype=dt, device=dev),
@@ -35,7 +40,10 @@ def _init_layer(gen: torch.Generator, cfg: ModelConfig) -> Dict:
                                         cfg.n_kv_heads, cfg.hd, dt,
                                         bias=cfg.qkv_bias),
         "ffn_norm": torch.ones((cfg.d_model,), dtype=dt, device=dev),
-        "ffn": blocks.init_swiglu_params(gen, cfg.d_model, cfg.d_ff, dt),
+        "ffn": (blocks.init_gelu_mlp_params(gen, cfg.d_model, cfg.d_ff, dt)
+                if cfg.mlp_kind == "gelu"
+                else blocks.init_swiglu_params(gen, cfg.d_model, cfg.d_ff,
+                                               dt)),
     }
 
 
@@ -45,31 +53,56 @@ def _stack(trees):
     return torch.stack(trees)
 
 
-def init(seed: Union[int, torch.Generator], cfg: ModelConfig,
-         device=None) -> Params:
-    """Random-init parameters with the reference's names and shapes.  The
-    draws come from a ``torch.Generator`` on ``device``; they are not the
-    JAX draws (tests carry JAX params over with ``params_from_jax``)."""
+def generator(seed: Union[int, torch.Generator],
+              device=None) -> torch.Generator:
     if isinstance(seed, torch.Generator):
-        gen = seed
-    else:
-        gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
+        return seed
+    return torch.Generator(device=resolve_device(device)).manual_seed(seed)
+
+
+def init_lm(gen: torch.Generator, cfg: ModelConfig, init_layer) -> Dict:
+    """Embedding, ``init_layer`` stacked over ``cfg.n_layers``, final norm
+    and (untied) ``lm_head``: the tree every decoder family shares."""
     dt, dev = cfg.tdtype, gen.device
     params = {
         "embed": blocks.embed_init(gen, cfg.padded_vocab, cfg.d_model, dt),
-        "layers": _stack([_init_layer(gen, cfg) for _ in range(cfg.n_layers)]),
+        "layers": _stack([init_layer(gen, cfg) for _ in range(cfg.n_layers)]),
         "final_norm": torch.ones((cfg.d_model,), dtype=dt, device=dev),
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = blocks.dense_init(gen, cfg.d_model,
                                               cfg.padded_vocab, dt)
+    return params
+
+
+def init(seed: Union[int, torch.Generator], cfg: ModelConfig,
+         device=None) -> Params:
+    """Random-init parameters with the reference's names and shapes.  The
+    draws come from a ``torch.Generator`` on ``device``; they are not the
+    JAX draws (tests carry JAX params over with ``params_from_jax``)."""
+    gen = generator(seed, device)
+    params = init_lm(gen, cfg, _init_layer)
+    if cfg.family == "vlm":
+        params["patch_proj"] = blocks.dense_init(gen, cfg.enc_dim,
+                                                 cfg.d_model, cfg.tdtype)
     return Params(params)
 
 
 # ------------------------------------------------------------------- forward
-def _ffn_block(h: Tensor, lp: Dict, cfg: ModelConfig) -> Tensor:
-    x = blocks.rms_norm(h, lp["ffn_norm"], cfg.norm_eps)
-    return h + blocks.swiglu(x, lp["ffn"])
+def dense_ffn(x: Tensor, lp: Dict, cfg: ModelConfig) -> Tensor:
+    """The dense FFN of normed x [B, S, d]: SwiGLU or the GELU MLP."""
+    if cfg.mlp_kind == "gelu":
+        return blocks.gelu_mlp(x, lp["ffn"])
+    return blocks.swiglu(x, lp["ffn"])
+
+
+FFN = Callable[[Tensor, Dict, ModelConfig], Tensor]
+
+
+def _ffn_block(h: Tensor, lp: Dict, cfg: ModelConfig,
+               ffn: FFN = dense_ffn) -> Tensor:
+    """Residual FFN block: ``h + ffn(rms_norm(h))``."""
+    return h + ffn(blocks.rms_norm(h, lp["ffn_norm"], cfg.norm_eps), lp, cfg)
 
 
 def _qkv(h: Tensor, lp: Dict, positions: Tensor, cfg: ModelConfig):
@@ -81,18 +114,24 @@ def _qkv(h: Tensor, lp: Dict, positions: Tensor, cfg: ModelConfig):
     return q, k, v
 
 
-def _prompt_layer(h: Tensor, lp: Dict, positions: Tensor, cfg: ModelConfig):
+def _prompt_layer(h: Tensor, lp: Dict, positions: Tensor, cfg: ModelConfig,
+                  ffn: FFN = dense_ffn):
     q, k, v = _qkv(h, lp, positions, cfg)
     o = blocks.attention(q, k, v, q_positions=positions,
                          k_positions=positions, causal=True,
                          window=cfg.attn_window, q_chunk=cfg.q_chunk,
                          kv_chunk=cfg.kv_chunk, contiguous_positions=True)
     h = h + blocks.out_project(o, lp["attn"])
-    return _ffn_block(h, lp, cfg), k, v
+    return _ffn_block(h, lp, cfg, ffn), k, v
 
 
-def embed_inputs(params: Params, cfg: ModelConfig, tokens: Tensor) -> Tensor:
-    return F.embedding(tokens, params["embed"])
+def embed_inputs(params: Params, cfg: ModelConfig, tokens: Tensor,
+                 patches: Optional[Tensor] = None) -> Tensor:
+    h = F.embedding(tokens, params["embed"])
+    if cfg.family == "vlm" and patches is not None:
+        proj = patches.to(cfg.tdtype) @ params["patch_proj"]
+        h = torch.cat([proj, h[:, patches.shape[1]:]], dim=1)
+    return h
 
 
 def unembed(params: Params, cfg: ModelConfig, h: Tensor) -> Tensor:
@@ -106,20 +145,23 @@ def _positions(B: int, S: int, device) -> Tensor:
 
 
 def forward(params: Params, cfg: ModelConfig, tokens: Tensor,
-            return_hidden: bool = False) -> Tensor:
-    """Training forward: tokens [B,S] -> logits [B,S,padded_vocab] (or the
-    pre-unembed hidden states with ``return_hidden``).  ``cfg.remat``
-    recomputes each layer in the backward (``torch.utils.checkpoint``)."""
+            patches: Optional[Tensor] = None, return_hidden: bool = False,
+            ffn: FFN = dense_ffn, **_) -> Tensor:
+    """Training forward: tokens [B,S] (+ ``patches`` [B,P,enc_dim] for
+    the VLM) -> logits [B,S,padded_vocab] (or the pre-unembed hidden
+    states with ``return_hidden``).  ``cfg.remat`` recomputes each layer
+    in the backward (``torch.utils.checkpoint``).  ``ffn``: each layer's
+    FFN on its normed input (``models.moe`` passes its routed experts)."""
     B, S = tokens.shape
-    h = embed_inputs(params, cfg, tokens)
+    h = embed_inputs(params, cfg, tokens, patches)
     positions = _positions(B, S, tokens.device)
     remat = cfg.remat and torch.is_grad_enabled()
     for lp in layer_views(params):
         if remat:        # recompute the layer in the backward
             h = checkpoint(lambda x, lp=lp: _prompt_layer(
-                x, lp, positions, cfg)[0], h, use_reentrant=False)
+                x, lp, positions, cfg, ffn)[0], h, use_reentrant=False)
         else:
-            h, _, _ = _prompt_layer(h, lp, positions, cfg)
+            h, _, _ = _prompt_layer(h, lp, positions, cfg, ffn)
     if return_hidden:
         return h
     return unembed(params, cfg, h)
@@ -148,9 +190,11 @@ def init_cache(cfg: ModelConfig, *, batch: int, max_len: int,
 
 
 def decode_step(params: Params, cfg: ModelConfig, cache: Dict[str, Tensor],
-                token: Tensor, pos: Tensor) -> Tuple[Tensor, Dict]:
+                token: Tensor, pos: Tensor, ffn: FFN = dense_ffn
+                ) -> Tuple[Tensor, Dict]:
     """One decode step: token [B], pos [B] -> (logits [B, padded_vocab],
     cache).  Write-then-attend; the cache is updated in place and returned.
+    ``ffn`` sees the step's B tokens as x [B, 1, d].
 
     Works for both full attention (slot = min(pos, C-1)) and SWA (ring slot
     = pos % W).
@@ -174,13 +218,23 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Dict[str, Tensor],
         o = decode_attention(q[:, 0], ck, cv, pos, cache["k_pos"],
                              window=cfg.attn_window)[:, None]
         h = h + blocks.out_project(o, lp["attn"])
-        h = _ffn_block(h, lp, cfg)
+        h = _ffn_block(h, lp, cfg, ffn)
     logits = unembed(params, cfg, h[:, 0])
     return logits, cache
 
 
+def ring_slots(S: int, C: int, device):
+    """(cache slots, prompt positions kept) of an S-token prompt in a cache
+    of C slots: all of it from slot 0 when it fits, else (SWA ring) the
+    last C positions at their ring slots ``pos % C``."""
+    if S <= C:
+        return torch.arange(S, device=device), slice(0, S)
+    return torch.arange(S - C, S, device=device) % C, slice(S - C, S)
+
+
 def prefill(params: Params, cfg: ModelConfig, tokens: Tensor, *,
-            max_len: int) -> Tuple[Tensor, Dict]:
+            max_len: int, patches: Optional[Tensor] = None,
+            ffn: FFN = dense_ffn, **_) -> Tuple[Tensor, Dict]:
     """Process the prompt, return (last-position logits, filled cache).
 
     All rows share prompt length = tokens.shape[1] (the engine pads
@@ -189,17 +243,11 @@ def prefill(params: Params, cfg: ModelConfig, tokens: Tensor, *,
     B, S = tokens.shape
     C = cache_len(cfg, max_len)
     cache = init_cache(cfg, batch=B, max_len=max_len, device=tokens.device)
-    h = embed_inputs(params, cfg, tokens)
+    h = embed_inputs(params, cfg, tokens, patches)
     positions = _positions(B, S, tokens.device)
-    if S <= C:
-        slots = torch.arange(S, device=tokens.device)
-        keep = slice(0, S)
-    else:
-        # SWA ring: keep the last C positions, placed at their ring slots.
-        slots = torch.arange(S - C, S, device=tokens.device) % C
-        keep = slice(S - C, S)
+    slots, keep = ring_slots(S, C, tokens.device)
     for i, lp in enumerate(layer_views(params)):
-        h, k, v = _prompt_layer(h, lp, positions, cfg)
+        h, k, v = _prompt_layer(h, lp, positions, cfg, ffn)
         cache["k"][i].index_copy_(1, slots, k[:, keep].to(cache["k"].dtype))
         cache["v"][i].index_copy_(1, slots, v[:, keep].to(cache["v"].dtype))
     cache["k_pos"].index_copy_(1, slots, positions[:, keep].contiguous())

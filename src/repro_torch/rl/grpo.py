@@ -109,15 +109,17 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig = AdamWConfig(),
 
     ``params`` is a trainable ``Params`` (``requires_grad``), updated in
     place with ``opt_state``; ``batch`` holds tokens / loss_mask /
-    advantages / behavior_logp tensors on the params' device (+ prox_logp
-    when decoupled).  Metrics are 0-dim tensors with the reference's
-    names."""
+    advantages / behavior_logp tensors on the params' device (+ frames /
+    patches for the stub-frontend archs, + prox_logp when decoupled).
+    Metrics are 0-dim tensors with the reference's names."""
     model = get_model(cfg)
 
     def loss_fn(params, batch):
         if cfg.loss_chunk and cfg.family in ("dense", "vlm"):
             return _chunked_grpo_loss(model, params, cfg, batch, clip_eps)
-        logits = model.forward(params, cfg, batch["tokens"])
+        logits = model.forward(
+            params, cfg, batch["tokens"],
+            frames=batch.get("frames"), patches=batch.get("patches"))
         return grpo_loss(
             logits, batch["tokens"], batch["behavior_logp"],
             batch["advantages"], batch["loss_mask"], clip_eps=clip_eps,
@@ -143,7 +145,9 @@ def _chunked_grpo_loss(model, params, cfg: ModelConfig, batch: Dict,
     """Sequence-chunked unembed + loss: never materialises the full
     [B, S, V] logits.  Each chunk is recomputed in the backward
     (``torch.utils.checkpoint``) instead of saving its logits."""
-    h = model.forward(params, cfg, batch["tokens"], return_hidden=True)
+    h = model.forward(params, cfg, batch["tokens"],
+                      frames=batch.get("frames"),
+                      patches=batch.get("patches"), return_hidden=True)
     B, S = batch["tokens"].shape
     n = max(1, S // cfg.loss_chunk)
     targets = torch.roll(batch["tokens"], -1, dims=1)      # t predicts t+1
