@@ -68,6 +68,31 @@ Phases (any failure exits non-zero before the result line):
    plans of qwen-distill-1.5B / 7B / 14B on 8 H800 + 8 H20 (and 1.5B on
    16 H800) beside the analytic ones, with the scheduler's wall time on
    the card's host, and ``fit_gen_time`` over the run's samples.
+   The simulator (``sim_phase``, host numpy) runs every one of those
+   plans at fig3's settings (30 steps x 256 rollouts, eta 4, reward
+   0.5 s) with its invariants checked: eta held and every launched
+   rollout trained, buffered, generating or dropped; the 1.5B
+   heterogeneous measured plan also observed (tracer, registry, monitor:
+   the same ``SimResult`` in every field but ``stalls_data``, as the
+   reference's tests hold it, ``check_report`` passing),
+   crashed once under a file-mode ``RecoveryManager`` (no consumed
+   rollout lost, a fresh manager reads the files back), with a replica
+   failed under an ``ElasticReplanner`` (a swap), and beside the 7B on a
+   two-job pool priced by the card (per-job eta, the device ledger
+   conserved); its throughputs are modelled, not measured.  The monitor
+   on the card (``monitor_phase``): the timed ``generate_groups`` workload
+   bare and with a ``HealthMonitor`` and a ``Tracer`` (identical tokens
+   and K2 launches), then an ``AsyncGRPOTrainer`` at the 1.5B's full width
+   and depth (float32, group 4 x 4 prompts, paged engine, monitor,
+   tracer, registry): a warm-up step and 2 measured steps with exact K1 /
+   K2 launches, the measured steps' per-stage utilization and bubble
+   fraction from ``analyze_trace`` (``check_report`` passing), then a
+   file-mode snapshot of its params, moments and buffered rollouts
+   (15 GiB) and a fourth step.  Recovery on the card
+   (``recovery_phase``): a new manager restores the snapshot into a fresh
+   trainer bit for bit, the buffered rollouts field for field
+   (``verify_restored`` passing), and the 1.5B ``PagedEngine`` quiesced
+   twice mid-run gives an uninterrupted run's tokens.
    Training: ``repro_torch.launch.train`` at
    full width with the launcher's setup (float32: xlstm-1.3b 3 steps, its
    scans all on K4's CUDA-core kernel; qwen 2 steps with ``--schedule``,
@@ -1440,7 +1465,9 @@ def schedule_feedback_phase(measured):
     has no H100 profile, and the H800 is the same GH100 die with the same
     80 GB of HBM3 and a cut NVLink.  Only the engine-level factors (slot
     occupancy, g_eff) come from the report; the roofline constants stay
-    the paper's.  Returns a summary."""
+    the paper's.  Returns (summary, the plan objects for ``sim_phase``:
+    {"<arch> <cluster>": {arch, spec, cluster, measured, analytic}} and
+    the ``ServingCostModel``)."""
     from repro_torch.configs import get_config
     from repro_torch.core import milp
     from repro_torch.core.cluster import (PROFILES, paper_heterogeneous,
@@ -1499,6 +1526,7 @@ def schedule_feedback_phase(measured):
     # reaches the MILP's replica prices
     cases.append(("qwen-distill-1.5b", "paper_homogeneous_h800(16)",
                   paper_homogeneous_h800(16)))
+    plans = {}
     for arch, where, cluster in cases:
         spec = get_config(arch).spec
         plan = schedule(spec, cluster, cost_provider=model)
@@ -1508,6 +1536,9 @@ def schedule_feedback_phase(measured):
         say(f"schedule {arch} on {where}: measured {line(plan)}; analytic "
             f"{line(base)}; scheduler wall time {plan.wall_time_s * 1e3:.1f} "
             f"ms / {base.wall_time_s * 1e3:.1f} ms (the card's host)")
+        plans[f"{arch} {where}"] = dict(arch=arch, spec=spec,
+                                         cluster=cluster, measured=plan,
+                                         analytic=base)
         summary["plans"][f"{arch} {where}"] = dict(
             measured=dict(gamma=plan.gamma, cost_train=plan.cost_train,
                           cost_infer=plan.cost_infer,
@@ -1534,7 +1565,7 @@ def schedule_feedback_phase(measured):
     summary["gen_time"] = (None if fit is None else dict(
         a=fit.a, b=fit.b, t_prefill=fit.t_prefill))
     summary["gen_samples"] = dict(n=len(samples), distinct=distinct)
-    return summary
+    return summary, dict(plans=plans, model=model)
 
 
 def _check_plan(what, plan, n_devices):
@@ -1548,6 +1579,602 @@ def _check_plan(what, plan, n_devices):
         v = getattr(plan, key)
         if not (math.isfinite(v) and v > 0):
             fail(f"{what}: {key} = {v}, expected finite and positive")
+
+
+# ------------------------------------------------ simulator, monitor, recovery
+FIG3_SIM = dict(n_steps=30, rollouts_per_step=256, eta=4, reward_cost_s=0.5)
+SIM_DIR = ROOT / "build" / "chip_smoke_sim_recovery"
+SNAP_DIR = ROOT / "build" / "chip_smoke_recovery"
+
+
+def _check_sim(what, r, n_steps, eta):
+    """A simulated run finished its steps with the eta bound held, and its
+    ledger conserves: launched = trained + buffered + generating + dropped."""
+    held = (r.rollouts_trained + r.rollouts_in_buffer
+            + r.rollouts_generating + r.dropped)
+    if (r.steps != n_steps or r.max_staleness > eta
+            or r.rollouts_launched != held
+            or not (math.isfinite(r.throughput_tps) and r.throughput_tps > 0)):
+        fail(f"{what}: steps {r.steps}/{n_steps}, max staleness "
+             f"{r.max_staleness} (eta {eta}), launched {r.rollouts_launched}"
+             f" != trained + buffered + generating + dropped {held}, or "
+             f"throughput {r.throughput_tps}")
+
+
+def _sim_line(r):
+    return dict(throughput_tps=r.throughput_tps,
+                train_busy_frac=r.train_busy_frac,
+                gen_busy_frac=r.gen_busy_frac,
+                mean_staleness=r.mean_staleness,
+                max_staleness=r.max_staleness, wall_time_s=r.wall_time_s,
+                swaps=len(r.swaps), dropped=r.dropped)
+
+
+def sim_phase(fed):
+    """The port's discrete-event simulator (host numpy) over the plans that
+    ``schedule_feedback_phase`` built from the card's measurements, at
+    ``benchmarks/fig3_end_to_end.py``'s settings (30 steps, 256 rollouts a
+    step, eta 4, reward 0.5 s) and the plans' own length profile.  Every
+    plan, measured and analytic, runs with ``check_invariants``.  The 1.5B
+    heterogeneous measured plan runs four more times: observed (tracer,
+    registry, health monitor: the ``SimResult`` equal to the bare run's
+    in every field but ``stalls_data``, which the monitor's polls may
+    raise, the trace passing ``check_report``); with a file-mode
+    ``RecoveryManager`` under ``build/`` and one controller crash (30 steps,
+    one recovery, no consumed rollout lost, the restored snapshot at most
+    one interval old, and the files a fresh manager reads back); with one
+    rollout replica failed and an ``ElasticReplanner`` (at least one swap);
+    and ``MultiJobSimulator`` on a 1.5B + 7B pool priced by the card's
+    ``ServingCostModel`` (per-job eta, the device ledger conserved).  The
+    throughputs are modelled on the scheduler's H800/H20 profiles with the
+    H800 rollout prices taken from the card's slot occupancy and g_eff;
+    nothing here runs on the card."""
+    import shutil
+    from repro_torch.core.cluster import paper_heterogeneous
+    from repro_torch.core.cost_model import LengthDistribution
+    from repro_torch.core.pool import JobSpec, schedule_pool
+    from repro_torch.obs import (HealthMonitor, MetricsRegistry, Tracer,
+                                 analyze_trace, check_report, log)
+    from repro_torch.recovery import RecoveryConfig, RecoveryManager
+    from repro_torch.sim import (AsyncRLSimulator, ControllerCrash,
+                                 DeviceLedger, ElasticConfig,
+                                 ElasticReplanner, FailureInjection,
+                                 MultiJobSimulator, MultiSimConfig, SimConfig)
+
+    P = LengthDistribution()          # what schedule() priced the plans with
+    eta, n = FIG3_SIM["eta"], FIG3_SIM["n_steps"]
+    label = ("modelled on the scheduler's H800/H20 profiles (H800 rollout "
+             "prices from the card's EngineReport in the measured plans)")
+    summary = dict(modelled=label, runs={})
+    t0 = time.perf_counter()
+    for key, case in fed["plans"].items():
+        for kind in ("measured", "analytic"):
+            r = AsyncRLSimulator(case[kind], P, SimConfig(
+                **FIG3_SIM, check_invariants=True)).run()
+            _check_sim(f"sim {key} ({kind})", r, n, eta)
+            summary["runs"][f"{key} {kind}"] = _sim_line(r)
+            say(f"sim {key} ({kind} plan), {label}: throughput "
+                f"{r.throughput_tps:.1f} tok/s, train busy "
+                f"{r.train_busy_frac:.4f}, gen busy {r.gen_busy_frac:.4f}, "
+                f"staleness mean {r.mean_staleness:.4f} max "
+                f"{r.max_staleness} (eta {eta}), wall {r.wall_time_s:.1f} "
+                f"sim-s; launched {r.rollouts_launched} = trained "
+                f"{r.rollouts_trained} + buffered {r.rollouts_in_buffer} + "
+                f"generating {r.rollouts_generating} + dropped {r.dropped}")
+
+    key = "qwen-distill-1.5b paper_heterogeneous(8, 8)"
+    case = fed["plans"][key]
+    plan, spec, cluster = case["measured"], case["spec"], case["cluster"]
+    bare = AsyncRLSimulator(plan, P, SimConfig(**FIG3_SIM)).run()
+
+    # (a) observed: tracer, registry and monitor change nothing
+    tr, mx, mon = Tracer(), MetricsRegistry(), HealthMonitor()
+    log.configure(quiet=True)          # the monitor logs each alert
+    try:
+        seen = AsyncRLSimulator(plan, P, SimConfig(
+            **FIG3_SIM, check_invariants=True, trace=tr, metrics=mx,
+            monitor=mon)).run()
+    finally:
+        log.configure()
+    # every field but stalls_data, as the reference's tests hold it: a
+    # monitor poll runs the trainer probe, which may count a data stall
+    diff = [f.name for f in dataclasses.fields(bare)
+            if f.name != "stalls_data"
+            and getattr(bare, f.name) != getattr(seen, f.name)]
+    if diff:
+        fail(f"sim {key} observed: SimResult differs from the bare run in "
+             f"{diff}")
+    report = analyze_trace(tr.to_chrome())
+    fails = check_report(report, min_stages=2)
+    if fails:
+        fail(f"sim {key} observed: check_report: {fails}")
+    by_det = {}
+    for a in mon.alerts:
+        by_det[a.detector] = by_det.get(a.detector, 0) + 1
+    stages = {k: dict(utilization=v["utilization"],
+                      bubble_fraction=v["bubble_fraction"])
+              for k, v in report["stages"].items()}
+    summary["observed"] = dict(stages=stages, alerts=by_det, polls=mon.polls,
+                               tput_rel_err=report["throughput"]["rel_err"],
+                               stalls_data=[bare.stalls_data,
+                                            seen.stalls_data])
+    say(f"sim {key} observed (tracer, registry, monitor): SimResult equal to "
+        f"the bare run in every field but stalls_data ({seen.stalls_data} "
+        f"monitored, {bare.stalls_data} bare); check_report passes (trace "
+        f"vs ledger "
+        f"throughput rel_err {report['throughput']['rel_err']:.2e}); stages "
+        + ", ".join(f"{k} util {v['utilization']:.4f}"
+                    for k, v in sorted(stages.items()))
+        + f"; {mon.polls} polls, alerts {by_det}")
+
+    # (b) file-mode recovery with one controller crash
+    shutil.rmtree(SIM_DIR, ignore_errors=True)
+    rcfg = RecoveryConfig(interval_s=60.0, restore_latency_s=5.0,
+                          directory=str(SIM_DIR))
+    mgr = RecoveryManager(rcfg)
+    t_crash = round(0.4 * bare.wall_time_s, 1)
+    tc0 = time.perf_counter()
+    r = AsyncRLSimulator(plan, P, SimConfig(
+        **FIG3_SIM, check_invariants=True, recovery=mgr,
+        crashes=[ControllerCrash(t_crash)])).run()
+    crash_s = time.perf_counter() - tc0
+    _check_sim(f"sim {key} crash", r, n, eta)
+    if len(r.recoveries) != 1:
+        fail(f"sim {key} crash: {len(r.recoveries)} recovery events, "
+             "expected 1")
+    rv = r.recoveries[0]
+    if (rv.lost_consumed != 0 or rv.lost_inflight < 0
+            or rv.snapshot_age_s > rcfg.interval_s + 1e-9
+            or rv.mttr_s != rcfg.restore_latency_s
+            or rv.t_resume != t_crash + rcfg.restore_latency_s):
+        fail(f"sim {key} crash: {rv} breaks the bounds (no consumed rollout "
+             f"lost, snapshot age <= {rcfg.interval_s} s, MTTR "
+             f"{rcfg.restore_latency_s} s)")
+    t_disk, _, entries = RecoveryManager(rcfg).latest()
+    if float(t_disk) != mgr.last_snapshot_t or len(entries) != len(
+            mgr._entries):
+        fail(f"sim {key} crash: a fresh manager on {SIM_DIR} reads snapshot "
+             f"t={float(t_disk)} with {len(entries)} journal entries, the "
+             f"run's last was t={mgr.last_snapshot_t} with "
+             f"{len(mgr._entries)}")
+    shutil.rmtree(SIM_DIR, ignore_errors=True)
+    summary["crash"] = dict(_sim_line(r), **dataclasses.asdict(rv),
+                            snapshots=mgr.n_snapshots,
+                            journal_entries=mgr.n_journal_entries,
+                            host_s=crash_s)
+    say(f"sim {key} file-mode recovery, crash at {t_crash} sim-s: 30 steps, "
+        f"max staleness {r.max_staleness}, throughput {r.throughput_tps:.1f}"
+        f" tok/s ({label}); lost in flight {rv.lost_inflight}, lost "
+        f"consumed {rv.lost_consumed}, journal replayed "
+        f"{rv.journal_replayed}, snapshot age {rv.snapshot_age_s:.1f} s; "
+        f"{mgr.n_snapshots} snapshots and {mgr.n_journal_entries} journal "
+        f"entries written under build/ in {crash_s:.2f} s (host); a fresh "
+        f"manager reads the last one back")
+
+    # (c) one rollout replica fails; the elastic replanner swaps the plan
+    t_fail = round(0.25 * bare.wall_time_s, 1)
+    rp = ElasticReplanner(spec, cluster, P, None,
+                          ElasticConfig(replan_latency_s=5.0))
+    r = AsyncRLSimulator(plan, P, SimConfig(
+        **FIG3_SIM, check_invariants=True, replanner=rp,
+        failures=[FailureInjection(0, t_fail=t_fail)])).run()
+    _check_sim(f"sim {key} elastic", r, n, eta)
+    if not r.swaps:
+        fail(f"sim {key} elastic: replica 0 failed at {t_fail} sim-s and no "
+             "plan swap was committed")
+    summary["elastic"] = dict(_sim_line(r), excluded=sorted(rp.excluded))
+    say(f"sim {key} elastic, replica 0 failed at {t_fail} sim-s: "
+        f"{len(r.swaps)} swap(s) ({r.swaps[0].reason}), throughput "
+        f"{r.throughput_tps:.1f} tok/s ({label}), max staleness "
+        f"{r.max_staleness}, devices excluded {sorted(rp.excluded)}")
+
+    # (d) two jobs on one pool, priced by the card's serving model
+    pool_cluster = paper_heterogeneous(16, 16)
+    jobs = [JobSpec("qwen-distill-1.5b", spec),
+            JobSpec("qwen-distill-7b", fed["plans"][
+                "qwen-distill-7b paper_heterogeneous(8, 8)"]["spec"])]
+    pool = schedule_pool(jobs, pool_cluster, cost_provider=fed["model"])
+    pool.assert_partition(pool_cluster)
+    m = MultiJobSimulator(pool, MultiSimConfig(
+        n_steps=n, rollouts_per_step=FIG3_SIM["rollouts_per_step"],
+        reward_cost_s=FIG3_SIM["reward_cost_s"], check_invariants=True)).run()
+    ledger = DeviceLedger(pool.owner)
+    ledger.exclude(m.excluded)
+    ledger.apply(m.owner_final, m.wall_time_s)
+    if not ledger.conserved:
+        fail("sim two-job pool: the device ledger is not conserved")
+    summary["pool"] = {}
+    for j in jobs:
+        jr = m.per_job[j.name]
+        _check_sim(f"sim two-job pool {j.name}", jr, n, j.eta)
+        summary["pool"][j.name] = _sim_line(jr)
+        say(f"sim two-job pool on paper_heterogeneous(16, 16) (card-priced "
+            f"ServingCostModel): {j.name} {len(pool.job_devices(j.name))} "
+            f"devices, throughput {jr.throughput_tps:.1f} tok/s ({label}), "
+            f"max staleness {jr.max_staleness} (eta {j.eta})")
+    summary["host_s"] = time.perf_counter() - t0
+    say(f"sim phase: {summary['host_s']:.2f} s on the host; the device "
+        "ledger is conserved")
+    return summary
+
+
+def _trainer_counts(what, n_layers, steps, decode_steps, counts):
+    """The paged trainer: one K1 launch per layer a train step (float32,
+    no remat: the recompute backward runs the plain version), one K2
+    launch per layer a decode step, and no other."""
+    want = {"flash_attention_fwd": n_layers * steps, "flash_decode": 0,
+            "paged_flash_decode": n_layers * decode_steps, "mlstm_scan": 0}
+    if counts != want or decode_steps < 1:
+        fail(f"{what}: kernel launches {counts}, expected {want} ({steps} "
+             f"train steps, {decode_steps} decode steps)")
+    say(f"{what}: launches flash_attention_fwd={want['flash_attention_fwd']}"
+        f" (= {n_layers} per train step x {steps}), paged_flash_decode="
+        f"{want['paged_flash_decode']} (= {n_layers} per decode step x "
+        f"{decode_steps}), flash_decode=0, mlstm_scan=0")
+
+
+def monitor_phase():
+    """The health monitor and the tracer on the card.  (a) The 1.5B
+    ``PagedEngine`` on the published config (bfloat16) runs
+    ``paged_serve_phase``'s timed workload (8 tasks x group 8 through 32
+    slots, 128 new tokens, greedy) bare and then with a ``HealthMonitor``
+    and a ``Tracer``: identical completion ids and identical K1 / K2
+    launch counts.  (b) An ``AsyncGRPOTrainer`` with the launcher's setup
+    (float32, tokenizer vocab, no remat) at qwen-distill-1.5B's full width
+    and depth (28 layers) and ``TrainerConfig``'s defaults (group 4 x 4
+    prompts, eta 2), on the paged engine, with a monitor, a tracer and a
+    registry, takes a warm-up step (the process's first backward pass)
+    and 2 measured steps (exact K1 / K2 launches over the 3).  The
+    per-stage utilization and bubble fraction of the measured steps'
+    trace, the monitor's alerts and the registry's summary are printed;
+    ``check_report(min_stages=2)`` must pass.  Then it produces one more
+    batch, a file-mode ``RecoveryManager`` snapshots its params, AdamW
+    moments and buffered rollouts under ``build/`` (about 15 GiB), and it
+    takes a fourth step.
+    Returns (summary, what ``recovery_phase`` needs)."""
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.ckpt.checkpoint import trainer_state
+    from repro_torch.configs import get_config
+    from repro_torch.data.tasks import MathTaskGenerator, Tokenizer
+    from repro_torch.models import transformer
+    from repro_torch.obs import (HealthMonitor, MetricsRegistry,
+                                 MonitorConfig, Tracer, analyze_trace,
+                                 check_report, log, summarize_metrics)
+    from repro_torch.optim.adamw import named_leaves
+    from repro_torch.recovery import (RecoveryConfig, RecoveryManager,
+                                      capture_buffers)
+    from repro_torch.rl.async_trainer import AsyncGRPOTrainer, TrainerConfig
+    from repro_torch.rl.buffer import JobBuffers
+    from repro_torch.rl.rollout import GenConfig
+    from repro_torch.rl.weight_sync import WeightStore
+    from repro_torch.serve import PagedEngine, ServeConfig
+
+    t_phase = time.perf_counter()
+    cfg = get_config(ARCH)
+    store = WeightStore()
+    store.publish(transformer.init(0, cfg, "cuda"))
+    tasks = MathTaskGenerator(seed=0).batch(8)
+    plen = max(len(t.prompt_ids) for t in tasks)
+
+    def serve(**kw):
+        engine = PagedEngine(cfg, store,
+                             GenConfig(max_new_tokens=128, greedy=True),
+                             ServeConfig(max_slots=32, max_len=plen + 128),
+                             device="cuda", **kw)
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        rollouts, m = engine.generate_groups(tasks, 8)
+        dt = time.perf_counter() - t0
+        return rollouts, m, _read_counts(), dt
+
+    what = "monitored generate_groups bf16 8 tasks x 8 slots=32"
+    bare, bm, bcounts, bdt = serve()
+    _expect_paged_counts(f"{what} (bare)", cfg.n_layers, bm["decode_steps"],
+                         bcounts)
+    tr, mon = Tracer(meta={"phase": "monitor"}), HealthMonitor()
+    seen, sm, scounts, sdt = serve(monitor=mon, tracer=tr)
+    if [r.completion_ids for r in seen] != [r.completion_ids for r in bare]:
+        fail(f"{what}: completion ids differ with a monitor and a tracer")
+    if scounts != bcounts:
+        fail(f"{what}: launches {scounts} with a monitor and a tracer, "
+             f"{bcounts} bare")
+    if not {"decode", "prefill"} <= set(mon._stages) or tr.open_spans():
+        fail(f"{what}: the monitor saw stages {sorted(mon._stages)} and the "
+             f"tracer left {tr.open_spans()} open")
+    log.configure(quiet=True)
+    try:
+        serve_alerts = [a.to_dict() for a in mon.poll(mon.now())]
+    finally:
+        log.configure()
+    n_tok = sum(len(r.completion_ids) for r in seen)
+    engine_spans = {}
+    for name, _, dur, _ in tr.spans("engine"):
+        engine_spans[name] = engine_spans.get(name, 0.0) + dur
+    say(f"{what}: {len(seen)} completions identical to the bare run's, "
+        f"launches identical ({scounts}); {n_tok} tokens in {sdt:.3f} s "
+        f"monitored vs {bdt:.3f} s bare (host clock); {tr.n_events} trace "
+        f"events, engine spans s "
+        + ", ".join(f"{k} {v:.3f}" for k, v in sorted(engine_spans.items()))
+        + f"; alerts {[(a['detector'], a['key']) for a in serve_alerts]}")
+    del store
+    torch.cuda.empty_cache()
+
+    # (b) the monitored trainer
+    tcfg = cfg.replace(vocab=Tokenizer().vocab_size, dtype="float32",
+                       remat=False)
+    tr, mx = Tracer(meta={"phase": "monitor", "arch": tcfg.name}), \
+        MetricsRegistry()
+    mon = HealthMonitor(MonitorConfig(poll_interval_s=0.5), tracer=tr)
+    tc = TrainerConfig(engine="paged", trace=tr, metrics=mx, monitor=mon)
+    eta = tc.staleness.eta
+    trainer = AsyncGRPOTrainer(tcfg, tc, device="cuda")
+    steps0 = trainer.engine.stats.decode_steps
+    _reset_counts()
+    log.configure(quiet=True)              # the monitor logs each alert
+    try:
+        trainer.run(1, verbose=False)      # warm-up: first backward pass
+        torch.cuda.synchronize()
+        t_cut = tr.now()
+        trainer.run(2, verbose=False)      # the measured steps
+        torch.cuda.synchronize()
+        mon.poll(mon.now())
+    finally:
+        log.configure()
+    counts = _read_counts()
+    decode_steps = trainer.engine.stats.decode_steps - steps0
+    _trainer_counts("monitored trainer (1 + 2 steps)", tcfg.n_layers, 3,
+                    decode_steps, counts)
+    hist = list(trainer.history)
+    if len(hist) != 3 or any(not math.isfinite(h["loss"]) for h in hist) \
+            or max(h["max_staleness"] for h in hist) > eta:
+        fail(f"monitored trainer: history {hist}")
+    doc = tr.to_chrome()
+    warm = [(e["name"], e["dur"] / 1e6) for e in doc["traceEvents"]
+            if e["ph"] == "X" and e["ts"] < t_cut * 1e6
+            and e["name"] in ("produce", "train_step")]
+    # the measured window: the events from the second step on
+    report = analyze_trace(dict(doc, traceEvents=[
+        e for e in doc["traceEvents"]
+        if e["ph"] == "M" or e["ts"] >= t_cut * 1e6]))
+    fails = check_report(report, min_stages=2)
+    if fails:
+        fail(f"monitored trainer: check_report: {fails}")
+    stages = {k: dict(utilization=v["utilization"],
+                      bubble_fraction=v["bubble_fraction"],
+                      busy_s=v["busy_s"], spans=v["spans"])
+              for k, v in report["stages"].items()}
+    for k in ("generation", "train"):
+        if k not in stages:
+            fail(f"monitored trainer: no {k} stage in the trace: {stages}")
+    alerts = [a.to_dict() for a in mon.alerts]
+    metrics = summarize_metrics(mx.snapshot())
+    say(f"monitored trainer ({tcfg.name} full width and depth, "
+        f"{tcfg.n_layers} layers, float32, group {tc.group_size} x "
+        f"{tc.prompts_per_step} prompts, eta {eta}, paged engine, on the "
+        f"card), warm-up step spans "
+        + ", ".join(f"{n} {d:.3f} s" for n, d in warm)
+        + f"; steps 2-3 measured: wall {report['wall_s']:.3f} s; "
+        + "; ".join(f"{k} utilization {v['utilization']:.4f} bubble "
+                    f"fraction {v['bubble_fraction']:.4f} ({v['spans']} "
+                    f"spans, {v['busy_s']:.3f} s)"
+                    for k, v in sorted(stages.items()))
+        + f"; {mon.polls} polls, alerts "
+        + str([(a["detector"], a["key"], a["severity"]) for a in alerts]))
+    say("monitored trainer metrics " + json.dumps(metrics))
+
+    # a batch waits in the buffer, then everything is snapshotted (after
+    # the measured window, so its seconds stay out of the bubbles)
+    trainer.produce()
+    bufs = JobBuffers()
+    bufs._bufs["trainer"] = trainer.buffer
+    shutil.rmtree(SNAP_DIR, ignore_errors=True)
+    rcfg = RecoveryConfig(interval_s=600.0, directory=str(SNAP_DIR))
+    t0 = time.perf_counter()
+    RecoveryManager(rcfg, monitor=mon).snapshot(mon.now(), {
+        "trainer": trainer_state(trainer.params, trainer.opt_state,
+                                 trainer.store.version),
+        "buffers": capture_buffers(bufs)})
+    snap_s = time.perf_counter() - t0
+    pushed = mx.counter("buffer/pushed").value
+    # the snapshotted state, kept on the card (15 GiB; the host would
+    # need a second copy) to hold the restore to
+    want = {
+        "params": {k: p.detach().clone()
+                   for k, p in named_leaves(trainer.params)},
+        "m": {k: t.clone() for k, t in trainer.opt_state["m"].items()},
+        "v": {k: t.clone() for k, t in trainer.opt_state["v"].items()},
+        "count": trainer.opt_state["count"],
+        "version": trainer.store.version,
+        "rollouts": [dict(prompt_ids=list(r.prompt_ids),
+                          completion_ids=list(r.completion_ids),
+                          behavior_logp=np.array(r.behavior_logp),
+                          version=r.version, group_id=r.group_id,
+                          reward=r.reward, plan_epoch=r.plan_epoch)
+                     for r in trainer.buffer._items],
+        # every launched rollout was pushed: produce() is synchronous
+        "launched": int(pushed),
+        "consumed": int(mx.counter("buffer/consumed").value),
+        "dropped": trainer.buffer.dropped,
+        "in_flight": trainer.buffer.ctl.in_flight}
+    size = sum(f.stat().st_size for f in SNAP_DIR.rglob("*") if f.is_file())
+    log.configure(quiet=True)
+    try:
+        trainer.run(1, verbose=False)     # step 4 moves off the snapshot
+    finally:
+        log.configure()
+    say(f"monitored trainer snapshot after step 3 (params, AdamW moments, "
+        f"{len(want['rollouts'])} buffered rollouts): {size / 2 ** 30:.3f} "
+        f"GiB under build/ in {snap_s:.2f} s; step 4 loss "
+        f"{trainer.history[-1]['loss']:.5f}")
+    summary = dict(
+        serve=dict(completions=len(seen), tokens=n_tok, bare_s=bdt,
+                   monitored_s=sdt, trace_events=tr.n_events,
+                   alerts=serve_alerts),
+        launches={k: scounts[k] + counts[k] for k in counts},
+        trainer=dict(layers=tcfg.n_layers, group_size=tc.group_size,
+                     prompts_per_step=tc.prompts_per_step,
+                     measured_steps=2, warmup_spans_s=warm,
+                     wall_s=report["wall_s"],
+                     stages=stages, alerts=alerts, polls=mon.polls,
+                     metrics=metrics, losses=[h["loss"] for h in hist],
+                     snapshot_s=snap_s, snapshot_gib=size / 2 ** 30),
+        seconds=time.perf_counter() - t_phase)
+    del trainer
+    torch.cuda.empty_cache()
+    return summary, dict(cfg=tcfg, tc=tc, rcfg=rcfg, want=want)
+
+
+def recovery_phase(snap):
+    """Crash recovery on the card.  A new ``RecoveryManager`` on the
+    monitored trainer's snapshot directory reads the snapshot back
+    (``latest()``) and restores it into a fresh trainer on the card (another
+    seed): every parameter and AdamW moment equal to the snapshot bit for
+    bit, the step count and version too; the buffered rollouts come back
+    through ``restore_buffers`` with the fields the GRPO step and the eta
+    bound read (tokens, behaviour log-probs bit for bit, version, group,
+    reward, plan epoch) equal and pass ``verify_restored``.  Then the
+    1.5B ``PagedEngine`` (bfloat16, published config) serves 8 prompts
+    through 4 slots in prefill chunks of 8, once straight through and once
+    ``quiesce``d twice mid-run: the same tokens, with K2 launched."""
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.ckpt.checkpoint import load_trainer_state
+    from repro_torch.configs import get_config
+    from repro_torch.data.tasks import MathTaskGenerator
+    from repro_torch.models import transformer
+    from repro_torch.optim.adamw import named_leaves
+    from repro_torch.recovery import (RecoveryManager, restore_buffers,
+                                      verify_restored)
+    from repro_torch.rl.async_trainer import AsyncGRPOTrainer
+    from repro_torch.rl.rollout import GenConfig
+    from repro_torch.rl.weight_sync import WeightStore
+    from repro_torch.serve import PagedEngine, ServeConfig
+
+    t_phase = time.perf_counter()
+    want = snap["want"]
+    t0 = time.perf_counter()
+    _, state, entries = RecoveryManager(snap["rcfg"]).latest()
+    read_s = time.perf_counter() - t0
+    fresh = AsyncGRPOTrainer(snap["cfg"], dataclasses.replace(
+        snap["tc"], seed=1, trace=None, metrics=None, monitor=None),
+        device="cuda")
+    if all(torch.equal(p, want["params"][k])
+           for k, p in named_leaves(fresh.params)):
+        fail("recovery: a fresh trainer already equals the snapshot; the "
+             "comparison would prove nothing")
+    t0 = time.perf_counter()
+    load_trainer_state(state["trainer"], fresh.params, fresh.opt_state)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    n = 0
+    for k, p in named_leaves(fresh.params):
+        for got, exp in ((p, want["params"][k]),
+                         (fresh.opt_state["m"][k], want["m"][k]),
+                         (fresh.opt_state["v"][k], want["v"][k])):
+            if got.device.type != "cuda" or not torch.equal(got, exp):
+                fail(f"recovery: {k} differs from the snapshot after the "
+                     "restore")
+            n += 1
+    version = int(state["trainer"]["version"])
+    if (fresh.opt_state["count"], version) != (want["count"],
+                                               want["version"]):
+        fail(f"recovery: count {fresh.opt_state['count']} / "
+             f"{want['count']}, version {version} / {want['version']}")
+    shutil.rmtree(SNAP_DIR, ignore_errors=True)   # 15 GiB of snapshot
+    bufs = restore_buffers(state["buffers"])
+    got = bufs["trainer"]._items
+    if len(got) != len(want["rollouts"]) or not got:
+        fail(f"recovery: {len(got)} restored rollouts, "
+             f"{len(want['rollouts'])} snapshotted")
+    for i, (r, w) in enumerate(zip(got, want["rollouts"])):
+        logp = np.asarray(r.behavior_logp)
+        if ([int(t) for t in r.prompt_ids] != w["prompt_ids"]
+                or [int(t) for t in r.completion_ids] != w["completion_ids"]
+                or logp.dtype != w["behavior_logp"].dtype
+                or not np.array_equal(logp, w["behavior_logp"])
+                or (int(r.version), int(r.group_id), int(r.plan_epoch))
+                != (w["version"], w["group_id"], w["plan_epoch"])
+                or float(r.reward) != w["reward"]):
+            fail(f"recovery: restored rollout {i} differs from the "
+                 "snapshotted one in its tokens, behaviour log-probs, "
+                 "version, group, reward or plan epoch")
+    verify_restored(buffers=bufs, counters={"trainer": {
+        k: want[k] for k in ("launched", "consumed", "dropped",
+                             "in_flight")}})
+    say(f"recovery: a fresh manager read the snapshot back in {read_s:.2f} s "
+        f"({len(entries)} journal entries) and restored it into a fresh "
+        f"trainer on the card in {load_s:.2f} s: {n} tensors (params, m, v),"
+        f" count {want['count']} and version {version} bit-exact; "
+        f"{len(got)} buffered rollouts restored (tokens, behaviour "
+        f"log-probs, version, group, reward, plan epoch equal), "
+        f"verify_restored passes")
+    for k in ("params", "m", "v"):
+        del want[k]                    # 15 GiB on the card
+    del fresh, state
+    torch.cuda.empty_cache()
+
+    cfg = get_config(ARCH)
+    store = WeightStore()
+    store.publish(transformer.init(0, cfg, "cuda"))
+    tasks = MathTaskGenerator(seed=0).batch(8)
+    plen = max(len(t.prompt_ids) for t in tasks)
+
+    def engine():
+        return PagedEngine(cfg, store, GenConfig(max_new_tokens=32,
+                                                 greedy=True),
+                           ServeConfig(max_slots=4, max_len=plen + 32,
+                                       prefill_chunk=8), device="cuda")
+
+    straight = engine()
+    _reset_counts()
+    straight.submit(tasks)
+    straight.drain()
+    plain_run, _ = straight.collect()
+    straight_counts = _read_counts()
+    quiet = engine()
+    _reset_counts()
+    quiet.submit(tasks)
+    quiet.step()
+    mid = [r.state for r in quiet._active.values()]
+    q1 = quiet.quiesce()
+    if not any(s in ("PREFILL", "FORK") for s in mid) or q1 < 1 or any(
+            r.state != "DECODE" for r in quiet._active.values()):
+        fail(f"recovery quiesce: states {mid} before, {q1} drain steps, "
+             "expected a request mid-prefill and none after")
+    # run on until a later prompt is admitted and caught mid-prefill
+    for _ in range(1000):
+        if not quiet.step() or any(r.state in ("PREFILL", "FORK")
+                                   for r in quiet._active.values()):
+            break
+    q2 = quiet.quiesce()
+    if q2 < 1:
+        fail("recovery quiesce: no later request was caught mid-prefill "
+             "for the second quiesce()")
+    quiet.drain()
+    quiesced, _ = quiet.collect()
+    counts = _read_counts()
+    if [r.completion_ids for r in quiesced] != [
+            r.completion_ids for r in plain_run]:
+        fail("recovery quiesce: the quiesced run's tokens differ from the "
+             "uninterrupted run's")
+    if counts["paged_flash_decode"] < 1:
+        fail(f"recovery quiesce: launches {counts}, expected K2")
+    say(f"recovery quiesce ({ARCH} bf16, 8 prompts through 4 slots, prefill "
+        f"chunks of 8): {len(quiesced)} completions identical to the "
+        f"uninterrupted run's after quiesce() drained {q1} and {q2} steps; "
+        f"launches paged_flash_decode {counts['paged_flash_decode']} "
+        f"(uninterrupted {straight_counts['paged_flash_decode']})")
+    del straight, quiet, store
+    torch.cuda.empty_cache()
+    return dict(tensors=n, read_s=read_s, load_s=load_s,
+                rollouts=len(got), quiesce_steps=[q1, q2],
+                quiesce_launches=counts,
+                straight_launches=straight_counts,
+                seconds=time.perf_counter() - t_phase)
 
 
 def big_serve_phase(arch):
@@ -3364,8 +3991,15 @@ def main() -> None:
     records["paged_flash_decode"]["launches"], paged, measured = (
         paged_serve_phase())
     say("paged serve summary " + json.dumps(paged))
-    say("schedule feedback summary " + json.dumps(dict(
-        schedule_feedback_phase(measured), **CARD)))
+    fed_summary, fed = schedule_feedback_phase(measured)
+    say("schedule feedback summary " + json.dumps(dict(fed_summary, **CARD)))
+    say("sim summary " + json.dumps(sim_phase(fed)))
+    mon, snap = monitor_phase()
+    say("monitor summary " + json.dumps(dict(mon, **CARD)))
+    rec = recovery_phase(snap)
+    say("recovery summary " + json.dumps(dict(rec, **CARD)))
+    for name in ("flash_attention_fwd", "paged_flash_decode"):
+        records[name]["monitored_launches"] = mon["launches"][name]
     train = train_phase()
     records["mlstm_scan"]["launches"] = train["xlstm-1.3b"][0]["mlstm_scan"]
     for name, rec in records.items():

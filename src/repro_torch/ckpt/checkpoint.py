@@ -20,11 +20,13 @@ as the reference launcher's resume does with ``b.astype(a.dtype)``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import pickle
 import shutil
 import tempfile
+import types
 from pathlib import Path
 from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
@@ -38,18 +40,58 @@ from repro_torch.optim.adamw import named_leaves
 
 
 def _to_host(tree: Any) -> Any:
-    """Tensors (bfloat16 widened to float32) and scalars -> numpy arrays,
-    ``Params`` -> nested dicts, as the reference's ``np.asarray`` map."""
+    """The reference's ``tree_map(np.asarray)``: dicts, lists, tuples and
+    namedtuples keep their structure (``None`` stays ``None``, ``Params``
+    becomes its nested dict), tensors (bfloat16 widened to float32) and
+    scalars become numpy arrays.  Any other object is pickled as it is, so
+    a recovery snapshot's configs and plans come back as themselves; one
+    that holds a tensor is refused, since it would be pickled on its
+    device."""
     if isinstance(tree, Params):
         tree = tree.tree()
     if isinstance(tree, Mapping):
         return {k: _to_host(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_to_host(v) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_host(v) for v in tree)
+    if tree is None:
+        return None
     if isinstance(tree, torch.Tensor):
         t = tree.detach()
         if t.dtype == torch.bfloat16:
             t = t.float()
         return t.cpu().numpy().copy()
-    return np.asarray(tree)
+    if isinstance(tree, (np.ndarray, np.generic, int, float, complex, str,
+                         bytes)):
+        return np.asarray(tree)
+    if _holds_tensor(tree, set()):
+        raise TypeError(f"cannot checkpoint a {type(tree).__name__} that "
+                        "holds a tensor: pass its tensors in a dict, list "
+                        "or tuple")
+    return tree
+
+
+def _holds_tensor(obj: Any, seen: set) -> bool:
+    """Whether a tensor is reachable through ``obj``'s containers and
+    instance attributes (not through classes, modules or functions)."""
+    if id(obj) in seen:
+        return False
+    seen.add(id(obj))
+    if isinstance(obj, torch.Tensor):
+        return True
+    if isinstance(obj, Mapping):
+        items = obj.values()
+    elif isinstance(obj, (list, tuple, set, frozenset)):
+        items = obj
+    elif dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        items = [getattr(obj, f.name) for f in dataclasses.fields(obj)]
+    elif (hasattr(obj, "__dict__") and not isinstance(obj, type)
+          and not isinstance(obj, types.ModuleType) and not callable(obj)):
+        items = vars(obj).values()
+    else:
+        return False
+    return any(_holds_tensor(v, seen) for v in items)
 
 
 def _to_device(tree: Any, device: torch.device) -> Any:
@@ -129,19 +171,26 @@ def latest_step(directory: str | Path) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore_checkpoint(directory: str | Path, step: Optional[int] = None,
-                       device: DeviceLike = None) -> Tuple[int, Dict]:
-    """Load a checkpoint (the latest unless ``step``): ``(step, state)``
-    with every array a tensor on ``device`` (default: the GPU; no silent
-    CPU fallback).  Raises ``FileNotFoundError`` when there is none."""
+def read_checkpoint(directory: str | Path, step: Optional[int] = None
+                    ) -> Tuple[int, Dict]:
+    """Load a checkpoint (the latest unless ``step``) as written:
+    ``(step, state)`` with host numpy arrays, as the reference's restore
+    returns it.  Raises ``FileNotFoundError`` when there is none."""
     directory = Path(directory)
     step = latest_step(directory) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no checkpoints under {directory}")
-    dev = resolve_device(device)
     # only checkpoints this program (or the reference) wrote are read
     with open(directory / f"step-{step:08d}" / "state.pkl", "rb") as f:
-        state = pickle.load(f)
+        return step, pickle.load(f)
+
+
+def restore_checkpoint(directory: str | Path, step: Optional[int] = None,
+                       device: DeviceLike = None) -> Tuple[int, Dict]:
+    """``read_checkpoint`` with every array a tensor on ``device``
+    (default: the GPU; no silent CPU fallback)."""
+    dev = resolve_device(device)
+    step, state = read_checkpoint(directory, step)
     return step, _to_device(state, dev)
 
 

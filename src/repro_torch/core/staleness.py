@@ -1,7 +1,7 @@
 """Bounded-staleness control for asynchronous RL (AReaL semantics), the
 port's copy of ``repro.core.staleness`` (``StalenessConfig``,
-``StalenessController`` and the scheduler's ``adaptive_delta``; the
-multi-job registry comes with the slice that uses it).
+``StalenessController``, the multi-job ``PoolStalenessRegistry`` and the
+scheduler's ``adaptive_delta``).
 
 The trainer holds weight version v.  Every rollout records the version(s)
 that generated it.  The controller enforces:
@@ -19,7 +19,7 @@ Pure bookkeeping: no torch.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 
 @dataclass
@@ -110,6 +110,66 @@ class StalenessController:
     def swap_history(self) -> List[tuple]:
         """[(plan_epoch, version_at_swap), ...] — provenance of replans."""
         return list(self._swap_log)
+
+
+@dataclass
+class PoolStalenessRegistry:
+    """Per-job staleness controllers over one shared device pool.
+
+    Each job keeps its own weight-version stream and η_j budget; the only
+    pool-level event is a *device handoff* (core/pool.py arbitration moved
+    an ICI domain between jobs), which bumps both jobs' plan epochs but —
+    like a single-job swap — never touches either version stream.  That is
+    the invariant that lets each η_j bound be enforced independently while
+    hardware migrates underneath.
+    """
+
+    controllers: Dict[str, StalenessController] = field(default_factory=dict)
+    _handoff_log: List[tuple] = field(default_factory=list)
+
+    def add_job(self, name: str,
+                config: Optional[StalenessConfig] = None) -> StalenessController:
+        if name in self.controllers:
+            raise ValueError(f"job {name!r} already registered")
+        ctl = StalenessController(config or StalenessConfig())
+        self.controllers[name] = ctl
+        return ctl
+
+    def controller(self, name: str) -> StalenessController:
+        return self.controllers[name]
+
+    def remove_job(self, name: str) -> StalenessController:
+        """Reclaim a departed job's version stream (completion/rejection).
+
+        The stream is dropped from the registry — later ``assert_bounds``
+        and handoff calls no longer see it — and the final controller is
+        returned so the caller can archive its staleness stats.  The
+        handoff *history* keeps any entries naming the job: the audit
+        trail outlives the job, the live stream does not.
+        """
+        if name not in self.controllers:
+            raise KeyError(f"job {name!r} not registered")
+        return self.controllers.pop(name)
+
+    def record_handoff(self, from_job: str, to_job: str) -> tuple:
+        """Devices moved from ``from_job`` to ``to_job``: both jobs' plans
+        changed, so both plan epochs bump; versions are untouched."""
+        src, dst = self.controllers[from_job], self.controllers[to_job]
+        log = (from_job, src.record_plan_swap(), src.version,
+               to_job, dst.record_plan_swap(), dst.version)
+        self._handoff_log.append(log)
+        return log
+
+    def handoff_history(self) -> List[tuple]:
+        return list(self._handoff_log)
+
+    def max_staleness(self) -> Dict[str, int]:
+        return {n: c.max_staleness() for n, c in self.controllers.items()}
+
+    def assert_bounds(self) -> None:
+        for name, ctl in self.controllers.items():
+            assert ctl.max_staleness() <= ctl.config.eta, \
+                (name, ctl.max_staleness(), ctl.config.eta)
 
 
 def adaptive_delta(run_window, config: StalenessConfig,

@@ -1,2 +1,7 @@
-"""Synthetic math tasks and the byte-level tokenizer (copy of the
-reference's ``repro.data.tasks``: the same seed gives the same tasks)."""
+"""Synthetic math tasks, the byte-level tokenizer and greedy sequence
+packing (copies of the reference's ``repro.data.tasks`` and
+``repro.data.packing``: the same seed gives the same tasks)."""
+from .tasks import MathTaskGenerator, Tokenizer
+from .packing import greedy_pack
+
+__all__ = ["MathTaskGenerator", "Tokenizer", "greedy_pack"]
