@@ -42,6 +42,21 @@ Phases (any failure exits non-zero before the result line):
    gather is not timed), and K1's and K4's CUDA-core kernels in bfloat16
    beside their tensor-core ones, beside the least time the card could
    take for the same work, at the B=32 shapes and the long shapes.
+   The autotuner (``autotune_phase``): a full ``run_sweep`` of the four
+   kernels, H100 measured (every feasible config of every bucket through
+   its wrapper, the knob passed explicitly, CUDA events, median of 20, L2
+   flushed) and H800 / H20 estimated, with the launch counts set to 0
+   before it and read after; per kernel and bucket the winner, the
+   builtin default's time and the bound; each winner held to the plain
+   version (bf16 at ``_tol``) and to the float32 plain version; the
+   CostDB saved, checked by ``python -m repro_torch.autotune validate``
+   in a subprocess and reloaded; the card's fractions of peak beside the
+   analytic H800 factors; the 1.5B plan on 8 H800 + 8 H20 under
+   ``MeasuredCostModel`` (modelled); the winners loaded into
+   ``kernels.tuning``, shown in effect on one launch per kernel and
+   cleared, so every later phase runs on the builtin knobs; ``python -m
+   repro_torch.obs regress`` over the committed baselines (exit 0) and
+   over a copy with one throughput cut by 10% (exit 2).
 3. Full-width serve.  Static engine: ``repro_torch.launch.serve.run`` with
    the reference launcher's own setup (qwen-distill-1.5b, float32,
    tokenizer vocab, B=8, 32 new tokens, greedy), then a timed
@@ -247,21 +262,10 @@ def _check(name, got, want, dtype, shape, stats, tols=TOL):
 
 
 def _time_ms(fn, flush, reps=20):
-    import torch
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    events = []
-    for _ in range(reps):
-        flush.zero_()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        events.append((start, end))
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in events)
+    """Median ms of ``reps`` launches by CUDA events, L2 flushed before
+    each, after 3 warm-up launches (the autotuner's timer)."""
+    from repro_torch.autotune.bench import time_on_device
+    return time_on_device(fn, flush, reps) * 1e3
 
 
 def _bound_ms(n_bytes, flops, dtype):
@@ -1232,6 +1236,244 @@ def _check_rollouts(what, rollouts, vocab, max_new):
         lp = np.asarray(r.behavior_logp)
         if lp.shape != ids.shape or not np.isfinite(lp).all() or lp.max() > 1e-6:
             fail(f"{what}: behavior_logp not finite log-probs: {lp}")
+
+
+# ------------------------------------------------------------ the autotuner
+# the CostDB's kernel names -> the result line's
+TUNED_NAMES = {"flash_attention": "flash_attention_fwd",
+               "decode_attention": "flash_decode",
+               "paged_attention": "paged_flash_decode",
+               "ssm_scan": "mlstm_scan"}
+AUTOTUNE_DIR = ROOT / "build" / "chip_smoke_autotune"
+
+
+def _bucket_work(kernel, d, cfg):
+    """(bytes, FLOPs) one launch at bucket ``d`` needs (each input read
+    and the output written once), as phase 2 counts them."""
+    if kernel == "flash_attention":
+        return flash_work(d["B"], d["S"], d["S"], d["H"], d["Hkv"], d["D"],
+                          True, None, 2)
+    if kernel == "decode_attention":
+        return decode_work(d["B"], d["H"], d["Hkv"], d["D"], d["C"],
+                           [d["C"]] * d["B"], 2)
+    if kernel == "paged_attention":
+        page = cfg["page_size"]
+        return paged_work(d["B"], d["H"], d["Hkv"], d["D"], page,
+                          -(-d["C"] // page), [d["C"]] * d["B"], 2)
+    return mlstm_work(d["B"], d["S"], d["H"], d["D"], cfg["chunk"], 2)
+
+
+def autotune_phase():
+    """The autotuner on the card: a full ``run_sweep`` of the four kernels,
+    H100 measured (every feasible config through its wrapper, CUDA events)
+    and H800 / H20 estimated, with the launch counts set to 0 before it
+    and read after; each bucket's winner, the builtin default's time and
+    the bound; each winner held to the plain version (bf16 at ``_tol``)
+    and to the float32 plain version; the CostDB saved, checked by the
+    ``validate`` CLI in a subprocess and reloaded; the card's fractions of
+    peak beside the analytic H800 factors; the 1.5B plan on 8 H800 + 8 H20
+    under ``MeasuredCostModel`` (modelled: its records are estimates); the
+    winners loaded into ``kernels.tuning`` and shown in effect on one
+    launch per kernel, then cleared; and ``python -m repro_torch.obs
+    regress`` over the committed baselines (exit 0) and over a copy with
+    one throughput cut by 10% (exit 2).  Returns (summary, per-kernel
+    entries for the result line)."""
+    import os
+    import shutil
+    import torch
+    from repro_torch.autotune import (CostDB, MeasuredCostModel, SPACES,
+                                      bench, card_fractions,
+                                      load_tuned_defaults, run_sweep)
+    from repro_torch.configs import get_config
+    from repro_torch.core.cluster import PROFILES, paper_heterogeneous
+    from repro_torch.core.cost_model import ANALYTIC
+    from repro_torch.core.model_spec import PAPER_MODELS
+    from repro_torch.core.scheduler import schedule
+    from repro_torch.kernels import tuning
+    from repro_torch.serve.kv_cache import PagedKVCache
+
+    t0 = time.perf_counter()
+    card = tuning.current_device_type()
+    if card != "H100":
+        fail(f"autotune: the card's device type is {card!r}, expected H100")
+    lines, trials = [], {}
+    _reset_counts()
+    db = run_sweep(device_types=[card, "H800", "H20"], log=lines.append,
+                   trials=trials)
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    sweep_s = time.perf_counter() - t0
+    if min(launches.values()) < 1:
+        fail(f"autotune: a kernel was not launched by the sweep: {launches}")
+    say(f"autotune: sweep of {sum(len(t) for t in trials.values())} "
+        f"configs on the card in {sweep_s:.1f} s, launches {launches}")
+    for line in lines:
+        say("  " + line)
+
+    cuda = torch.device("cuda")
+    entries, stats = {}, {"checks": 0, "max_abs_err": 0.0}
+    for kernel, space in SPACES.items():
+        name = TUNED_NAMES[kernel]
+        default = dict(tuning.BUILTIN_DEFAULTS[kernel]
+                       or tuning.COMPILED[kernel])
+        rows = {}
+        for shape in space.buckets():
+            d = shape.d
+            rec = db.lookup(card, kernel, shape.name)
+            tried = trials[(kernel, shape.name)]
+            if (rec is None or rec.mode != "device"
+                    or len(tried) != rec.configs_tried
+                    or rec.configs_tried != len(space.configs())):
+                fail(f"autotune {kernel} {shape.name}: record {rec}, "
+                     f"{len(tried)} of {len(space.configs())} configs timed")
+            win = rec.best_config
+            default_s = [t for cfg, t in tried if cfg == default]
+            n_bytes, flops = _bucket_work(kernel, d, win)
+            bound, by = _bound_ms(n_bytes, flops, "bfloat16")
+            ms = rec.time_s * 1e3
+            # the winner against the plain version, bf16 and float32
+            args = bench.kernel_case(kernel, shape, win, cuda, seed=1)
+            got = bench.launch(kernel, win, args)
+            want = bench.plain(kernel, win, args)
+            tols = MLSTM_TOL if kernel == "ssm_scan" else TOL
+            _check(f"autotune {name} {win}", got, want, "bfloat16", shape.name,
+                   stats, tols)
+            want32 = bench.plain(kernel, win, _widened(args))
+            if kernel == "ssm_scan":
+                _check(f"autotune {name} {win} vs float32 plain",
+                       got.float(), want32, "bfloat16", shape.name, stats,
+                       tols)
+                excess = None
+            else:
+                excess = _bf16_excess(got, want32)
+                if not excess <= BF16_ROW_TOL:
+                    fail(f"autotune {name} {shape.name} {win}: bfloat16 vs "
+                         f"float32 plain row excess {excess:.3e} > "
+                         f"{BF16_ROW_TOL}")
+            del args, got, want, want32
+            rows[shape.name] = dict(
+                winner=win, ms=ms, default=default,
+                default_ms=default_s[0] * 1e3 if default_s else None,
+                bound_ms=bound, bound_by=by, share_of_bound=bound / ms,
+                configs=len(tried),
+                times_ms={" ".join(f"{k}={v}" for k, v in sorted(c.items())):
+                          t * 1e3 for c, t in tried},
+                bf16_excess=excess)
+            say(f"  autotune {name} {shape.name}: winner {win} {ms:.4f} ms, "
+                f"default {default} "
+                + (f"{default_s[0] * 1e3:.4f} ms" if default_s else "-")
+                + f", bound {bound:.4f} ms ({by}), {bound / ms:.3f} of the "
+                f"bound; held to plain (bf16 and f32); {CARD['card']}")
+        entries[name] = dict(buckets=rows, launches=launches[name])
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # persist, check with the CLI, reload
+    shutil.rmtree(AUTOTUNE_DIR, ignore_errors=True)
+    AUTOTUNE_DIR.mkdir(parents=True)
+    path = AUTOTUNE_DIR / "costdb.json"
+    db.save(path)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    val = subprocess.run([sys.executable, "-m", "repro_torch.autotune",
+                          "validate", str(path)], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    if val.returncode != 0:
+        fail(f"autotune validate exited {val.returncode}: {val.stdout}"
+             f"{val.stderr}")
+    say("autotune: " + val.stdout.strip())
+    back = CostDB.load(path)
+    if back.to_json() != db.to_json():
+        fail("autotune: the reloaded CostDB differs from the saved one")
+    say(back.describe())
+
+    # the card's fractions of peak beside the analytic H800 factors, and
+    # the 1.5B plan under the measured model (modelled: estimates)
+    h800 = PROFILES["H800"]
+    fractions = card_fractions(back, card)
+    analytic = {"prefill_mfu": ANALYTIC.prefill_mfu(h800),
+                "hbm_eff": ANALYTIC.hbm_eff(h800)}
+    say(f"autotune: the card's fractions of its own peak (bf16 989 TFLOP/s, "
+        f"3.35 TB/s) {fractions}; analytic H800 {analytic}; {CARD['card']}")
+    model = MeasuredCostModel(back)
+    say(model.efficiency_table())
+    spec = PAPER_MODELS["1.5B"]
+    cluster = paper_heterogeneous(8, 8)
+    plans = {}
+    for label, provider in (("measured", model), ("analytic", None)):
+        plan = schedule(spec, cluster, cost_provider=provider)
+        _check_plan(f"autotune 1.5B {label}", plan, len(cluster.devices))
+        plans[label] = dict(
+            D_T=len(plan.train_devices), D_I=len(plan.infer_devices),
+            gamma=plan.gamma, C_T=plan.cost_train, C_I=plan.cost_infer)
+        say(f"autotune: 1.5B on 8 H800 + 8 H20, {label} cost model "
+            f"(modelled): {plans[label]}")
+
+    # the winners into the wrappers, shown on one launch each, then cleared
+    n = load_tuned_defaults(back)
+    tuned = {kernel: tuning.tuned_config(kernel) for kernel in SPACES}
+    in_effect = {}
+    for kernel, space in SPACES.items():
+        want_cfg = back.best_config(card, kernel)
+        shape = space.buckets()[0]
+        args = bench.kernel_case(kernel, shape, tuned[kernel] or want_cfg,
+                                 cuda, seed=2)
+        wrapper = _wrappers()[TUNED_NAMES[kernel]]
+        out = wrapper(*args)                  # no knob: the tuned table
+        torch.cuda.synchronize()
+        if kernel in ("decode_attention", "paged_attention"):
+            took = wrapper.last_n_split
+            expect = space.n_split(shape, want_cfg)
+        elif kernel == "ssm_scan":
+            took, expect = wrapper.last_chunk, want_cfg["chunk"]
+        else:
+            took, expect = tuned[kernel], {}   # compile-time tiles only
+        if took != expect or not bool(torch.isfinite(out.float()).all()):
+            fail(f"autotune: {kernel} launched with {took}, the H100 "
+                 f"winner {want_cfg} gives {expect}")
+        in_effect[kernel] = dict(winner=want_cfg, launched=took)
+    cache = PagedKVCache(get_config(ARCH), max_slots=1, max_len=256,
+                         device="cuda")
+    if cache.page != tuned["paged_attention"]["page_size"]:
+        fail(f"autotune: the paged pool took page {cache.page}, tuned "
+             f"{tuned['paged_attention']}")
+    del cache
+    say(f"autotune: load_tuned_defaults registered {n} tables; in effect on "
+        f"the card: {in_effect}, pool page {tuned['paged_attention']}")
+    tuning.clear_tuned()
+    for kernel in SPACES:
+        if tuning.tuned_config(kernel) != tuning.BUILTIN_DEFAULTS[kernel]:
+            fail(f"autotune: {kernel} still tuned after clear_tuned()")
+
+    # the regression harness over the committed baselines
+    baselines = ROOT / "benchmarks" / "baselines"
+    run = AUTOTUNE_DIR / "run"
+    shutil.copytree(baselines, run)
+    f = run / "BENCH_end_to_end.json"
+    payload = json.loads(f.read_text())
+    row = payload["rows"][0]
+    head, tail = row.split("throughput=", 1)
+    num = tail.split()[0]
+    payload["rows"][0] = (head + f"throughput={float(num) * 0.9!r}"
+                          + tail[len(num):])
+    f.write_text(json.dumps(payload))
+    regress = {}
+    for label, run_dir, want_rc in (("self", baselines, 0), ("cut", run, 2)):
+        res = subprocess.run([sys.executable, "-m", "repro_torch.obs",
+                              "regress", "--baselines", str(baselines),
+                              "--run", str(run_dir)], env=env, cwd=ROOT,
+                             capture_output=True, text=True, timeout=120)
+        if res.returncode != want_rc:
+            fail(f"obs regress ({label}) exited {res.returncode}, expected "
+                 f"{want_rc}: {res.stdout[-2000:]}{res.stderr[-2000:]}")
+        regress[label] = res.returncode
+        say(f"obs regress ({label}): exit {res.returncode}, "
+            + res.stdout.strip().splitlines()[-1])
+    shutil.rmtree(AUTOTUNE_DIR, ignore_errors=True)
+    summary = dict(sweep_s=sweep_s, phase_s=time.perf_counter() - t0,
+                   fractions=fractions, analytic_h800=analytic, plans=plans,
+                   tuned_in_effect=in_effect, regress=regress,
+                   checks=stats["checks"], max_abs_err=stats["max_abs_err"])
+    return summary, entries
 
 
 def serve_phase():
@@ -3978,6 +4220,10 @@ def main() -> None:
     for name, part in gqa_phase(prompt_len, 128).items():
         records[name]["gqa_groups"] = part
     flash_grad_phase()
+    tuned_summary, tuned = autotune_phase()
+    say("autotune summary " + json.dumps(dict(tuned_summary, **CARD)))
+    for name, entry in tuned.items():
+        records[name]["tuned"] = entry
     counts, gen = serve_phase()
     records["flash_attention_fwd"]["launches"] = counts["flash_attention_fwd"]
     by_variant = {v: sum(run[v] for run in

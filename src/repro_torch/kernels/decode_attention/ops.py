@@ -23,31 +23,35 @@ from typing import Dict, Optional
 
 import torch
 
-from .. import _build
+from .. import _build, tuning
 from .ref import decode_attention_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_GROUP = 8          # query heads a block serves (split_decode.cuh kMaxG)
 TILE = 16              # cache slots per tile (split_decode.cuh kTile)
-MIN_SPLIT_TILES = 8    # tiles a split holds at least
+MIN_SPLIT_TILES = 8    # tiles a split holds at least, by default
 N_SM = 132             # the H100's SMs
 
 __all__ = ["decode_attention", "decode_attention_ref"]
 
 
 def _num_splits(B: int, Hkv: int, C: int, n_sm: int = N_SM,
-                waves: float = 2.0, force: Optional[int] = None) -> int:
+                waves: float = 2.0, force: Optional[int] = None,
+                min_tiles: int = MIN_SPLIT_TILES) -> int:
     """Blocks per (row, KV head): enough for ``waves`` waves over ``n_sm``
     SMs (``B * Hkv * n >= waves * n_sm``) where the row has the tiles, with
-    every split at least MIN_SPLIT_TILES tiles of TILE slots long (each
-    split pays a merge of its fp32 partial), and 1 when C fits one tile.
+    every split at least ``min_tiles`` tiles of TILE slots long (each split
+    pays a merge of its fp32 partial), and 1 when C fits one tile.
     ``force`` (tests and chip_smoke only) asks for a given count, capped at
     the tiles."""
+    if min_tiles < 1:
+        raise ValueError(f"min_tiles = {min_tiles}: a split walks at least "
+                         "one tile")
     tiles = -(-C // TILE)
     if force is not None:
         return max(1, min(int(force), tiles))
     want = math.ceil(waves * n_sm / (B * Hkv))
-    return max(1, min(want, tiles // MIN_SPLIT_TILES))
+    return max(1, min(want, tiles // min_tiles))
 
 
 _num_splits.force = None   # an override for every launch (tests, smoke)
@@ -133,8 +137,13 @@ def decode_attention(
     *,
     window: Optional[int] = None,
     scale: Optional[float] = None,
+    min_split_tiles: Optional[int] = None,
 ) -> torch.Tensor:
-    """One decode token over the KV cache.  Returns [B, H, D]."""
+    """One decode token over the KV cache.  Returns [B, H, D].
+
+    ``min_split_tiles=None`` resolves through ``kernels.tuning`` (default
+    MIN_SPLIT_TILES); the launch's split count is left in
+    ``decode_attention.last_n_split``."""
     if q.device.type == "cpu":
         return decode_attention_ref(q, k, v, q_pos, k_pos, window=window,
                                     scale=scale)
@@ -163,9 +172,8 @@ def decode_attention(
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     G = H // Hkv
     o = torch.empty_like(q)
-    n_split = _num_splits(B, Hkv * _head_groups(G)[0], C,
-                          _sm_count(q.device), waves=_waves(q.dtype, D),
-                          force=_num_splits.force)
+    n_split = _launch_splits(B, H, Hkv, D, C, q.dtype, _sm_count(q.device),
+                             min_split_tiles)
     scratch = _split_scratch(B, Hkv, G, D, n_split, q.device)
     lib = _lib()
     err = lib.flash_decode(
@@ -178,7 +186,22 @@ def decode_attention(
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, "flash_decode", err)
     decode_attention.launches += 1
+    decode_attention.last_n_split = n_split
     return o
 
 
+def _launch_splits(B: int, H: int, Hkv: int, D: int, C: int,
+                   dtype: torch.dtype, n_sm: int,
+                   min_split_tiles: Optional[int] = None) -> int:
+    """The split count ``decode_attention`` launches with: ``_num_splits``
+    over the head groups, the body's waves and the resolved
+    ``min_split_tiles`` knob."""
+    min_tiles = tuning.resolve("decode_attention", "min_split_tiles",
+                               min_split_tiles)
+    return _num_splits(B, Hkv * _head_groups(H // Hkv)[0], C, n_sm,
+                       waves=_waves(dtype, D), force=_num_splits.force,
+                       min_tiles=min_tiles)
+
+
 decode_attention.launches = 0
+decode_attention.last_n_split = None

@@ -15,9 +15,10 @@ the JAX entry point does.  On a CPU tensor it runs
 raises) and counts the launch in ``paged_decode_attention.launches``.  As
 in the reference wrapper, table ids are clamped into ``[0, P-1]`` (the
 kernel clamps each id it reads), and the scale is that of the true D: the
-kernel needs no padding of D.  There is no tiling knob: the page size is a
-property of the pool (``serve.kv_cache.PagedKVCache`` resolves it through
-``kernels.tuning``).
+kernel needs no padding of D.  Its knob is the split rule's
+``min_split_tiles``, resolved through ``kernels.tuning`` as K3's; the page
+size is a property of the pool (``serve.kv_cache.PagedKVCache`` resolves
+it through ``kernels.tuning``), read from ``k_pages``.
 """
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ from typing import Optional
 
 import torch
 
-from .. import _build
+from .. import _build, tuning
 from ..decode_attention.ops import (_head_groups, _num_splits, _sm_count,
                                     _split_scratch, _waves)
 from .ref import paged_decode_attention_ref
@@ -40,16 +41,21 @@ __all__ = ["paged_decode_attention", "paged_decode_attention_ref"]
 
 def _paged_splits(B: int, Hkv: int, maxp: int, page: int,
                   window: Optional[int], dtype: torch.dtype, D: int,
-                  n_sm: int, G: int = 1) -> int:
+                  n_sm: int, G: int = 1,
+                  min_split_tiles: Optional[int] = None) -> int:
     """Blocks per (row, KV head, head group): ``decode_attention.ops
     ._num_splits`` over the most slots a row can reach, the table's
     ``maxp * page`` (or the window, if shorter), never over the lengths,
     which stay on the card; the head groups of ``G`` query heads
     (``_head_groups``) count as more KV heads.  ``_num_splits.force``
-    applies here too."""
+    applies here too; ``min_split_tiles=None`` resolves through
+    ``kernels.tuning``."""
     reach = maxp * page if window is None else min(maxp * page, window)
+    min_tiles = tuning.resolve("paged_attention", "min_split_tiles",
+                               min_split_tiles)
     return _num_splits(B, Hkv * _head_groups(G)[0], max(1, reach), n_sm,
-                       waves=_waves(dtype, D), force=_num_splits.force)
+                       waves=_waves(dtype, D), force=_num_splits.force,
+                       min_tiles=min_tiles)
 
 
 def _lib() -> ctypes.CDLL:
@@ -72,8 +78,12 @@ def paged_decode_attention(
     *,
     window: Optional[int] = None,
     scale: Optional[float] = None,
+    min_split_tiles: Optional[int] = None,
 ) -> torch.Tensor:
-    """One decode token over a paged KV cache.  Returns [B, H, D]."""
+    """One decode token over a paged KV cache.  Returns [B, H, D].
+
+    ``min_split_tiles=None`` resolves through ``kernels.tuning``; the
+    launch's split count is left in ``paged_decode_attention.last_n_split``."""
     B, H, D = q.shape
     P, page, Hkv, _ = k_pages.shape
     # scale from the TRUE head dim
@@ -115,7 +125,7 @@ def paged_decode_attention(
     G = H // Hkv
     o = torch.empty_like(q)
     n_split = _paged_splits(B, Hkv, maxp, page, window, q.dtype, D,
-                            _sm_count(q.device), G)
+                            _sm_count(q.device), G, min_split_tiles)
     scratch = _split_scratch(B, Hkv, G, D, n_split, q.device)
     lib = _lib()
     err = lib.paged_flash_decode(
@@ -128,7 +138,9 @@ def paged_decode_attention(
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, "paged_flash_decode", err)
     paged_decode_attention.launches += 1
+    paged_decode_attention.last_n_split = n_split
     return o
 
 
 paged_decode_attention.launches = 0
+paged_decode_attention.last_n_split = None

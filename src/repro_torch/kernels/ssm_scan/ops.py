@@ -102,6 +102,7 @@ def _scan_flat(q, k, v, ig, fg, chunk: int, return_state: bool = False):
     _build.check(lib, "mlstm_scan", err)
     mlstm_scan.launches += 1
     mlstm_scan.launches_by_variant["simt"] += 1
+    mlstm_scan.last_chunk = chunk
     return (h, state) if return_state else h
 
 
@@ -144,6 +145,7 @@ def _scan_mma(q, k, v, ig, fg, chunk: int, return_state: bool = False):
     _build.check(lib, "mlstm_scan_sm90", err)
     mlstm_scan.launches += 1
     mlstm_scan.launches_by_variant["mma"] += 1
+    mlstm_scan.last_chunk = chunk
     return (h, state) if return_state else h
 
 
@@ -209,7 +211,8 @@ def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q/k/v [B, S, H, D]; ig/fg [B, S, H] (pre-activation gates) ->
     h [B, S, H, D] in q's dtype, from the zero state.
 
-    ``chunk=None`` resolves through ``kernels.tuning`` (default 64).  With
+    ``chunk=None`` resolves through ``kernels.tuning`` (default 64); a
+    launch leaves its chunk in ``mlstm_scan.last_chunk``.  With
     ``return_state`` returns ``(h, (C, n, m))``."""
     B, S, H, D = q.shape
     chunk = tuning.resolve("ssm_scan", "chunk", chunk)
@@ -226,3 +229,4 @@ def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 mlstm_scan.launches = 0
 mlstm_scan.launches_by_variant = {"simt": 0, "mma": 0}
+mlstm_scan.last_chunk = None

@@ -1,19 +1,53 @@
-"""Per-device-type kernel knobs (block sizes), the port's copy of
+"""Per-device-type kernel knobs, the port's copy of
 ``repro.kernels.tuning``.
 
-Devices are keyed by ``torch.cuda.get_device_name()`` instead of the TPU
-kinds.  Nothing is registered yet, so the builtin defaults apply; the
-tuning pass (ROADMAP M7) fills ``_TUNED``.
+The wrappers resolve each knob they read through ``resolve``: an explicit
+value wins, else the tuned table for the local device type, else
+``BUILTIN_DEFAULTS``.  The table names exactly the knobs the port's
+wrappers read, at the values they launched with before any tuning, so an
+empty table changes no launch:
+
+* ``decode_attention`` (K3) and ``paged_attention`` (K2):
+  ``min_split_tiles``, the least number of 16-slot tiles a split of the
+  cache walks (``decode_attention.ops._num_splits``), the port's analog
+  of the reference's ``block_c``;
+* ``paged_attention`` also ``page_size``, read by
+  ``serve.kv_cache.PagedKVCache`` when it sizes the pool (the wrapper
+  takes the page from the pool's shape);
+* ``ssm_scan`` (K4): ``chunk``, at most the kernels' 64-row score tile;
+* ``flash_attention`` (K1): none.  Its tiles (``ROWS, KEYS = 128, 64`` in
+  ``flash_attention/ops.py``) are compile-time constants of the CUDA
+  source, listed in ``COMPILED``: a CostDB record may name them, at
+  those values only.
+
+Devices are keyed by ``torch.cuda.get_device_name()`` (``"H100"`` on the
+card).  The table is filled by ``repro_torch.autotune.load_tuned_defaults``
+from a CostDB, or by ``register_tuned``; ``clear_tuned`` empties it.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+import contextlib
+from typing import Dict, Iterator, Optional, Tuple
 
 BUILTIN_DEFAULTS: Dict[str, Dict[str, int]] = {
-    "flash_attention": {"block_q": 128, "block_k": 128},
-    "decode_attention": {"block_c": 512},
+    "flash_attention": {},
+    "decode_attention": {"min_split_tiles": 8},
     "ssm_scan": {"chunk": 64},
-    "paged_attention": {"page_size": 128},
+    "paged_attention": {"page_size": 128, "min_split_tiles": 8},
+}
+
+# knobs fixed when the kernel is compiled: a config may name them, at these
+# values only, and registering them changes no launch
+COMPILED: Dict[str, Dict[str, int]] = {
+    "flash_attention": {"rows": 128, "keys": 64},
+}
+
+# the values each knob's kernel can take, inclusive (None: no upper limit)
+RANGES: Dict[Tuple[str, str], Tuple[int, Optional[int]]] = {
+    ("decode_attention", "min_split_tiles"): (1, None),
+    ("paged_attention", "min_split_tiles"): (1, None),
+    ("paged_attention", "page_size"): (1, 1 << 20),
+    ("ssm_scan", "chunk"): (1, 64),       # ssm_scan.ops.MAX_CHUNK
 }
 
 # (device_type, kernel) -> {knob: value}
@@ -24,10 +58,14 @@ _DEVICE_NAME_TO_TYPE = {
     "NVIDIA H100": "H100",
     "NVIDIA H200": "H200",
 }
+CARD_TYPES = tuple(sorted(set(_DEVICE_NAME_TO_TYPE.values())))
+
+_DEVICE_TYPE_OVERRIDE: Optional[str] = None
+_NOT_READ = object()
+_detected = _NOT_READ      # the local card's type, read once
 
 
-def current_device_type() -> Optional[str]:
-    """Device-type name of the local GPU, or None (CPU / unknown card)."""
+def _detect() -> Optional[str]:
     import torch
     if not torch.cuda.is_available():
         return None
@@ -38,21 +76,68 @@ def current_device_type() -> Optional[str]:
     return None
 
 
+def current_device_type() -> Optional[str]:
+    """Device-type name of the local GPU, or None (CPU / unknown card)."""
+    global _detected
+    if _DEVICE_TYPE_OVERRIDE is not None:
+        return _DEVICE_TYPE_OVERRIDE
+    if _detected is _NOT_READ:
+        _detected = _detect()
+    return _detected
+
+
+@contextlib.contextmanager
+def override_device_type(name: Optional[str]) -> Iterator[None]:
+    """Pretend the local device type is ``name`` (tests, CPU dry-runs)."""
+    global _DEVICE_TYPE_OVERRIDE
+    prev = _DEVICE_TYPE_OVERRIDE
+    _DEVICE_TYPE_OVERRIDE = name
+    try:
+        yield
+    finally:
+        _DEVICE_TYPE_OVERRIDE = prev
+
+
 def register_tuned(device_type: str, kernel: str,
                    config: Dict[str, int]) -> None:
+    """Install tuned knobs for (device_type, kernel).  Unknown knobs raise
+    ``KeyError`` (a stale CostDB must not misconfigure silently), and so
+    do a TPU CostDB's block sizes; a value the port's kernel cannot take
+    raises ``ValueError``."""
     known = BUILTIN_DEFAULTS.get(kernel)
     if known is None:
         raise KeyError(f"unknown kernel {kernel!r}; "
                        f"tunable: {sorted(BUILTIN_DEFAULTS)}")
-    bad = set(config) - set(known)
+    fixed = COMPILED.get(kernel, {})
+    bad = set(config) - set(known) - set(fixed)
     if bad:
         raise KeyError(f"unknown knobs {sorted(bad)} for kernel {kernel!r}; "
                        f"tunable: {sorted(known)}")
-    _TUNED[(device_type, kernel)] = {k: int(v) for k, v in config.items()}
+    tuned = {}
+    for knob, value in config.items():
+        value = int(value)
+        if knob in fixed:
+            if value != fixed[knob]:
+                raise ValueError(
+                    f"{kernel}.{knob} is compiled as {fixed[knob]}, not "
+                    f"{value}")
+            continue
+        lo, hi = RANGES[(kernel, knob)]
+        if value < lo or (hi is not None and value > hi):
+            raise ValueError(f"{kernel}.{knob} = {value} is outside the "
+                             f"kernel's range [{lo}, {hi}]")
+        tuned[knob] = value
+    _TUNED[(device_type, kernel)] = tuned
+
+
+def clear_tuned() -> None:
+    _TUNED.clear()
 
 
 def tuned_config(kernel: str,
                  device_type: Optional[str] = None) -> Dict[str, int]:
+    """Effective knobs for ``kernel`` on the local (or given) device type:
+    builtin defaults overlaid with any registered tuned values."""
     out = dict(BUILTIN_DEFAULTS[kernel])
     dt = device_type if device_type is not None else current_device_type()
     if dt is not None:

@@ -1,4 +1,4 @@
-"""Observability of the port (a copy of ``repro.obs`` without ``regress``).
+"""Observability of the port (a copy of ``repro.obs``).
 
 * ``obs.log`` — the launchers' structured logger.
 * ``obs.trace.Tracer`` — spans, instants and counters on one timebase,
@@ -24,6 +24,13 @@
       res = AsyncRLSimulator(plan, P, SimConfig(trace=tracer)).run()
       assert check_report(analyze_trace(tracer.to_chrome())) == []
 
+* ``obs.regress`` — compare a run's ``BENCH_*.json`` payloads against
+  committed baselines with direction-aware tolerance bands.
+
+CLI: ``python -m repro_torch.obs analyze TRACE`` and ``python -m
+repro_torch.obs regress --baselines DIR --run DIR`` (exit 0, or 2 on a
+regression).
+
 Every hook is behind ``if ... is not None``: a run without a tracer,
 registry or monitor is bit-identical to one with them attached.
 """
@@ -31,6 +38,7 @@ from .analyze import analyze_trace, check_report, summarize_metrics
 from .metrics import (Counter, Gauge, Histogram, MetricsRegistry,
                       hist_frac_ge, hist_quantile, snapshot_delta)
 from .monitor import Alert, HealthMonitor, MonitorConfig
+from .regress import compare_dirs, compare_metrics, extract_metrics
 from .slo import BurnWindow, SLOSpec, burn_rate, classify_burn
 from .trace import TraceError, Tracer
 
@@ -50,6 +58,9 @@ __all__ = [
     "burn_rate",
     "check_report",
     "classify_burn",
+    "compare_dirs",
+    "compare_metrics",
+    "extract_metrics",
     "hist_frac_ge",
     "hist_quantile",
     "snapshot_delta",

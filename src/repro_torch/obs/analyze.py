@@ -4,8 +4,7 @@ of ``repro.obs.analyze``).
 
 ``analyze_trace`` is pure (dict in, dict out) so tests and benchmarks
 can call it on ``Tracer.to_chrome()`` without touching disk; the CLI
-(``python -m repro_torch.obs.analyze analyze TRACE``) wraps it for CI
-gating.
+(``python -m repro_torch.obs analyze TRACE``) wraps it for CI gating.
 
 Computed per trace:
 
@@ -260,7 +259,7 @@ def _human_metrics(mx: Dict[str, Any]) -> str:
 
 def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser(
-        prog="python -m repro_torch.obs.analyze",
+        prog="python -m repro_torch.obs",
         description="Offline analysis of repro_torch.obs Chrome-trace JSON.")
     sub = ap.add_subparsers(dest="cmd", required=True)
     a = sub.add_parser("analyze",
@@ -317,7 +316,3 @@ def main(argv: Optional[List[str]] = None) -> int:
         for f_ in fails:
             print(f"FAIL: {f_}")
     return 1 if fails else 0
-
-
-if __name__ == "__main__":
-    raise SystemExit(main())
