@@ -130,6 +130,27 @@ Phases (any failure exits non-zero before the result line):
    freed before the engines fetch) through ``RolloutEngine.generate`` and
    ``PagedEngine.generate_groups`` (pool sized from the free memory), B=8,
    32 new tokens, greedy, with exact launch counts.
+   Sharding (``parallel_phase``, after the qwen step): the meta-device
+   dry-run (``python -m repro_torch.launch.dryrun``) of qwen-distill-1.5B
+   / 7B / 14B x train_4k / decode_32k x single / multi pod in
+   subprocesses on the host, eight at a time, each ``ok`` with collectives,
+   its roofline terms (modelled, H100 SXM data sheet) and the largest
+   rank's argument GB printed, then ``launch.report``'s tables; the 1.5B
+   bf16 GRPO step (B=8 x 160, remat) over ``make_host_mesh((1, 1))``
+   (NCCL, world 1) with params by ``param_pspecs(fsdp=True)``, AdamW
+   state by ``opt_state_pspecs``, batch by ``batch_pspecs`` and
+   attention through ``local_map``: 2 x 28 K1 launches a step, all on
+   the tensor-core kernel, loss and grad norm within 1e-3 of the
+   unsharded step from the same weights, both timed (host clock, device
+   busy, idle share) and set beside the same program's dry-run roofline
+   at (1, 1); ``make_serve_step`` at B=32 over the cache placed by
+   ``cache_pspecs``, 28 K3 launches a step, logits within 1e-3 of the
+   unsharded ``decode_step``; K3 on a context-split cache's path (2 and 4
+   runs of the context, each launch with its log-sum-exp, merged) held to
+   K3 over the whole cache and the plain version; the int8 error-feedback
+   all-reduce over the
+   NCCL group on the step's gradients in float32, every leaf within
+   0.75 x scale, with the bytes it reduces and its time.
 4. Card against CPU, teacher-forced: the full width cut to 4 layers in
    float32, same params on both, 2 prompts.  Static: prefill + 8 decode
    steps fed the CPU's greedy tokens.  Paged: prefill in chunks of 16 over
@@ -181,6 +202,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -3044,6 +3066,453 @@ def qwen_step_phase():
     return out
 
 
+PARALLEL_ARCHS = ("qwen-distill-1.5b", "qwen-distill-7b", "qwen-distill-14b")
+ROOFLINE_STEP = r"""
+import json
+from repro_torch.configs import get_config
+from repro_torch.configs.shapes import ShapeSpec
+from repro_torch.launch import roofline as rf
+from repro_torch.launch.dryrun import count_program
+from repro_torch.launch.mesh import make_fake_mesh
+cfg = get_config("qwen-distill-1.5b")
+mesh = make_fake_mesh((1, 1), ("data", "model"))
+cost, coll, comm, _, ext = count_program(
+    cfg, ShapeSpec("chip_step", "train", 160, 8), mesh)
+print(json.dumps(dict(flops=cost["flops"], bytes=cost["bytes accessed"],
+                      counts=coll["counts"], extrapolated=ext,
+                      t_compute_ms=cost["flops"] / rf.PEAK_FLOPS * 1e3,
+                      t_memory_ms=cost["bytes accessed"] / rf.HBM_BW * 1e3)))
+"""
+
+
+def _dryrun_cells():
+    """The meta-device dry-run (``python -m repro_torch.launch.dryrun``) of
+    qwen-distill-1.5B / 7B / 14B x train_4k / decode_32k x single / multi
+    pod, each cell a subprocess on the card's host (no GPU), up to eight
+    at a time, plus the dry-run count of the sharded step below at mesh
+    (1, 1).  Every cell must be ``ok`` with collectives > 0."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out_dir = ROOT / "experiments" / "dryrun_torch"
+    logs = ROOT / "build" / "chip_smoke_dryrun"
+    logs.mkdir(parents=True, exist_ok=True)
+    cells = [(a, s, m) for a in PARALLEL_ARCHS
+             for s in ("train_4k", "decode_32k") for m in ("single", "multi")]
+    jobs = [("step_1x1", [sys.executable, "-c", ROOFLINE_STEP])] + [
+        ("__".join(c), [sys.executable, "-m", "repro_torch.launch.dryrun",
+                        "--arch", c[0], "--shape", c[1], "--mesh", c[2],
+                        "--quiet"]) for c in cells]
+    for a, s, m in cells:
+        (out_dir / f"{a}__{s}__{m}.json").unlink(missing_ok=True)
+    workers = min(8, os.cpu_count() or 1)
+
+    def run(job):
+        name, cmd = job
+        t = time.perf_counter()
+        with open(logs / f"{name}.log", "w") as log:
+            try:
+                rc = subprocess.run(cmd, env=env, cwd=ROOT, stdout=log,
+                                    stderr=subprocess.STDOUT,
+                                    timeout=400).returncode
+            except subprocess.TimeoutExpired:
+                rc = "timeout (400 s)"
+        return name, (rc, time.perf_counter() - t)
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=workers) as pool:
+        done = dict(pool.map(run, jobs))
+    wall = time.perf_counter() - t0
+    for name, (rc, _) in done.items():
+        if rc != 0:
+            fail(f"dry-run {name}: exit {rc}; "
+                 f"{(logs / (name + '.log')).read_text()[-2000:]}")
+    step = json.loads((logs / "step_1x1.log").read_text().strip()
+                      .splitlines()[-1])
+    results = {}
+    for a, s, m in cells:
+        r = json.loads((out_dir / f"{a}__{s}__{m}.json").read_text())
+        roof = r["roofline"]
+        n_coll = sum(roof["counts"].values())
+        if r["status"] != "ok" or n_coll < 1:
+            fail(f"dry-run {a} {s} {m}: status {r['status']}, "
+                 f"{n_coll} collectives")
+        arg_gb = r["memory_analysis"]["argument_bytes"] / 1e9
+        results[f"{a}/{s}/{m}"] = dict(
+            t_compute=roof["t_compute"], t_memory=roof["t_memory"],
+            t_collective=roof["t_collective"],
+            bottleneck=roof["bottleneck"], collectives=roof["counts"],
+            argument_gb=arg_gb, wall_s=done["__".join((a, s, m))][1])
+        say(f"dry-run {a} {s} {m} ({r['n_devices']} ranks): ok, roofline "
+            f"(modelled, H100 SXM data sheet) compute {roof['t_compute']:.4g}"
+            f" s, memory {roof['t_memory']:.4g} s, collective "
+            f"{roof['t_collective']:.4g} s -> {roof['bottleneck']}; "
+            f"collectives {roof['counts']}; largest rank's arguments "
+            f"{arg_gb:.2f} GB (of 80 GB)")
+    rep = subprocess.run([sys.executable, "-m", "repro_torch.launch.report"],
+                         env=env, cwd=ROOT, capture_output=True, text=True)
+    if rep.returncode != 0:
+        fail(f"launch.report: exit {rep.returncode}: {rep.stderr[-2000:]}")
+    say(rep.stdout)
+    say(f"dry-run: {len(cells)} cells and the step count in {wall:.1f} s "
+        f"({workers} subprocesses at a time, on the "
+        "host's cores)")
+    return results, step
+
+
+def _bf16_qwen(cfg):
+    """qwen-distill-1.5b's published config in bfloat16 from seed 0 (the
+    same weights on every call)."""
+    import torch
+    from repro_torch.models import transformer
+    from repro_torch.models.params import Params, tree_map
+    p32 = transformer.init(0, cfg.replace(dtype="float32"), "cuda")
+    return Params(tree_map(lambda t: t.to(torch.bfloat16), p32))
+
+
+def _place_train(cfg, params, batch, mesh, opt):
+    """Params (``param_pspecs(fsdp=True)``), AdamW state
+    (``opt_state_pspecs``) and batch (``batch_pspecs``) as DTensors."""
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.parallel import sharding as shd
+    dp = shd.distribute(params, shd.param_pspecs(params, cfg, mesh,
+                                                 fsdp=True), mesh)
+    dp.requires_grad_(True)
+    o_spec = shd.flat(shd.opt_state_pspecs(params, cfg, mesh))
+    st = adamw_init(params, opt)
+    state = {k: {n: distribute_tensor(v, mesh, shd.placements(o_spec[n],
+                                                               mesh))
+                 for n, v in st[k].items()} for k in ("m", "v")}
+    state["count"] = 0
+    b_spec = shd.batch_pspecs(batch, mesh)
+    db = {k: distribute_tensor(v, mesh, shd.placements(b_spec[k], mesh))
+          for k, v in batch.items()}
+    return dp, state, db
+
+
+def _timed_steps(what, step, params, state, batch, n_layers, full):
+    """A warm-up step, two timed steps and a profiled one; each must launch
+    K1 2 x n_layers times, all on the tensor-core kernel.  Returns the
+    first step's loss and grad norm, the host-clock times, the profile and
+    the K1 launches counted over the three steps."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    times, first, launches = [], None, 0
+    for i in range(3):
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, m = step(params, state, batch)
+        loss, gnorm = float(full(m["loss"])), float(full(m["grad_norm"]))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        first = first or (loss, gnorm)
+        counts = _read_counts()
+        launches += counts["flash_attention_fwd"]
+        want = {"flash_attention_fwd": 2 * n_layers, "flash_decode": 0,
+                "paged_flash_decode": 0, "mlstm_scan": 0}
+        if counts != want or not (math.isfinite(loss)
+                                  and math.isfinite(gnorm)):
+            fail(f"{what} step {i + 1}: launches {counts} (expected {want}),"
+                 f" loss {loss}, grad_norm {gnorm}")
+        _expect_variants(f"{what} step {i + 1}",
+                         {"simt": 0, "wgmma": 2 * n_layers})
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(params, state, batch)
+        torch.cuda.synchronize()
+    kernels = _trace_kernels(prof, what.replace(" ", "_"))
+    if not kernels:
+        fail(f"{what}: the profiler trace holds no kernel")
+    prof_out = _busy(kernels, kernels[0][0], 1)
+    return first, times, prof_out, launches
+
+
+def _grads(cfg, params, batch):
+    """The GRPO loss's gradients at ``params`` (plain tensors), by name."""
+    import torch
+    from repro_torch.models import transformer
+    from repro_torch.optim.adamw import named_leaves
+    from repro_torch.rl.grpo import grpo_loss
+    leaves = list(named_leaves(params))
+    with torch.enable_grad():
+        for _, p in leaves:
+            p.requires_grad_(True)
+        logits = transformer.forward(params, cfg, batch["tokens"])
+        loss, _ = grpo_loss(logits, batch["tokens"], batch["behavior_logp"],
+                            batch["advantages"], batch["loss_mask"])
+        grads = torch.autograd.grad(loss, [p for _, p in leaves])
+    return {name: g for (name, _), g in zip(leaves, grads)}
+
+
+def _ctx_split_check(B, C):
+    """K3 on the path of a context-split cache (``parallel.local.
+    decode_attention`` with ``cache_shard="ctx"``), on one card: the
+    1.5B's decode shape (H 12, Hkv 2, D 128, B rows over C slots) cut
+    into 2 and 4 runs of the context as ``torch.chunk`` cuts it over
+    ranks; each run's K3 launch with its log-sum-exp, merged by
+    ``merge_lse``, is held to K3 over the whole cache and to the plain
+    version, and the whole cache's lse to the plain version's.  Rows
+    attend from 1 to C slots (so a merge meets runs that attend all, some
+    or none of a row), and row 0 attends nothing.  Returns the stats."""
+    import torch
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.decode_attention.ref import (
+        decode_attention_ref, merge_lse)
+
+    def reduce(x, op):
+        return x.amax(0) if op == "max" else x.sum(0)
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    valid = [0] + [C - (37 * i) % C for i in range(1, B)]
+    stats = {"checks": 0, "max_abs_err": 0.0}
+    for dtype in ("float32", "bfloat16"):
+        q, k, v, qp, kp = decode_case(B, 12, 2, 128, C, valid, dtype, gen)
+        shape = (B, 12, 2, 128, C)
+        whole, lse = decode_attention(q, k, v, qp, kp, return_lse=True)
+        want, want_lse = decode_attention_ref(q, k, v, qp, kp,
+                                              return_lse=True)
+        _check("flash_decode lse", lse, want_lse, dtype, shape, stats)
+        for n in (2, 4):
+            runs = zip(*(t.chunk(n, dim=1) for t in (k, v, kp)))
+            o, ls = zip(*(decode_attention(q, kr.contiguous(),
+                                           vr.contiguous(), qp,
+                                           pr.contiguous(), return_lse=True)
+                          for kr, vr, pr in runs))
+            got = merge_lse(torch.stack(o), torch.stack(ls), reduce)
+            _check(f"flash_decode ctx split {n}", got, want, dtype, shape,
+                   stats)
+            _check(f"flash_decode ctx split {n} vs whole", got, whole,
+                   dtype, shape, stats)
+    return stats
+
+
+def parallel_phase():
+    """Slice 11 on the card (``parallel/``, ``launch/{mesh,roofline,dryrun,
+    report}``).  (1) The dry-run cells (``_dryrun_cells``) and the report's
+    tables; every roofline term is modelled from the H100 SXM data sheet.
+    (2) A sharded GRPO train step of qwen-distill-1.5b's published config
+    (bf16, remat, B = 8 x 160) over ``make_host_mesh((1, 1))``, NCCL at
+    world size 1: params by ``param_pspecs(fsdp=True)``, AdamW state by
+    ``opt_state_pspecs``, batch by ``batch_pspecs``, attention through
+    ``local_map``; 2 x 28 K1 launches a step on the tensor-core kernel,
+    loss and grad_norm within 1e-3 of the unsharded step from the same
+    weights (timed beside it: host clock, device busy ms, idle share), and
+    measured busy ms beside the same program's dry-run roofline at (1, 1).
+    (3) ``make_serve_step`` at B = 32 over the 1.5B's cache placed by
+    ``cache_pspecs``: 28 K3 launches a step, logits within 1e-3 of the
+    unsharded ``decode_step``; then ``_ctx_split_check``, K3 as a
+    context-split cache runs it.  (4) The int8 error-feedback all-reduce
+    over the NCCL group on the step's gradient tree: per leaf the error
+    within 0.75 x scale, residual + mean reproduces the gradients within
+    it; bytes reduced against bf16's, and the time."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.configs import get_config
+    from repro_torch.data.tasks import MathTaskGenerator, Tokenizer
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel.compression import (init_residual,
+                                                  make_compressed_allreduce)
+    from repro_torch.rl.grpo import make_serve_step, make_train_step
+
+    t_phase = time.perf_counter()
+    out = {}
+    out["dryrun"], roof = _dryrun_cells()
+
+    cfg = get_config(ARCH)
+    L = cfg.n_layers
+    opt = AdamWConfig(lr=3e-5)
+    B, S, prompt = 8, 160, 112
+    batch = _train_batch(cfg, B, S, prompt, "cuda")
+    step = make_train_step(cfg, opt)
+    torch.cuda.empty_cache()
+    # the unsharded step from seed 0's weights
+    p16 = _bf16_qwen(cfg).requires_grad_(True)
+    (loss0, gn0), t_plain, prof_plain, _ = _timed_steps(
+        "unsharded qwen bf16 train", step, p16, adamw_init(p16, opt), batch,
+        L, float)
+    del p16
+    torch.cuda.empty_cache()
+
+    mesh = make_host_mesh((1, 1), ("data", "model"))
+    say(f"host mesh {mesh} over {dist.get_backend()} at world size "
+        f"{dist.get_world_size()}")
+    dp, dstate, dbatch = _place_train(cfg, _bf16_qwen(cfg), batch, mesh, opt)
+    placed = {str(p.placements) for p in dp.parameters()}
+
+    def sharded(params, state, b):
+        with implicit_replication():
+            return step(params, state, b)
+
+    (loss1, gn1), t_shard, prof_shard, launches = _timed_steps(
+        "sharded qwen bf16 train", sharded, dp, dstate, dbatch, L,
+        lambda x: x.full_tensor() if hasattr(x, "full_tensor") else x)
+    rl, rg = abs(loss1 - loss0) / abs(loss0), abs(gn1 - gn0) / abs(gn0)
+    if not (rl <= 1e-3 and rg <= 1e-3):
+        fail(f"sharded train step: loss {loss1} vs {loss0} (rel {rl:.2e}), "
+             f"grad_norm {gn1} vs {gn0} (rel {rg:.2e}) > 1e-3")
+    bound_ms = max(roof["t_compute_ms"], roof["t_memory_ms"])
+    out["train"] = dict(
+        loss=loss1, loss_unsharded=loss0, loss_rel=rl, grad_norm=gn1,
+        grad_norm_unsharded=gn0, grad_norm_rel=rg,
+        bit_identical=(loss1 == loss0 and gn1 == gn0),
+        step_ms=t_shard[1:], warmup_ms=t_shard[0],
+        unsharded_step_ms=t_plain[1:], unsharded_warmup_ms=t_plain[0],
+        busy_ms=prof_shard["busy_ms"], idle_share=prof_shard["idle_share"],
+        unsharded_busy_ms=prof_plain["busy_ms"],
+        unsharded_idle_share=prof_plain["idle_share"],
+        top_kernels_ms=prof_shard["top_kernels_ms"], placements=sorted(placed),
+        launches=launches, launch_steps=len(t_shard), roofline_1x1=roof, roofline_bound_ms=bound_ms,
+        busy_over_bound=prof_shard["busy_ms"] / bound_ms)
+    say(f"sharded GRPO train step, qwen-distill-1.5b published config (bf16,"
+        f" remat, B=8 S=160) over make_host_mesh((1, 1)) ("
+        f"{dist.get_backend()}, world {dist.get_world_size()}; placements "
+        f"{sorted(placed)}): {' / '.join(f'{t:.1f}' for t in t_shard)}"
+        f" ms host clock (first is warm-up) against the unsharded step's "
+        f"{' / '.join(f'{t:.1f}' for t in t_plain)} ms in this run; device "
+        f"busy {prof_shard['busy_ms']:.1f} ms (idle share "
+        f"{prof_shard['idle_share']:.3f}) against {prof_plain['busy_ms']:.1f}"
+        f" ms ({prof_plain['idle_share']:.3f}); loss {loss1:.6f} vs "
+        f"{loss0:.6f} (rel {rl:.2e}), grad_norm {gn1:.5f} vs {gn0:.5f} (rel "
+        f"{rg:.2e}), bit-identical: {out['train']['bit_identical']}; K1 "
+        f"launches {launches} over {len(t_shard)} steps (2 x {L} a step); "
+        f"{CARD['card']}")
+    say(f"dry-run roofline of that step at mesh (1, 1) (modelled, H100 SXM "
+        f"data sheet: 989 TFLOP/s bf16, 3.35 TB/s): {roof['flops']:.4g} "
+        f"FLOPs -> {roof['t_compute_ms']:.2f} ms, {roof['bytes']:.4g} op-level"
+        f" bytes -> {roof['t_memory_ms']:.2f} ms; measured busy "
+        f"{prof_shard['busy_ms']:.1f} ms = {out['train']['busy_over_bound']:.2f}"
+        f" x max(t_compute, t_memory)")
+    del dp, dstate, dbatch
+    torch.cuda.empty_cache()
+
+    # (3) the sharded serve step at the main path's decode shape
+    params = _bf16_qwen(cfg)
+    tasks = MathTaskGenerator(seed=0).batch(32)
+    plen = max(len(t.prompt_ids) for t in tasks)
+    toks = np.full((32, plen), Tokenizer.PAD, np.int64)
+    for i, t in enumerate(tasks):
+        toks[i, plen - len(t.prompt_ids):] = t.prompt_ids
+    serve = make_serve_step(cfg)
+    dparams = shd.distribute(params, shd.param_pspecs(params, cfg, mesh),
+                             mesh)
+    rows = shd.placements(shd.P(("data",)), mesh)
+    worst, t_s, t_u, steps, launches = 0.0, [], [], 4, 0
+    with torch.no_grad():
+        lg, cache = transformer.prefill(
+            params, cfg, torch.from_numpy(toks).cuda(), max_len=plen + 128)
+        dcache = shd.distribute({k: v.clone() for k, v in cache.items()},
+                                shd.cache_pspecs(cache, cfg, mesh), mesh)
+        for t in range(steps):
+            tok = torch.argmax(lg[:, :cfg.vocab].float(), -1).to(torch.int32)
+            pos = torch.full((32,), plen + t, dtype=torch.int32,
+                             device="cuda")
+            dtok, dpos = (distribute_tensor(x, mesh, rows) for x in (tok, pos))
+            _reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with implicit_replication():
+                lg_s, dcache = serve(dparams, dcache, dtok, dpos)
+            torch.cuda.synchronize()
+            t_s.append((time.perf_counter() - t0) * 1e3)
+            counts = _read_counts()
+            launches += counts["flash_decode"]
+            want = {"flash_attention_fwd": 0, "flash_decode": L,
+                    "paged_flash_decode": 0, "mlstm_scan": 0}
+            if counts != want:
+                fail(f"sharded serve step {t}: launches {counts}, expected "
+                     f"{want}")
+            t0 = time.perf_counter()
+            lg, cache = transformer.decode_step(params, cfg, cache, tok, pos)
+            torch.cuda.synchronize()
+            t_u.append((time.perf_counter() - t0) * 1e3)
+            a, b = lg_s.full_tensor().float(), lg.float()
+            rel = float((a - b).abs().max() / b.abs().max())
+            worst = max(worst, rel)
+            if not (torch.isfinite(a).all() and rel <= 1e-3):
+                fail(f"sharded serve step {t}: max |sharded - unsharded| / "
+                     f"max |unsharded| = {rel:.3e} > 1e-3")
+    out["serve"] = dict(worst_rel=worst, launches=launches, steps=steps,
+                        step_ms=t_s, unsharded_step_ms=t_u,
+                        context=plen + 128)
+    say(f"sharded serve step (make_serve_step, B=32, cache of "
+        f"{plen + 128} slots placed by cache_pspecs): K3 launches {launches}"
+        f" over {steps} steps ({L} a step), worst max |sharded - unsharded| / max "
+        f"|unsharded| = {worst:.2e} <= 1e-3; host clock "
+        f"{' / '.join(f'{x:.1f}' for x in t_s)} ms against "
+        f"{' / '.join(f'{x:.1f}' for x in t_u)} ms unsharded; {CARD['card']}")
+    del dparams, dcache, cache
+    torch.cuda.empty_cache()
+    ctx = _ctx_split_check(32, plen + 128)
+    out["serve"]["ctx_split"] = ctx
+    say(f"K3 over a context split (the cache_shard='ctx' decode): 2 and 4 "
+        f"runs of {plen + 128} slots, B=32, each with its lse, merged: "
+        f"{ctx['checks']} checks against K3 over the whole cache and the "
+        f"plain version, max err {ctx['max_abs_err']:.2e}")
+
+    # (4) the compressed all-reduce on the step's gradient tree, in float32
+    # as the reference's test holds it: the mean is cast back to the
+    # gradient's dtype, and bf16's cast alone may add half an ulp (up to
+    # 0.496 x scale), so the bf16 tree is reported, not held to the bound
+    grads16 = _grads(cfg, params, batch)
+    del params
+    grads = {k: g.float() for k, g in grads16.items()}
+    f = make_compressed_allreduce(mesh, "data")
+    mean, res = f(grads, init_residual(grads))
+    worst_err, worst_rec = 0.0, 0.0
+    for name, x in grads.items():
+        scale = max(float(x.abs().max()), 1e-12) / 127.0
+        err = float((mean[name] - x).abs().max())
+        rec = float((res[name] + mean[name] - x).abs().max())
+        if not (err <= 0.75 * scale and rec <= 0.75 * scale):
+            fail(f"compressed all-reduce {name}: error {err:.3e}, residual + "
+                 f"mean {rec:.3e} > 0.75 x scale {scale:.3e}")
+        worst_err = max(worst_err, err / scale)
+        worst_rec = max(worst_rec, rec / scale)
+    mean16, _ = f(grads16, init_residual(grads16))
+    worst16 = max(float((mean16[k].float() - g.float()).abs().max())
+                  / (max(float(g.float().abs().max()), 1e-12) / 127.0)
+                  for k, g in grads16.items())
+    del mean16
+    n = sum(g.numel() for g in grads.values())
+    times = []
+    for _ in range(5):
+        res0 = init_residual(grads)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        f(grads, res0)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    out["compress"] = dict(
+        leaves=len(grads), elements=n, worst_err_over_scale=worst_err,
+        worst_rec_over_scale=worst_rec, bf16_tree_err_over_scale=worst16,
+        int8_payload_bytes=n,
+        int32_reduced_bytes=4 * n, bf16_bytes=2 * n,
+        ms=statistics.median(times), ms_all=times)
+    say(f"compressed all-reduce over {dist.get_backend()} (world "
+        f"{dist.get_world_size()}) on the step's gradient "
+        f"tree in float32 ({len(grads)} leaves, {n / 1e9:.3f} G elements): "
+        f"worst error {worst_err:.3f} x scale, residual + mean "
+        f"{worst_rec:.3f} x scale (<= 0.75; the bf16 tree, its mean cast "
+        f"back to bf16: {worst16:.3f} x scale); int8 payload {n / 1e9:.3f} GB, reduced as int32 "
+        f"{4 * n / 1e9:.3f} GB (as the reference sums it), bf16 "
+        f"{2 * n / 1e9:.3f} GB; quantize-and-reduce "
+        f"{statistics.median(times):.1f} ms median of 5 (host clock); "
+        f"{CARD['card']}")
+    del grads, grads16, mean, res
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    say(f"parallel phase {out['phase_s']:.1f} s")
+    return out
+
+
 def ckpt_launcher_phase():
     """The launcher as a user runs it, on the card (no ``--device``): a
     ``--crash-after 2`` run of ``--smoke --steps 4 --ckpt-every 1`` must
@@ -4270,6 +4739,14 @@ def main() -> None:
     say("qwen train step summary " + json.dumps(dict(qstep, **CARD)))
     records["flash_attention_fwd"]["train_step_launches_by_variant"] = (
         qstep["launches_by_variant"])
+    par = parallel_phase()
+    say("parallel summary " + json.dumps(dict(par, **CARD)))
+    # counted in the sharded runs: K1 over the 3 train steps, K3 over the
+    # 4 serve steps
+    records["flash_attention_fwd"]["sharded_train_launches"] = (
+        par["train"]["launches"])
+    records["flash_decode"]["sharded_serve_launches"] = (
+        par["serve"]["launches"])
     say("checkpoint summary " + json.dumps(dict(
         launcher=ckpt_launcher_phase(), full_width=ckpt_full_width_phase())))
     for arch in ("qwen-distill-7b", "qwen-distill-14b"):

@@ -62,7 +62,11 @@ struct DenseRows {
 }  // namespace
 
 // q [B, Hkv*G, D], k/v [B, C, Hkv, D], q_pos [B], k_pos [B, C] (int32),
-// o [B, Hkv*G, D]; all contiguous; any G >= 1.  dtype 0 = float32,
+// o [B, Hkv*G, D]; all contiguous; any G >= 1.  lse, when not null,
+// float32 [B, Hkv*G]: each head's natural-log sum of exp(scale * q.k) over
+// the slots it attended, -1e30 where none (a caller that attends one
+// row's cache in several launches, e.g. a context split over ranks,
+// merges their outputs by it).  dtype 0 = float32,
 // 1 = bfloat16.  window < 0 means no window.  With n_split > 1, over
 // NG = ceil(G / 8) head groups of Gc = ceil(G / NG) heads: part_acc float32
 // [B, Hkv, NG, n_split, Gc, D], part_ml float32 [B, Hkv, NG, n_split, Gc, 2]
@@ -72,7 +76,8 @@ struct DenseRows {
 // Returns cudaGetLastError() of the launch.
 extern "C" int flash_decode(const void* q, const void* k, const void* v,
                             const void* q_pos, const void* k_pos, void* o,
-                            void* part_acc, void* part_ml, void* counters,
+                            void* lse, void* part_acc, void* part_ml,
+                            void* counters,
                             int B, int C, int Hkv, int G, int D, int n_split,
                             int window, float scale, int dtype, int device,
                             void* stream) {
@@ -87,7 +92,7 @@ extern "C" int flash_decode(const void* q, const void* k, const void* v,
   const DenseRows rows{static_cast<const int*>(q_pos),
                        static_cast<const int*>(k_pos), C, Hkv, D, window};
   const sd::Launch a{q, k, v, o, part_acc, part_ml, counters, B, Hkv, G, D,
-                     n_split, scale, static_cast<cudaStream_t>(stream)};
+                     n_split, scale, static_cast<cudaStream_t>(stream), lse};
   return sd::dispatch_dtype(rows, a, dtype);
 }
 

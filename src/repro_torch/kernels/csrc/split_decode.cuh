@@ -39,6 +39,7 @@
 // and the last block of a (b, hk) to finish (a __threadfence, then an
 // atomicAdd ticket on a counter that starts at 0) merges the n_split
 // partials, writes o and resets the counter to 0 for the next launch.
+// Whoever writes o also writes each head's log-sum-exp when asked (lse).
 // The scratch and the ticket are per (b, hk, hg): part_acc
 // [B, Hkv, NG, n_split, Gc, D], part_ml [B, Hkv, NG, n_split, Gc, 2],
 // counters [B * Hkv * NG], so two head groups never share a ticket.  A
@@ -103,6 +104,13 @@ inline size_t mma_smem_bytes(int G, int D) {
 }
 
 // ---------------------------------------------------------------- merge
+// A head's log-sum-exp in natural log from its log2-domain (m, l): the
+// scores are kept as scale * log2(e) * q.k, so ln sum exp = (m + log2 l)
+// * ln 2; -1e30 for a head that attended nothing (l = 0).
+__device__ __forceinline__ float log_sum_exp(float m, float l) {
+  return l > 0.f ? (m + log2f(l)) * 0.69314718055994531f : kNegInf;
+}
+
 // Merge RG partials (a_s [RG][G][D], m_s / l_s [RG][G], in shared memory,
 // synced) into o (one split) or into this split's scratch, and let the last
 // split of the (b, hk, hg) merge the splits.  Heads 0..Gw-1 (Gw <= G) are
@@ -112,8 +120,9 @@ template <typename T>
 __device__ __forceinline__ void finish(
     const float* a_s, const float* m_s, const float* l_s, int* last, int RG,
     int G, int Gw, int D, T* __restrict__ o_head,
-    float* __restrict__ part_acc, float* __restrict__ part_ml,
-    int* __restrict__ counter, int split, int n_split) {
+    float* __restrict__ lse_head, float* __restrict__ part_acc,
+    float* __restrict__ part_ml, int* __restrict__ counter, int split,
+    int n_split) {
   const int tid = threadIdx.x;
   for (int i = tid; i < Gw * D; i += kThreads) {
     const int g = i / D, d = i - g * D;
@@ -127,6 +136,7 @@ __device__ __forceinline__ void finish(
     }
     if (n_split == 1) {
       o_head[i] = from_f32<T>(A / fmaxf(L, 1e-30f));
+      if (lse_head && d == 0) lse_head[g] = log_sum_exp(mx, L);
     } else {
       part_acc[(size_t)split * G * D + i] = A;
       if (d == 0) {
@@ -156,6 +166,7 @@ __device__ __forceinline__ void finish(
       A = fmaf(__ldcg(part_acc + (size_t)s * G * D + i), w, A);
     }
     o_head[i] = from_f32<T>(A / fmaxf(L, 1e-30f));
+    if (lse_head && i - g * D == 0) lse_head[g] = log_sum_exp(mx, L);
   }
   if (tid == 0) *counter = 0;      // ready for the next launch
 }
@@ -237,8 +248,9 @@ template <typename T, int G, int VEC, int NC, bool WIDE, typename Layout>
 __device__ __forceinline__ void decode_block(
     const Layout& lay, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ q_head, T* __restrict__ o_head,
-    float* __restrict__ part_acc, float* __restrict__ part_ml,
-    int* __restrict__ counter, int C, int Gw, int D, int W, float scale_log2,
+    float* __restrict__ lse_head, float* __restrict__ part_acc,
+    float* __restrict__ part_ml, int* __restrict__ counter, int C, int Gw,
+    int D, int W, float scale_log2,
     int split, int n_split, unsigned char* smem) {
   constexpr int S = kCoreStages;
   const int tid = threadIdx.x, rg = tid / W, ch = tid % W;
@@ -488,7 +500,8 @@ __device__ __forceinline__ void decode_block(
   }
   __syncthreads();
   finish<T>(a_s, m_s, l_s, reinterpret_cast<int*>(l_s + RG * G), RG, G, Gw,
-            D, o_head, part_acc, part_ml, counter, split, n_split);
+            D, o_head, lse_head, part_acc, part_ml, counter, split,
+            n_split);
 }
 
 // ---------------------------------------------------- tensor-core body
@@ -521,9 +534,10 @@ __device__ __forceinline__ void decode_block_mma(
     const Layout& lay, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v,
     const __nv_bfloat16* __restrict__ q_head,
-    __nv_bfloat16* __restrict__ o_head, float* __restrict__ part_acc,
-    float* __restrict__ part_ml, int* __restrict__ counter, int C, int G,
-    float scale_log2, int split, int n_split, unsigned char* smem) {
+    __nv_bfloat16* __restrict__ o_head, float* __restrict__ lse_head,
+    float* __restrict__ part_acc, float* __restrict__ part_ml,
+    int* __restrict__ counter, int C, int G, float scale_log2, int split,
+    int n_split, unsigned char* smem) {
   using bf16 = __nv_bfloat16;
   constexpr int S = kMmaStages;
   constexpr int kRow = D * 2 + kMmaPad;        // staged row, bytes
@@ -683,8 +697,8 @@ __device__ __forceinline__ void decode_block_mma(
   }
   __syncthreads();
   finish<bf16>(a_s, m_s, l_s, reinterpret_cast<int*>(l_s + kWarps * G),
-               kWarps, G, G, D, o_head, part_acc, part_ml, counter, split,
-               n_split);
+               kWarps, G, G, D, o_head, lse_head, part_acc, part_ml, counter,
+               split, n_split);
 }
 
 // ------------------------------------------------------ kernels, launch
@@ -716,15 +730,17 @@ __global__ void __launch_bounds__(kThreads)
 decode_mma_kernel(const Rows rows, const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k,
                   const __nv_bfloat16* __restrict__ v,
-                  __nv_bfloat16* __restrict__ o, float* __restrict__ part_acc,
-                  float* __restrict__ part_ml, int* __restrict__ counters,
-                  int G, int NG, int Gc, float scale_log2) {
+                  __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                  float* __restrict__ part_acc, float* __restrict__ part_ml,
+                  int* __restrict__ counters, int G, int NG, int Gc,
+                  float scale_log2) {
   const int split = blockIdx.x, n_split = gridDim.x;
   extern __shared__ __align__(16) unsigned char smem[];
   const Group grp = head_group(G, NG, Gc, D);
   int C;
   const auto lay = rows.at(blockIdx.z, grp.hk, C);
   decode_block_mma<D>(lay, k, v, q + grp.head0, o + grp.head0,
+                      lse ? lse + grp.head0 / D : nullptr,
                       part_acc + grp.blk * n_split * Gc * D,
                       part_ml + grp.blk * n_split * Gc * 2,
                       counters + grp.blk, C, grp.Gw, scale_log2, split,
@@ -736,9 +752,10 @@ template <typename Rows, typename T, int Gc, int VEC, int NC, bool WIDE>
 __global__ void __launch_bounds__(kThreads)
 decode_kernel(const Rows rows, const T* __restrict__ q,
               const T* __restrict__ k, const T* __restrict__ v,
-              T* __restrict__ o, float* __restrict__ part_acc,
-              float* __restrict__ part_ml, int* __restrict__ counters, int G,
-              int NG, int D, int W, float scale_log2) {
+              T* __restrict__ o, float* __restrict__ lse,
+              float* __restrict__ part_acc, float* __restrict__ part_ml,
+              int* __restrict__ counters, int G, int NG, int D, int W,
+              float scale_log2) {
   const int split = blockIdx.x, n_split = gridDim.x;
   extern __shared__ __align__(16) unsigned char smem[];
   const Group grp = head_group(G, NG, Gc, D);
@@ -746,6 +763,7 @@ decode_kernel(const Rows rows, const T* __restrict__ q,
   const auto lay = rows.at(blockIdx.z, grp.hk, C);
   decode_block<T, Gc, VEC, NC, WIDE>(
       lay, k, v, q + grp.head0, o + grp.head0,
+      lse ? lse + grp.head0 / D : nullptr,
       part_acc + grp.blk * n_split * Gc * D,
       part_ml + grp.blk * n_split * Gc * 2, counters + grp.blk, C, grp.Gw, D,
       W, scale_log2, split, n_split, smem);
@@ -778,13 +796,17 @@ cudaError_t with_group(int G, F&& f) {
 
 // Pointers and sizes of one launch: q/o [B, Hkv * G, D] (any G >= 1); k/v
 // the cache (the layout addresses it); part_acc / part_ml / counters the
-// merge scratch when n_split > 1, sized for the head groups.
+// merge scratch when n_split > 1, sized for the head groups; lse, when
+// not null, float32 [B, Hkv * G]: each head's log-sum-exp of its scaled
+// scores over the slots it attended (-1e30 where none), so that launches
+// over disjoint runs of one row's cache can be merged by the caller.
 struct Launch {
   const void *q, *k, *v;
   void *o, *part_acc, *part_ml, *counters;
   int B, Hkv, G, D, n_split;
   float scale;
   cudaStream_t stream;
+  void* lse = nullptr;
 };
 
 template <typename Rows, typename T, int VEC, int NC, bool WIDE = false>
@@ -798,7 +820,8 @@ cudaError_t launch_core(const Rows& rows, const Launch& a, int W) {
     kernel<<<dim3(a.n_split, a.Hkv * NG, a.B), kThreads, smem, a.stream>>>(
         rows, static_cast<const T*>(a.q), static_cast<const T*>(a.k),
         static_cast<const T*>(a.v), static_cast<T*>(a.o),
-        static_cast<float*>(a.part_acc), static_cast<float*>(a.part_ml),
+        static_cast<float*>(a.lse), static_cast<float*>(a.part_acc),
+        static_cast<float*>(a.part_ml),
         static_cast<int*>(a.counters), a.G, NG, a.D, W, a.scale * kLog2e);
     return cudaGetLastError();
   });
@@ -815,7 +838,8 @@ cudaError_t launch_mma(const Rows& rows, const Launch& a) {
   kernel<<<dim3(a.n_split, a.Hkv * NG, a.B), kThreads, smem, a.stream>>>(
       rows, static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
       static_cast<const bf16*>(a.v), static_cast<bf16*>(a.o),
-      static_cast<float*>(a.part_acc), static_cast<float*>(a.part_ml),
+      static_cast<float*>(a.lse), static_cast<float*>(a.part_acc),
+      static_cast<float*>(a.part_ml),
       static_cast<int*>(a.counters), a.G, NG, Gc, a.scale * kLog2e);
   return cudaGetLastError();
 }

@@ -108,7 +108,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_decode")
     fn = lib.flash_decode
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                           ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -138,15 +138,20 @@ def decode_attention(
     window: Optional[int] = None,
     scale: Optional[float] = None,
     min_split_tiles: Optional[int] = None,
-) -> torch.Tensor:
-    """One decode token over the KV cache.  Returns [B, H, D].
+    return_lse: bool = False,
+):
+    """One decode token over the KV cache.  Returns [B, H, D], and with
+    ``return_lse`` also each head's log-sum-exp float32 [B, H] (the same
+    launch writes it; ``ref.merge_lse`` merges launches over disjoint runs
+    of the cache, as a context split over ranks needs).
 
     ``min_split_tiles=None`` resolves through ``kernels.tuning`` (default
     MIN_SPLIT_TILES); the launch's split count is left in
     ``decode_attention.last_n_split``."""
-    if q.device.type == "cpu":
+    # on meta the plain version gives only its shapes (the dry-run)
+    if q.device.type in ("cpu", "meta"):
         return decode_attention_ref(q, k, v, q_pos, k_pos, window=window,
-                                    scale=scale)
+                                    scale=scale, return_lse=return_lse)
     if not q.is_cuda:
         raise ValueError(f"decode_attention: unsupported device {q.device}")
     B, H, D = q.shape
@@ -172,6 +177,8 @@ def decode_attention(
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     G = H // Hkv
     o = torch.empty_like(q)
+    lse = (torch.empty((B, H), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     n_split = _launch_splits(B, H, Hkv, D, C, q.dtype, _sm_count(q.device),
                              min_split_tiles)
     scratch = _split_scratch(B, Hkv, G, D, n_split, q.device)
@@ -179,6 +186,7 @@ def decode_attention(
     err = lib.flash_decode(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
         k_pos.data_ptr(), o.data_ptr(),
+        0 if lse is None else lse.data_ptr(),
         *(0 if t is None else t.data_ptr() for t in scratch),
         B, C, Hkv, G, D, n_split,
         -1 if window is None else int(window), float(scale),
@@ -187,7 +195,7 @@ def decode_attention(
     _build.check(lib, "flash_decode", err)
     decode_attention.launches += 1
     decode_attention.last_n_split = n_split
-    return o
+    return (o, lse) if return_lse else o
 
 
 def _launch_splits(B: int, H: int, Hkv: int, D: int, C: int,

@@ -19,7 +19,11 @@ def decode_attention_ref(
     *,
     window: Optional[int] = None,
     scale: Optional[float] = None,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
+    """``[B, H, D]``; with ``return_lse`` also each head's log-sum-exp of
+    its scaled scores over the attended slots, float32 ``[B, H]``
+    (``NEG_INF`` where none): the kernel's ``lse`` output."""
     B, H, D = q.shape
     _, C, Hkv, _ = k.shape
     G = H // Hkv
@@ -36,7 +40,25 @@ def decode_attention_ref(
     any_ok = torch.any(ok, dim=-1)[:, None, None, None]
     o = torch.einsum("bhgc,bchd->bhgd", p, v.float())
     o = torch.where(any_ok, o, torch.zeros_like(o))
-    return o.reshape(B, H, D).to(q.dtype)
+    o = o.reshape(B, H, D).to(q.dtype)
+    if not return_lse:
+        return o
+    lse = torch.where(any_ok[..., 0], torch.logsumexp(s, dim=-1),
+                      torch.full_like(s[..., 0], NEG_INF))
+    return o, lse.reshape(B, H)
+
+
+def merge_lse(o: torch.Tensor, lse: torch.Tensor, reduce) -> torch.Tensor:
+    """Merge decode outputs over disjoint runs of the same cache rows: ``o``
+    [..., B, H, D] normalised over its own run, ``lse`` [..., B, H] its
+    log-sum-exp; ``reduce(x, op)`` (op "max" or "sum") reduces over the
+    runs, which are a leading dim here or the ranks of a process group.  A
+    head no run attended gives 0, as the kernel does."""
+    m = reduce(lse, "max")
+    w = torch.exp(lse - m)
+    num = reduce(o.float() * w[..., None], "sum")
+    den = reduce(w, "sum")
+    return (num / den[..., None]).to(o.dtype)
 
 
 def decode_attention_split_ref(

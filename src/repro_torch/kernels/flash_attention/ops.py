@@ -99,7 +99,8 @@ def _lib(variant: str) -> ctypes.CDLL:
 def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              causal: bool, window: Optional[int],
              scale: Optional[float]) -> torch.Tensor:
-    if q.device.type == "cpu":
+    # on meta the plain version gives only its shapes (the dry-run)
+    if q.device.type in ("cpu", "meta"):
         return flash_attention_ref(q, k, v, causal, window, scale)
     if not q.is_cuda:
         raise ValueError(f"flash_attention: unsupported device {q.device}")

@@ -88,7 +88,8 @@ def paged_decode_attention(
     P, page, Hkv, _ = k_pages.shape
     # scale from the TRUE head dim
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
-    if q.device.type == "cpu":
+    # on meta the plain version gives only its shapes (the dry-run)
+    if q.device.type in ("cpu", "meta"):
         return paged_decode_attention_ref(
             q, k_pages, v_pages, torch.clamp(block_tables, 0, P - 1),
             lengths, window=window, scale=scale)

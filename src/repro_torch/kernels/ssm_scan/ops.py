@@ -75,7 +75,8 @@ def _scan_flat(q, k, v, ig, fg, chunk: int, return_state: bool = False):
     """The CUDA-core kernel (or, on the CPU, the plain version) on the flat
     layout: q/k/v [BH, S, D], ig/fg [BH, S] float32, S a chunk multiple ->
     h [BH, S, D] (and the final carry)."""
-    if q.device.type == "cpu":
+    # on meta the plain version gives only its shapes (the dry-run)
+    if q.device.type in ("cpu", "meta"):
         return mlstm_chunkwise_ref(q, k, v, ig, fg, chunk, return_state)
     if not q.is_cuda:
         raise ValueError(f"mlstm_scan: unsupported device {q.device}")

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -126,3 +126,56 @@ def get_model(cfg: ModelConfig):
         from . import whisper
         return whisper
     raise ValueError(f"unknown family {cfg.family!r}")
+
+
+# --------------------------------------------------------------- input specs
+# Shape-only stand-ins, the port's counterpart of ``jax.eval_shape``: meta
+# tensors with the reference's keys, shapes and dtypes (no allocation).
+_META = torch.device("meta")
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device=_META)
+
+
+def train_input_specs(cfg: ModelConfig, *, batch: int, seq_len: int
+                      ) -> Dict[str, torch.Tensor]:
+    """Meta stand-ins for one GRPO train step.
+
+    tokens/loss_mask cover the full packed sequence; ``advantages`` are
+    per-sequence (GRPO group-normalized), ``behavior_logp`` per token from
+    the rollout policy (staleness-decoupled objective).
+    """
+    f = cfg.tdtype
+    specs = {
+        "tokens": _meta((batch, seq_len), torch.int32),
+        "loss_mask": _meta((batch, seq_len), f),
+        "advantages": _meta((batch,), torch.float32),
+        "behavior_logp": _meta((batch, seq_len), torch.float32),
+    }
+    if cfg.family == "encdec":
+        specs["frames"] = _meta((batch, cfg.encoder_seq, cfg.enc_dim), f)
+    if cfg.family == "vlm":
+        specs["patches"] = _meta((batch, cfg.encoder_seq, cfg.enc_dim), f)
+    return specs
+
+
+def decode_input_specs(cfg: ModelConfig, *, batch: int, ctx_len: int
+                       ) -> Dict[str, torch.Tensor]:
+    """Stand-ins for one ``serve_step`` (one new token, KV cache of ctx_len)."""
+    return {
+        "token": _meta((batch,), torch.int32),
+        "pos": _meta((batch,), torch.int32),
+    }
+
+
+def cache_specs(cfg: ModelConfig, *, batch: int, ctx_len: int
+                ) -> Dict[str, torch.Tensor]:
+    """The decode cache on the meta device (model-specific)."""
+    return get_model(cfg).init_cache(cfg, batch=batch, max_len=ctx_len,
+                                     device=_META)
+
+
+def param_specs(cfg: ModelConfig):
+    """The parameter tree (``Params``) on the meta device."""
+    return get_model(cfg).init(0, cfg, device=_META)

@@ -19,6 +19,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.parallel import local as _local
+
 Tensor = torch.Tensor
 
 
@@ -137,13 +139,20 @@ def attention(
     the reference assumes under ``use_pallas``): on a CUDA tensor with
     Sq > 1 and no ``kv_len`` that runs the flash kernel (``flash_route``).
     """
+    if _local.is_dt(q):
+        # a sharded step: each rank attends its local rows and heads
+        return _attention_local(
+            q, k, v, q_positions=q_positions, k_positions=k_positions,
+            causal=causal, window=window, kv_len=kv_len, q_chunk=q_chunk,
+            kv_chunk=kv_chunk, scale=scale,
+            contiguous_positions=contiguous_positions)
     B, Sq, H, D = q.shape
     _, Sk, Hkv, _ = k.shape
     assert H % Hkv == 0, (H, Hkv)
     G = H // Hkv
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
 
-    if flash_route(q.is_cuda, Sq, kv_len, contiguous_positions):
+    if flash_route(q.is_cuda or q.is_meta, Sq, kv_len, contiguous_positions):
         from repro_torch.kernels.flash_attention.ops import flash_attention
         return flash_attention(q, k, v, causal, window, scale)
 
@@ -212,11 +221,35 @@ def attention(
     return out.to(q.dtype)
 
 
+def _attention_local(q, k, v, *, q_positions, k_positions, kv_len, **kw):
+    """``attention`` on DTensors, through ``parallel.local.local``: batch
+    over the data axes, and heads over "model" when both H and Hkv divide
+    it (GQA keeps each q head with its kv head), else replicated."""
+    mesh = q.device_mesh
+    H, Hkv = q.shape[2], k.shape[2]
+    m = _local.model_size(mesh)
+    heads = 2 if H % m == 0 and Hkv % m == 0 else None
+    qkv = _local.batch_heads(mesh, q.shape, heads)
+    rows = _local.batch_heads(mesh, q.shape, None)
+    args = [q, k, v, _local.to_mesh(q_positions, q),
+            _local.to_mesh(k_positions, q)]
+    pl = [qkv, qkv, qkv, rows, rows]
+    if kv_len is not None:
+        args.append(_local.to_mesh(kv_len, q))
+        pl.append(rows)
+
+    def body(q, k, v, qp, kp, kl=None):
+        q, k, v = _local.contiguous(q, k, v)
+        return attention(q, k, v, q_positions=qp, k_positions=kp,
+                         kv_len=kl, **kw)
+
+    return _local.local(body, qkv, tuple(pl), *args)
+
+
 # --------------------------------------------------------------- projections
 def qkv_project(x: Tensor, p, n_heads: int, n_kv_heads: int,
                 head_dim: int) -> Tuple[Tensor, Tensor, Tensor]:
     """x: [B,S,Dm] -> q [B,S,H,D], k/v [B,S,Hkv,D].  Optional biases."""
-    B, S, _ = x.shape
     q = x @ p["wq"]
     k = x @ p["wk"]
     v = x @ p["wv"]
@@ -224,15 +257,14 @@ def qkv_project(x: Tensor, p, n_heads: int, n_kv_heads: int,
         q = q + p["bq"].to(q.dtype)
         k = k + p["bk"].to(k.dtype)
         v = v + p["bv"].to(v.dtype)
-    q = q.reshape(B, S, n_heads, head_dim)
-    k = k.reshape(B, S, n_kv_heads, head_dim)
-    v = v.reshape(B, S, n_kv_heads, head_dim)
+    q = _local.split_last(q, n_heads, head_dim)
+    k = _local.split_last(k, n_kv_heads, head_dim)
+    v = _local.split_last(v, n_kv_heads, head_dim)
     return q, k, v
 
 
 def out_project(o: Tensor, p) -> Tensor:
-    B, S, H, D = o.shape
-    return o.reshape(B, S, H * D) @ p["wo"]
+    return _local.merge_last(o) @ p["wo"]
 
 
 def swiglu(x: Tensor, p) -> Tensor:

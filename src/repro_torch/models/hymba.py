@@ -28,7 +28,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
-from repro_torch.kernels.decode_attention.ops import decode_attention
+from repro_torch.parallel import local as _local
 from . import blocks, transformer
 from .api import ModelConfig
 from .params import Params, layer_views
@@ -149,7 +149,7 @@ def _prompt_layer(h: Tensor, lp: Dict, positions: Tensor, h0: Tensor,
                          kv_chunk=cfg.kv_chunk, contiguous_positions=True)
     attn_y = blocks.out_project(o, lp["attn"])
     xin, dt, A, Bm, Cm = _ssm_inputs(lp, x)
-    y, hs = ssm_chunkwise(xin, dt, A, Bm, Cm, lp["Dskip"], h0)
+    y, hs = _local.ssm(ssm_chunkwise, xin, dt, A, Bm, Cm, lp["Dskip"], h0)
     ssm_y = y.to(x.dtype) @ lp["ssm_out"]
     return _fuse(h, lp, attn_y, ssm_y, cfg), k, v, hs
 
@@ -158,7 +158,7 @@ def forward(params: Params, cfg: ModelConfig, tokens: Tensor,
             **_) -> Tensor:
     """Training forward: tokens [B, S] -> logits [B, S, padded_vocab]."""
     B, S = tokens.shape
-    h = F.embedding(tokens, params["embed"])
+    h = _local.embed(tokens, params["embed"])
     positions = transformer._positions(B, S, tokens.device)
     h0 = torch.zeros((B, cfg.d_model, cfg.ssm_state), dtype=torch.float32,
                      device=tokens.device)
@@ -196,9 +196,10 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Dict[str, Tensor],
     B = token.shape[0]
     W = cache["k"].shape[2]
     pos = pos.to(torch.int32)
-    flat = torch.arange(B, device=pos.device) * W + (pos % W).long()
-    cache["k_pos"].view(-1).index_copy_(0, flat, pos)
-    h = F.embedding(token[:, None].long(), params["embed"])      # [B,1,d]
+    slot = pos % W
+    flat = torch.arange(B, device=pos.device) * W + slot.long()
+    _local.write_rows(cache["k_pos"], slot, pos, flat)
+    h = _local.embed(token[:, None].long(), params["embed"])     # [B,1,d]
     positions = pos[:, None]
     Hkv, D = cfg.n_kv_heads, cfg.hd
     for i, lp in enumerate(layer_views(params)):
@@ -208,15 +209,15 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Dict[str, Tensor],
         q = blocks.apply_rope(q, positions, cfg.rope_theta)
         k = blocks.apply_rope(k, positions, cfg.rope_theta)
         ck, cv = cache["k"][i], cache["v"][i]
-        ck.view(B * W, Hkv, D).index_copy_(0, flat, k[:, 0].to(ck.dtype))
-        cv.view(B * W, Hkv, D).index_copy_(0, flat, v[:, 0].to(cv.dtype))
-        o = decode_attention(q[:, 0], ck, cv, pos, cache["k_pos"],
-                             window=cfg.attn_window)[:, None]
+        _local.write_rows(ck, slot, k[:, 0], flat)
+        _local.write_rows(cv, slot, v[:, 0], flat)
+        o = _local.decode_attention(q[:, 0], ck, cv, pos, cache["k_pos"],
+                                    window=cfg.attn_window)[:, None]
         attn_y = blocks.out_project(o, lp["attn"])
         xin, dt, A, Bm, Cm = _ssm_inputs(lp, x)
-        y, hs = ssm_step(xin[:, 0], dt[:, 0], A, Bm[:, 0], Cm[:, 0],
-                         lp["Dskip"], cache["ssm"][i])
-        cache["ssm"][i].copy_(hs)
+        y, hs = _local.ssm(ssm_step, xin[:, 0], dt[:, 0], A, Bm[:, 0],
+                           Cm[:, 0], lp["Dskip"], cache["ssm"][i])
+        _local.copy_state(cache["ssm"][i], hs)
         ssm_y = (y.to(x.dtype) @ lp["ssm_out"])[:, None]
         h = _fuse(h, lp, attn_y, ssm_y, cfg)
     return transformer.unembed(params, cfg, h[:, 0]), cache
@@ -228,15 +229,17 @@ def prefill(params: Params, cfg: ModelConfig, tokens: Tensor, *,
     logits, cache): the last W positions' K/V at their ring slots and
     each layer's final SSM state."""
     B, S = tokens.shape
-    cache = init_cache(cfg, batch=B, max_len=max_len, device=tokens.device)
+    cache = _local.place_cache(
+        init_cache(cfg, batch=B, max_len=max_len, device=tokens.device),
+        cfg, tokens)
     W = cache["k"].shape[2]
-    h = F.embedding(tokens, params["embed"])
+    h = _local.embed(tokens, params["embed"])
     positions = transformer._positions(B, S, tokens.device)
     slots, keep = transformer.ring_slots(S, W, tokens.device)
     for i, lp in enumerate(layer_views(params)):
         h, k, v, hs = _prompt_layer(h, lp, positions, cache["ssm"][i], cfg)
-        cache["k"][i].index_copy_(1, slots, k[:, keep].to(cache["k"].dtype))
-        cache["v"][i].index_copy_(1, slots, v[:, keep].to(cache["v"].dtype))
-        cache["ssm"][i].copy_(hs)
-    cache["k_pos"].index_copy_(1, slots, positions[:, keep].contiguous())
+        _local.write_slots(cache["k"][i], slots, k[:, keep])
+        _local.write_slots(cache["v"][i], slots, v[:, keep])
+        _local.copy_state(cache["ssm"][i], hs)
+    _local.write_slots(cache["k_pos"], slots, positions[:, keep].contiguous())
     return transformer.unembed(params, cfg, h[:, -1]), cache

@@ -15,10 +15,13 @@ qwen3-moe, so most choices drop).
 
 The reference lowers dispatch and combine as one-hot einsums over
 ``[g, c, E, C]`` (a TPU lowering device); the port computes the same
-function by index: each kept choice's token is gathered into its
-``[E, G*C, d]`` slot, the expert GEMMs run batched over E
-(``torch.bmm``), and the gate-weighted outputs are scatter-added back
-(``index_add_``).  ``moe_fused_combine`` only reorders that contraction
+function by index, in static shapes: each choice's token is gathered
+into its ``[E, G*C, d]`` slot (a dropped choice into a discard slot past
+the buffer), the expert GEMMs run batched over E (``torch.bmm``), and
+the gate-weighted outputs are scatter-added back (``index_add_``; a
+dropped choice adds a zero row).  On DTensors each rank
+runs its own experts on its local rows and the ranks' outputs are summed
+(``_sharded``).  ``moe_fused_combine`` only reorders that contraction
 in the reference (for a TP all-reduce); here it means the combine runs in
 the activation dtype.
 
@@ -32,11 +35,12 @@ same function.
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.parallel import local as _local
 from . import blocks, transformer
 from .api import ModelConfig
 from .params import Params
@@ -97,29 +101,46 @@ def route(x: Tensor, lp: Dict, cfg: ModelConfig, capacity: int
     return expert, top_vals.transpose(1, 2), pos, pos < capacity
 
 
-def _route_groups(x: Tensor, lp: Dict, cfg: ModelConfig,
-                  capacity: int) -> Tensor:
+def _route_groups(x: Tensor, lp: Dict, cfg: ModelConfig, capacity: int,
+                  experts: Optional[Dict] = None, e_off: int = 0) -> Tensor:
     """x [G, c, d] -> y [G, c, d]: dispatch every kept choice to its
-    expert slot, run the experts, combine with the gates."""
+    expert slot, run the experts, combine with the gates.
+
+    Static shapes throughout: every choice has a slot, a dropped one a
+    discard row past the ``[E, G, C]`` input buffer, and it adds a zero
+    row to the output.  ``experts`` (default ``lp``'s) may be
+    the ``E_l`` experts ``e_off..e_off+E_l-1`` of a rank: choices of the
+    others are dropped here, and the ranks' outputs sum to the whole."""
     G, c, d = x.shape
-    E, k = cfg.n_experts, cfg.top_k
+    k = cfg.top_k
+    w = lp["experts"] if experts is None else experts
+    E = w["w_gate"].shape[0]
     expert, gate, pos, keep = route(x, lp, cfg, capacity)
+    expert = expert - e_off
+    keep = keep & (expert >= 0) & (expert < E)
     g_idx = torch.arange(G, device=x.device)[:, None, None].expand(G, k, c)
     t_idx = torch.arange(c, device=x.device)[None, None, :].expand(G, k, c)
-    keep = keep.reshape(-1)
-    token = (g_idx * c + t_idx).reshape(-1)[keep]                # [n_kept]
-    # slot of each kept choice in the [E, G, C] expert buffer
-    slot = ((expert * G + g_idx) * capacity + pos).reshape(-1)[keep]
-    xe = x.new_zeros((E * G * capacity, d)).index_put(
+    token = (g_idx * c + t_idx).reshape(-1)                      # [G*k*c]
+    # slot of each choice in the [E, G, C] expert buffer (+ the discard)
+    n_slot = E * G * capacity
+    slot = torch.where(keep, (expert * G + g_idx) * capacity + pos,
+                       n_slot).reshape(-1)
+    xe = x.new_zeros((n_slot + 1, d)).index_put(
         (slot,), x.reshape(G * c, d)[token])
-    xe = xe.reshape(E, G * capacity, d)
-    w = lp["experts"]
+    xe = xe[:n_slot].reshape(E, G * capacity, d)
     h = (F.silu(torch.bmm(xe, w["w_gate"]).float()).to(x.dtype)
          * torch.bmm(xe, w["w_up"]))
-    ye = torch.bmm(h, w["w_down"]).reshape(E * G * capacity, d)
+    ye = torch.bmm(h, w["w_down"]).reshape(n_slot, d)
     cdt = (torch.float32 if cfg.moe_comb_f32 and not cfg.moe_fused_combine
            else x.dtype)
-    contrib = ye[slot].to(cdt) * gate.reshape(-1)[keep].to(cdt)[:, None]
+    # a dropped choice reads some slot and adds a zero row; the slots it
+    # reads are spread over the buffer, since the gather's backward
+    # (a sorted scatter-add) runs the duplicates of one index serially
+    keep = keep.reshape(-1)
+    spread = torch.arange(slot.numel(), device=x.device) % n_slot
+    contrib = (ye[torch.where(keep, slot, spread)].to(cdt)
+               * gate.reshape(-1).to(cdt)[:, None])
+    contrib = torch.where(keep[:, None], contrib, 0.0)
     y = x.new_zeros((G * c, d), dtype=cdt).index_add(0, token, contrib)
     return y.to(x.dtype).reshape(G, c, d)
 
@@ -129,9 +150,12 @@ def _capacity(group: int, cfg: ModelConfig) -> int:
                                 / cfg.n_experts)))
 
 
-def moe_ffn(x: Tensor, lp: Dict, cfg: ModelConfig) -> Tensor:
+def moe_ffn(x: Tensor, lp: Dict, cfg: ModelConfig, experts=None,
+            e_off: int = 0) -> Tensor:
     """x [B, S, d] -> [B, S, d], routed in groups of ``cfg.moe_group``
     tokens (``min(moe_group, B*S)``; the last one zero-padded)."""
+    if _local.is_dt(x):
+        return _sharded(moe_ffn, x, lp, cfg)
     B, S, d = x.shape
     n_tok = B * S
     group = min(cfg.moe_group, n_tok)
@@ -141,15 +165,57 @@ def moe_ffn(x: Tensor, lp: Dict, cfg: ModelConfig) -> Tensor:
         xf = F.pad(xf, (0, 0, 0, pad))
     G = xf.shape[0] // group
     y = _route_groups(xf.reshape(G, group, d), lp, cfg,
-                      _capacity(group, cfg))
+                      _capacity(group, cfg), experts, e_off)
     return y.reshape(G * group, d)[:n_tok].reshape(B, S, d)
 
 
-def decode_ffn(x: Tensor, lp: Dict, cfg: ModelConfig) -> Tensor:
+def decode_ffn(x: Tensor, lp: Dict, cfg: ModelConfig, experts=None,
+               e_off: int = 0) -> Tensor:
     """One decode token per row, x [B, 1, d]: the B tokens are one group."""
+    if _local.is_dt(x):
+        return _sharded(decode_ffn, x, lp, cfg)
     B = x.shape[0]
-    return _route_groups(x[:, 0][None], lp, cfg,
-                         _capacity(B, cfg))[0][:, None]
+    return _route_groups(x[:, 0][None], lp, cfg, _capacity(B, cfg),
+                         experts, e_off)[0][:, None]
+
+
+def _sharded(ffn, x: Tensor, lp: Dict, cfg: ModelConfig) -> Tensor:
+    """``ffn`` on DTensors, per rank (``parallel.local.local``): each rank
+    routes its local rows (groups form within a data shard) over every
+    expert and runs its own experts (``moe_shard="expert"``: E over
+    "model") or its slice of every expert's FFN (``"ff"``: f over
+    "model"); the ranks' partial outputs are summed over "model".
+    Other splits of the expert weights (FSDP's) are gathered."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = x.device_mesh
+    w = lp["experts"]
+    keep_dim = {"w_gate": 0, "w_up": 0, "w_down": 0} \
+        if cfg.moe_shard == "expert" else {"w_gate": 2, "w_up": 2,
+                                           "w_down": 1}
+    names = tuple(mesh.mesh_dim_names)
+    mdl = names.index("model") if "model" in names else None
+
+    def wpl(name):
+        return tuple(p if (i == mdl and isinstance(p, Shard)
+                           and p.dim == keep_dim[name]) else Replicate()
+                     for i, p in enumerate(w[name].placements))
+
+    rows = _local.dim_placements(mesh, {0: ("pod", "data")}, x.shape)
+    split = mdl is not None and isinstance(wpl("w_gate")[mdl], Shard)
+    out = tuple(Partial("sum") if split and i == mdl else p
+                for i, p in enumerate(rows))
+    ep = cfg.moe_shard == "expert"
+
+    def body(x, router, wg, wu, wd):
+        e_off = (_local._offset(mesh, [mdl], wg.shape[0])
+                 if split and ep else 0)
+        return ffn(x, {"router": router}, cfg,
+                   {"w_gate": wg, "w_up": wu, "w_down": wd}, e_off)
+
+    return _local.settle(_local.local(
+        body, out, (rows, _local.replicate(mesh), wpl("w_gate"),
+                    wpl("w_up"), wpl("w_down")),
+        x, lp["router"], w["w_gate"], w["w_up"], w["w_down"]))
 
 
 # ------------------------------------------------- forward / prefill / decode

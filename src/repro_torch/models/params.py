@@ -62,7 +62,8 @@ def tree_leaves(tree: Any) -> list:
 def _unbind(tree: Any) -> Any:
     if isinstance(tree, Params):
         return {k: _unbind(tree[k]) for k in tree.keys()}
-    return tree.unbind(0)
+    from repro_torch.parallel.local import replicate_dim
+    return replicate_dim(tree, 0).unbind(0)
 
 
 def _pick(parts: Any, i: int) -> Any:

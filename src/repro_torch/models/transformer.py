@@ -22,7 +22,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
-from repro_torch.kernels.decode_attention.ops import decode_attention
+from repro_torch.parallel import local as _local
 from . import blocks
 from .api import ModelConfig
 from .params import Params, layer_views
@@ -53,11 +53,25 @@ def _stack(trees):
     return torch.stack(trees)
 
 
+class _MetaGenerator(torch.Generator):
+    """A CPU generator that reports the meta device: ``init`` then builds
+    every tensor on meta, where the draws it is passed to are no-ops."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
+
+
 def generator(seed: Union[int, torch.Generator],
               device=None) -> torch.Generator:
+    """The init generator on ``device``.  On ``"meta"`` it builds the
+    parameter tree's shapes and dtypes and draws nothing."""
     if isinstance(seed, torch.Generator):
         return seed
-    return torch.Generator(device=resolve_device(device)).manual_seed(seed)
+    dev = resolve_device(device)
+    if dev.type == "meta":
+        return _MetaGenerator("cpu").manual_seed(seed)
+    return torch.Generator(device=dev).manual_seed(seed)
 
 
 def init_lm(gen: torch.Generator, cfg: ModelConfig, init_layer) -> Dict:
@@ -127,7 +141,7 @@ def _prompt_layer(h: Tensor, lp: Dict, positions: Tensor, cfg: ModelConfig,
 
 def embed_inputs(params: Params, cfg: ModelConfig, tokens: Tensor,
                  patches: Optional[Tensor] = None) -> Tensor:
-    h = F.embedding(tokens, params["embed"])
+    h = _local.embed(tokens, params["embed"])
     if cfg.family == "vlm" and patches is not None:
         proj = patches.to(cfg.tdtype) @ params["patch_proj"]
         h = torch.cat([proj, h[:, patches.shape[1]:]], dim=1)
@@ -206,17 +220,17 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Dict[str, Tensor],
     slot = (pos % C) if ring else torch.clamp(pos, max=C - 1)
     # row-major [B, C] flat index of each row's write slot
     flat = torch.arange(B, device=pos.device) * C + slot.long()
-    cache["k_pos"].view(-1).index_copy_(0, flat, pos)
+    _local.write_rows(cache["k_pos"], slot, pos, flat)
     h = embed_inputs(params, cfg, token[:, None])             # [B,1,D]
     positions = pos[:, None]                                  # [B,1]
     Hkv, D = cfg.n_kv_heads, cfg.hd
     for i, lp in enumerate(layer_views(params)):
         q, k, v = _qkv(h, lp, positions, cfg)
         ck, cv = cache["k"][i], cache["v"][i]                 # [B,C,Hkv,D]
-        ck.view(B * C, Hkv, D).index_copy_(0, flat, k[:, 0].to(ck.dtype))
-        cv.view(B * C, Hkv, D).index_copy_(0, flat, v[:, 0].to(cv.dtype))
-        o = decode_attention(q[:, 0], ck, cv, pos, cache["k_pos"],
-                             window=cfg.attn_window)[:, None]
+        _local.write_rows(ck, slot, k[:, 0], flat)
+        _local.write_rows(cv, slot, v[:, 0], flat)
+        o = _local.decode_attention(q[:, 0], ck, cv, pos, cache["k_pos"],
+                                    window=cfg.attn_window)[:, None]
         h = h + blocks.out_project(o, lp["attn"])
         h = _ffn_block(h, lp, cfg, ffn)
     logits = unembed(params, cfg, h[:, 0])
@@ -242,14 +256,16 @@ def prefill(params: Params, cfg: ModelConfig, tokens: Tensor, *,
     """
     B, S = tokens.shape
     C = cache_len(cfg, max_len)
-    cache = init_cache(cfg, batch=B, max_len=max_len, device=tokens.device)
+    cache = _local.place_cache(
+        init_cache(cfg, batch=B, max_len=max_len, device=tokens.device),
+        cfg, tokens)
     h = embed_inputs(params, cfg, tokens, patches)
     positions = _positions(B, S, tokens.device)
     slots, keep = ring_slots(S, C, tokens.device)
     for i, lp in enumerate(layer_views(params)):
         h, k, v = _prompt_layer(h, lp, positions, cfg, ffn)
-        cache["k"][i].index_copy_(1, slots, k[:, keep].to(cache["k"].dtype))
-        cache["v"][i].index_copy_(1, slots, v[:, keep].to(cache["v"].dtype))
-    cache["k_pos"].index_copy_(1, slots, positions[:, keep].contiguous())
+        _local.write_slots(cache["k"][i], slots, k[:, keep])
+        _local.write_slots(cache["v"][i], slots, v[:, keep])
+    _local.write_slots(cache["k_pos"], slots, positions[:, keep].contiguous())
     logits = unembed(params, cfg, h[:, -1])
     return logits, cache

@@ -36,7 +36,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
-from repro_torch.kernels.decode_attention.ops import decode_attention
+from repro_torch.parallel import local as _local
 from . import blocks, transformer
 from .api import ModelConfig
 from .params import Params, layer_views
@@ -155,14 +155,13 @@ def encode(params: Params, cfg: ModelConfig, frames: Tensor) -> Tensor:
 
 # ------------------------------------------------------------------- decoder
 def _cross_kv(lp: Dict, enc: Tensor, cfg: ModelConfig) -> Tuple[Tensor, Tensor]:
-    B, Se, _ = enc.shape
     k = enc @ lp["cross"]["wk"]
     v = enc @ lp["cross"]["wv"]
     if "bk" in lp["cross"]:
         k = k + lp["cross"]["bk"].to(k.dtype)
         v = v + lp["cross"]["bv"].to(v.dtype)
-    return (k.reshape(B, Se, cfg.n_kv_heads, cfg.hd),
-            v.reshape(B, Se, cfg.n_kv_heads, cfg.hd))
+    return (_local.split_last(k, cfg.n_kv_heads, cfg.hd),
+            _local.split_last(v, cfg.n_kv_heads, cfg.hd))
 
 
 def _dec_layer(h: Tensor, lp: Dict, enc: Tensor, cfg: ModelConfig):
@@ -182,7 +181,7 @@ def _dec_layer(h: Tensor, lp: Dict, enc: Tensor, cfg: ModelConfig):
 
 def _embed(params: Params, tokens: Tensor, table: Tensor) -> Tensor:
     """Token embeddings plus the rows of position table ``table``."""
-    h = F.embedding(tokens, params["embed"])
+    h = _local.embed(tokens, params["embed"])
     return h + table.to(h.dtype)
 
 
@@ -238,9 +237,9 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Dict[str, Tensor],
     C = cache["k"].shape[2]
     Se = cache["xk"].shape[2]
     pos = pos.to(torch.int32)
-    flat = (torch.arange(B, device=pos.device) * C
-            + torch.clamp(pos, max=C - 1).long())
-    cache["k_pos"].view(-1).index_copy_(0, flat, pos)
+    slot = torch.clamp(pos, max=C - 1)
+    flat = torch.arange(B, device=pos.device) * C + slot.long()
+    _local.write_rows(cache["k_pos"], slot, pos, flat)
     h = _embed(params, token[:, None].long(),
                sinusoid_rows(torch.clamp(pos, max=C - 1), cfg.d_model)[:, None])
     # cross-attention: every frame visible to a query at position Se - 1
@@ -253,15 +252,16 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Dict[str, Tensor],
         q, k, v = blocks.qkv_project(x, lp["attn"], cfg.n_heads,
                                      cfg.n_kv_heads, cfg.hd)
         ck, cv = cache["k"][i], cache["v"][i]
-        ck.view(B * C, Hkv, D).index_copy_(0, flat, k[:, 0].to(ck.dtype))
-        cv.view(B * C, Hkv, D).index_copy_(0, flat, v[:, 0].to(cv.dtype))
-        o = decode_attention(q[:, 0], ck, cv, pos, cache["k_pos"])[:, None]
+        _local.write_rows(ck, slot, k[:, 0], flat)
+        _local.write_rows(cv, slot, v[:, 0], flat)
+        o = _local.decode_attention(q[:, 0], ck, cv, pos,
+                                    cache["k_pos"])[:, None]
         h = h + blocks.out_project(o, lp["attn"])
         x = _norm(h, lp, "cross_norm", cfg)
         qc, _, _ = blocks.qkv_project(x, lp["cross"], cfg.n_heads,
                                       cfg.n_kv_heads, cfg.hd)
-        oc = decode_attention(qc[:, 0], cache["xk"][i], cache["xv"][i],
-                              x_qpos, x_kpos)[:, None]
+        oc = _local.decode_attention(qc[:, 0], cache["xk"][i],
+                                     cache["xv"][i], x_qpos, x_kpos)[:, None]
         h = h + blocks.out_project(oc, lp["cross"])
         h = _mlp(h, lp, cfg)
     return _unembed(params, cfg, h[:, 0]), cache
@@ -276,7 +276,9 @@ def prefill(params: Params, cfg: ModelConfig, tokens: Tensor, *,
     if frames is None:
         raise AssertionError("whisper prefill requires frames")
     enc = encode(params, cfg, frames)
-    cache = init_cache(cfg, batch=B, max_len=max_len, device=tokens.device)
+    cache = _local.place_cache(
+        init_cache(cfg, batch=B, max_len=max_len, device=tokens.device),
+        cfg, tokens)
     h = _embed(params, tokens, sinusoids(S, cfg.d_model, tokens.device)[None])
     for i, lp in enumerate(layer_views(params)):
         h, k, v, kc, vc = _dec_layer(h, lp, enc, cfg)

@@ -28,7 +28,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ssm_scan.ops import mlstm_scan
 from repro_torch.kernels.ssm_scan.ref import log_sigmoid
-from . import blocks
+from repro_torch.parallel import local as _local
+from . import blocks, transformer
 from .api import ModelConfig
 from .params import Params, layer_views
 
@@ -84,10 +85,7 @@ def init(seed: Union[int, torch.Generator], cfg: ModelConfig,
          device=None) -> Params:
     """Random-init parameters with the reference's names and shapes (not
     its draws: tests carry JAX params over with ``params_from_jax``)."""
-    if isinstance(seed, torch.Generator):
-        gen = seed
-    else:
-        gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
+    gen = transformer.generator(seed, device)
     dt, dev = cfg.tdtype, gen.device
     layers = [_init_layer(gen, cfg) for _ in range(cfg.n_layers)]
     params = {
@@ -104,11 +102,10 @@ def init(seed: Union[int, torch.Generator], cfg: ModelConfig,
 
 # ------------------------------------------------------------------- forward
 def _project(lp: Dict, x: Tensor, cfg: ModelConfig):
-    B, S, _ = x.shape
     H, D = cfg.n_heads, cfg.hd
-    q = (x @ lp["wq"]).reshape(B, S, H, D)
-    k = (x @ lp["wk"]).reshape(B, S, H, D)
-    v = (x @ lp["wv"]).reshape(B, S, H, D)
+    q = _local.split_last(x @ lp["wq"], H, D)
+    k = _local.split_last(x @ lp["wk"], H, D)
+    v = _local.split_last(x @ lp["wv"], H, D)
     gif = x.float() @ lp["w_if"] + lp["b_if"]
     ig, fg = torch.chunk(gif, 2, dim=-1)                   # [B, S, H] each
     return q, k, v, ig, fg
@@ -118,8 +115,7 @@ def _mix(lp: Dict, h: Tensor, x: Tensor, o: Tensor,
          cfg: ModelConfig) -> Tensor:
     """Output gate, out projection and residual around the mLSTM output
     ``o`` [B, S, H, D]."""
-    B, S = x.shape[:2]
-    o = o.reshape(B, S, cfg.d_model).to(x.dtype)
+    o = _local.merge_last(o).to(x.dtype)
     gate = F.silu((x @ lp["w_gate"]).float()).to(x.dtype)
     return h + (o * gate) @ lp["w_out"]
 
@@ -128,7 +124,7 @@ def _layer_fwd(lp: Dict, h: Tensor, cfg: ModelConfig) -> Tensor:
     x = blocks.rms_norm(h, lp["norm"], cfg.norm_eps)
     q, k, v, ig, fg = _project(lp, x, cfg)
     # chunk=None -> the tuned table (kernels.tuning), 64 by default
-    return _mix(lp, h, x, mlstm_scan(q, k, v, ig, fg), cfg)
+    return _mix(lp, h, x, _local.scan(mlstm_scan, q, k, v, ig, fg), cfg)
 
 
 def _unembed(params: Params, cfg: ModelConfig, h: Tensor) -> Tensor:
@@ -140,7 +136,7 @@ def _unembed(params: Params, cfg: ModelConfig, h: Tensor) -> Tensor:
 def forward(params: Params, cfg: ModelConfig, tokens: Tensor,
             **_) -> Tensor:
     """Training forward: tokens [B, S] -> logits [B, S, padded_vocab]."""
-    h = F.embedding(tokens, params["embed"])
+    h = _local.embed(tokens, params["embed"])
     remat = cfg.remat and torch.is_grad_enabled()
     for lp in layer_views(params):
         if remat:
@@ -167,7 +163,7 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Dict[str, Tensor],
     """One token per row: token [B] -> (logits [B, padded_vocab], cache),
     the recurrent state updated in place.  ``pos`` is unused (the state
     carries the history), as in the reference."""
-    h = F.embedding(token[:, None].long(), params["embed"])     # [B, 1, d]
+    h = _local.embed(token[:, None].long(), params["embed"])    # [B, 1, d]
     for i, lp in enumerate(layer_views(params)):
         x = blocks.rms_norm(h, lp["norm"], cfg.norm_eps)
         q, k, v, ig, fg = _project(lp, x, cfg)
@@ -185,15 +181,18 @@ def prefill(params: Params, cfg: ModelConfig, tokens: Tensor, *,
     over chunks of ``CHUNK`` (padded as the reference pads), which also
     returns the layer's final carry."""
     B, S = tokens.shape
-    h = F.embedding(tokens, params["embed"])
-    cache = init_cache(cfg, batch=B, max_len=max_len, device=tokens.device)
+    h = _local.embed(tokens, params["embed"])
+    cache = _local.place_cache(
+        init_cache(cfg, batch=B, max_len=max_len, device=tokens.device),
+        cfg, tokens)
     for i, lp in enumerate(layer_views(params)):
         x = blocks.rms_norm(h, lp["norm"], cfg.norm_eps)
         q, k, v, ig, fg = _project(lp, x, cfg)
-        o, (C, n, m) = mlstm_scan(q, k, v, ig, fg, chunk=CHUNK,
-                                  return_state=True)
-        cache["C"][i].copy_(C)
-        cache["n"][i].copy_(n)
-        cache["m"][i].copy_(m)
+        o, (C, n, m) = _local.scan(
+            lambda *a: mlstm_scan(*a, chunk=CHUNK, return_state=True),
+            q, k, v, ig, fg, n_out=4)
+        _local.copy_state(cache["C"][i], C)
+        _local.copy_state(cache["n"][i], n)
+        _local.copy_state(cache["m"][i], m)
         h = _mix(lp, h, x, o, cfg)
     return _unembed(params, cfg, h[:, -1]), cache

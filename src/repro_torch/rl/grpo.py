@@ -20,6 +20,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.api import ModelConfig, get_model
+from repro_torch.parallel import local as _local
 from repro_torch.optim.adamw import (AdamWConfig, adamw_update,
                                      named_leaves)
 
@@ -41,7 +42,10 @@ def group_advantages(rewards: np.ndarray, group_ids: np.ndarray,
 
 # ------------------------------------------------------------------- loss
 def token_logp_from_logits(logits: Tensor, targets: Tensor) -> Tensor:
-    """log p(target) per position, float32.  logits [B,S,V], targets [B,S]."""
+    """log p(target) per position, float32.  logits [B,S,V], targets [B,S].
+    Sharded logits take the vocab-parallel form (``parallel.local``)."""
+    if _local.is_dt(logits):
+        return _local.vocab_logp(logits, targets)
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)
     tgt = torch.gather(lf, -1, targets[..., None].long())[..., 0]
@@ -177,3 +181,23 @@ def _chunked_grpo_loss(model, params, cfg: ModelConfig, batch: Dict,
     one = torch.ones((), device=h.device)
     return loss, {"loss": loss.detach(), "mean_ratio": one,
                   "clip_frac": 0.0 * one, "entropy_proxy": 0.0 * one}
+
+
+def make_serve_step(cfg: ModelConfig) -> Callable:
+    """serve_step(params, cache, token, pos) -> (logits, cache) — one decode
+    token for the whole batch (what decode_* shapes run)."""
+    model = get_model(cfg)
+
+    def serve_step(params, cache, token, pos):
+        return model.decode_step(params, cfg, cache, token, pos)
+
+    return serve_step
+
+
+def make_prefill(cfg: ModelConfig, max_len: int) -> Callable:
+    model = get_model(cfg)
+
+    def prefill_fn(params, tokens, **extras):
+        return model.prefill(params, cfg, tokens, max_len=max_len, **extras)
+
+    return prefill_fn

@@ -135,17 +135,38 @@ def test_decode_attention_ragged_and_ring(name, window_on):
 
 
 def test_wrappers_run_the_plain_version_on_cpu_only():
-    """A CPU tensor takes the plain path and is not counted as a launch;
-    a tensor on any other non-CUDA device is refused."""
+    """A CPU tensor takes the plain path and is not counted as a launch.
+    A meta tensor (the meta-device dry-run) takes it too, which there
+    gives only the output's shape and dtype; no launch is counted."""
+    from repro_torch.kernels.paged_attention.ops import \
+        paged_decode_attention
+    from repro_torch.kernels.ssm_scan.ops import mlstm_scan
     q = torch.randn(1, 4, 2, 8)
     before = (flash_attention.launches, decode_attention.launches)
     flash_attention(q, q, q)
     decode_attention(q[:, 0], q, q, torch.tensor([3], dtype=torch.int32),
                      torch.arange(4, dtype=torch.int32)[None])
     assert (flash_attention.launches, decode_attention.launches) == before
+    wrappers = (flash_attention, decode_attention, paged_decode_attention,
+                mlstm_scan)
+    counts = [w.launches for w in wrappers]
     meta = torch.empty(1, 4, 2, 8, device="meta")
-    with pytest.raises(ValueError):
-        flash_attention(meta, meta, meta)
+    i32 = dict(dtype=torch.int32, device="meta")
+    out = flash_attention(meta, meta, meta)
+    assert out.is_meta and out.shape == meta.shape
+    out = decode_attention(meta[:, 0], meta, meta, torch.empty(1, **i32),
+                           torch.empty(1, 4, **i32))
+    assert out.is_meta and out.shape == (1, 2, 8)
+    pages = torch.empty(3, 4, 2, 8, device="meta")
+    out = paged_decode_attention(meta[:, 0], pages, pages,
+                                 torch.empty(1, 2, **i32),
+                                 torch.empty(1, **i32))
+    assert out.is_meta and out.shape == (1, 2, 8)
+    x = torch.empty(1, 64, 2, 8, device="meta")
+    g = torch.empty(1, 64, 2, device="meta")
+    out = mlstm_scan(x, x, x, g, g)
+    assert out.is_meta and out.shape == x.shape
+    assert [w.launches for w in wrappers] == counts
 
 
 @pytest.mark.parametrize("B,Sq,Sk,H,Hkv,D,window", [
