@@ -147,10 +147,26 @@ Phases (any failure exits non-zero before the result line):
    ``cache_pspecs``, 28 K3 launches a step, logits within 1e-3 of the
    unsharded ``decode_step``; K3 on a context-split cache's path (2 and 4
    runs of the context, each launch with its log-sum-exp, merged) held to
-   K3 over the whole cache and the plain version; the int8 error-feedback
-   all-reduce over the
+   K3 over the whole cache and the plain version; K3's two passes for a
+   cache split on its head dim (``hd_phase``: ``decode_scores`` per
+   slice, the slices' scores summed, ``decode_softmax_pv`` per slice)
+   over 2, 4 and 16 slices at B=32 C=161 and B=64 C=8192, G=12, danube's
+   D 80 (Dl 5) on a ring past its window, rows that attend nothing and K3's
+   wrapper at D 384, held to K3 whole and the plain versions (pass 1 at
+   2e-5 in either dtype; in bfloat16 pass 2 and the whole decode also row
+   by row to the float32 plain version), each pass also alone, and
+   ``parallel.local._decode_split_hd`` itself over one slice (one launch
+   of each pass); timed at m 2 and 16 beside K3 whole, the plain
+   versions, one ``torch.einsum`` for pass 1 and the bound; the int8
+   error-feedback all-reduce over the
    NCCL group on the step's gradients in float32, every leaf within
-   0.75 x scale, with the bytes it reduces and its time.
+   0.75 x scale, with the bytes it reduces and its time.  Then
+   (``hd_decode_phase``) qwen-distill-1.5B's published config (bf16, 28
+   layers, B=32, 32 new tokens) decodes with every attention routed
+   through the two passes over 2 head-dim slices: 2 x 28 launches of each
+   pass a step and none of K3, logits within 5e-2 of K3's decode from the
+   same weights, the decode ms a step beside K3's; in float32 at 2 layers
+   the greedy tokens equal K3's.
 4. Card against CPU, teacher-forced: the full width cut to 4 layers in
    float32, same params on both, 2 prompts.  Static: prefill + 8 decode
    steps fed the CPU's greedy tokens.  Paged: prefill in chunks of 16 over
@@ -188,7 +204,8 @@ Phases (any failure exits non-zero before the result line):
    and qwen3-moe at full width and 1 layer: 2 K1 launches per layer a
    step, finite loss and grad norm, params moved.
 
-The line before the last is ``{"kernels": [...]}``; the last line is
+The line before the last is ``{"kernels": [...]}`` (six kernels: K1,
+K3, K2, K4 and K3's two head-dim passes); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 from __future__ import annotations
@@ -1192,8 +1209,17 @@ def _wrappers():
             "mlstm_scan": mlstm_scan}
 
 
+def _hd_wrappers():
+    """The two passes of K3 over a head-dim-split cache (counted apart:
+    only the head-dim phases and K3's wrapper at D > 256 launch them)."""
+    from repro_torch.kernels.decode_attention.ops import (decode_scores,
+                                                          decode_softmax_pv)
+    return {"decode_scores": decode_scores,
+            "decode_softmax_pv": decode_softmax_pv}
+
+
 def _reset_counts():
-    for fn in _wrappers().values():
+    for fn in list(_wrappers().values()) + list(_hd_wrappers().values()):
         fn.launches = 0
         for variant in getattr(fn, "launches_by_variant", {}):
             fn.launches_by_variant[variant] = 0
@@ -3287,6 +3313,432 @@ def _ctx_split_check(B, C):
     return stats
 
 
+def _hd_passes(q, k, v, qp, kp, m, window=None):
+    """K3 over a cache split on its head dim into m slices, on one card:
+    q, k and v cut on D by ``chunk`` (views, as a model axis of m cuts
+    them), pass 1 per slice, the slices' scores summed on the card (in
+    place of the all-reduce over ranks), pass 2 per slice, the outputs
+    concatenated."""
+    import torch
+    from repro_torch.kernels.decode_attention import ops
+    scale = q.shape[-1] ** -0.5
+    s = sum(ops.decode_scores(a, b, scale=scale)
+            for a, b in zip(q.chunk(m, -1), k.chunk(m, -1)))
+    return torch.cat([ops.decode_softmax_pv(s, c, qp, kp, window=window)
+                      for c in v.chunk(m, -1)], -1)
+
+
+def _hd_bf16_rows(name, got, want32, stats):
+    """A bfloat16 output of the head-dim passes against the float32 plain
+    version of the same inputs, row by row (``_bf16_excess``): each row
+    is held at its own scale, so a long row's small outputs (about
+    1/sqrt(slots)) cannot hide under an absolute tolerance."""
+    excess = _bf16_excess(got, want32)
+    stats["bf16_row_excess"] = max(stats.get("bf16_row_excess", 0.0),
+                                   excess)
+    if not excess <= BF16_ROW_TOL:
+        fail(f"{name} bfloat16: row excess over the float32 plain version "
+             f"{excess:.3e} > {BF16_ROW_TOL}")
+
+
+def _hd_case_check(what, q, k, v, qp, kp, m, window, dtype, shape, stats):
+    """One head-dim split of m slices held to the plain version and (D <=
+    256) to K3 over the whole head dim; each pass on its own held to its
+    plain version.  Pass 1 writes float32 scores from the same operands
+    as its plain version, so it is held at the float32 tolerance in either
+    dtype; in bfloat16, pass 2 and the whole decode are also held row by
+    row to the float32 plain version (``_hd_bf16_rows``)."""
+    import torch
+    from repro_torch.kernels.decode_attention import ops
+    s1, s2 = stats
+    scale = q.shape[-1] ** -0.5
+    want = ops.decode_attention_ref(q, k, v, qp, kp, window=window)
+    got = _hd_passes(q, k, v, qp, kp, m, window)
+    _check(f"{what} m={m}", got, want, dtype, shape, s2)
+    if dtype == "bfloat16":
+        _hd_bf16_rows(f"{what} m={m}", got, ops.decode_attention_ref(
+            q.float(), k.float(), v.float(), qp, kp, window=window), s2)
+    if q.shape[-1] <= 256:
+        whole = ops.decode_attention(q, k, v, qp, kp, window=window)
+        _check(f"{what} m={m} vs K3 whole", got, whole, dtype, shape, s2)
+    s = sum(ops.decode_scores_ref(a, b, scale=scale)
+            for a, b in zip(q.chunk(m, -1), k.chunk(m, -1)))
+    for a, b, c in zip(q.chunk(m, -1), k.chunk(m, -1), v.chunk(m, -1)):
+        _check(f"decode_scores {what} m={m}",
+               ops.decode_scores(a, b, scale=scale),
+               ops.decode_scores_ref(a, b, scale=scale), dtype, shape, s1,
+               {dtype: TOL["float32"]})
+        o = ops.decode_softmax_pv(s, c, qp, kp, window=window)
+        _check(f"decode_softmax_pv {what} m={m}", o,
+               ops.decode_softmax_pv_ref(s, c, qp, kp, window=window), dtype,
+               shape, s2)
+        if dtype == "bfloat16":
+            _hd_bf16_rows(f"decode_softmax_pv {what} m={m}", o,
+                          ops.decode_softmax_pv_ref(s, c.float(), qp, kp,
+                                                    window=window), s2)
+    empty = ~((kp >= 0) & (kp <= qp[:, None])).any(dim=1)
+    if bool(empty.any()) and bool(got[empty].abs().max() != 0):
+        fail(f"{what} m={m} {dtype}: a row that attends nothing is not 0")
+
+
+def _hd_launched(fn):
+    """``fn()`` and the launches it added to K3 and to each pass."""
+    from repro_torch.kernels.decode_attention import ops
+    fns = dict(_hd_wrappers(), flash_decode=ops.decode_attention)
+    before = {n: f.launches for n, f in fns.items()}
+    out = fn()
+    return out, {n: f.launches - before[n] for n, f in fns.items()}
+
+
+def _hd_package_check(what, q, k, v, qp, kp, window, dtype, shape, stats):
+    """The package's own head-dim path, ``parallel.local._decode_split_hd``,
+    on CUDA tensors over one slice (no groups to all-reduce over): one
+    launch of each pass and none of K3, the output in v's dtype and held
+    to K3 over the whole head dim."""
+    from repro_torch.kernels.decode_attention import ops
+    from repro_torch.parallel import local as plocal
+    got, added = _hd_launched(lambda: plocal._decode_split_hd(
+        q, k, v, qp, kp, window, q.shape[-1] ** -0.5, []))
+    if added != dict(decode_scores=1, decode_softmax_pv=1, flash_decode=0):
+        fail(f"{what} {dtype}: parallel.local._decode_split_hd launched "
+             f"{added}, expected one of each pass and no K3")
+    _check(f"{what} parallel.local._decode_split_hd vs K3 whole", got,
+           ops.decode_attention(q, k, v, qp, kp, window=window), dtype,
+           shape, stats[1])
+
+
+def _hd_split_check(B, C):
+    """The decode of a head-dim-split cache (``parallel.local.
+    decode_attention`` under ``cache_shard="hd"``) on one card, at the
+    1.5B's decode shape (H 12, Hkv 2, D 128, B rows over C slots): for m
+    in 2, 4 and 16 slices (``_hd_passes``) against K3 over the whole head
+    dim and the plain version, and each pass against its plain version, in
+    float32 and bfloat16; and ``_decode_split_hd`` itself over one slice.
+    Rows attend from 0 (row 0) to C slots, spread evenly, so short rows
+    sit beside long ones in every launch.  Returns the two passes' stats."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    valid = [0] + [max(1, C * i // (B - 1)) for i in range(1, B)]
+    stats = tuple({"checks": 0, "max_abs_err": 0.0} for _ in range(2))
+    for dtype in ("float32", "bfloat16"):
+        q, k, v, qp, kp = decode_case(B, 12, 2, 128, C, valid, dtype, gen)
+        shape = (B, 12, 2, 128, C)
+        for m in (2, 4, 16):
+            _hd_case_check("hd split", q, k, v, qp, kp, m, None, dtype,
+                           shape, stats)
+        _hd_package_check("hd split", q, k, v, qp, kp, None, dtype, shape,
+                          stats)
+        del q, k, v
+    torch.cuda.empty_cache()
+    return stats
+
+
+def _hd_extra_check(stats):
+    """The head-dim split's other cases: starcoder2's G = 12 (H 48, Hkv
+    4, two head groups), h2o-danube's D 80 over 16 slices (Dl 5) with its
+    window of 4096 on a ring past it (and ``_decode_split_hd`` there), each
+    with a row that attends nothing; and K3's wrapper at D 384, which runs
+    as the two passes over one slice (2 launches, no K3 launch)."""
+    import torch
+    from repro_torch.kernels.decode_attention import ops
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    for dtype in ("float32", "bfloat16"):
+        q, k, v, qp, kp = decode_case(4, 48, 4, 128, 700, [0, 700, 311, 5],
+                                      dtype, gen)
+        for m in (2, 4, 16):
+            _hd_case_check("hd split G=12", q, k, v, qp, kp, m, None, dtype,
+                           (4, 48, 4, 128, 700), stats)
+        q, k, v, _, _ = decode_case(4, 32, 8, 80, 4096, [4096] * 4, dtype,
+                                    gen)
+        qp = torch.tensor([5000, 4100, 9999, 300], dtype=torch.int32,
+                          device="cuda")
+        kp = _ring_pos(qp.tolist(), 4096)
+        kp[3] = EMPTY                            # attends nothing
+        _hd_case_check("hd split danube ring", q, k, v, qp, kp, 16, 4096,
+                       dtype, (4, 32, 8, 80, 4096), stats)
+        _hd_package_check("hd split danube ring", q, k, v, qp, kp, 4096,
+                          dtype, (4, 32, 8, 80, 4096), stats)
+        q, k, v, qp, kp = decode_case(8, 12, 2, 384, 300,
+                                      [0] + [300 - 31 * i for i in range(7)],
+                                      dtype, gen)
+        got, added = _hd_launched(lambda: ops.decode_attention(q, k, v, qp,
+                                                               kp))
+        if added != dict(decode_scores=1, decode_softmax_pv=1,
+                         flash_decode=0):
+            fail(f"decode_attention at D 384: launched {added}")
+        _check("flash_decode D=384 (two passes)", got,
+               ops.decode_attention_ref(q, k, v, qp, kp), dtype,
+               (8, 12, 2, 384, 300), stats[1])
+        if dtype == "bfloat16":
+            _hd_bf16_rows("flash_decode D=384 (two passes)", got,
+                          ops.decode_attention_ref(q.float(), k.float(),
+                                                   v.float(), qp, kp),
+                          stats[1])
+        del q, k, v
+    torch.cuda.empty_cache()
+
+
+def _hd_timings(B, C, flush, sweep=False):
+    """Each pass over one slice (contiguous, as a rank holds it) at m 2
+    and 16, beside K3 over the whole head dim, the plain versions, one
+    ``torch.einsum`` of q . k^T for pass 1 (pass 2 has no single PyTorch
+    call) and the bound; all rows attend all C slots.  ``sweep`` also
+    times pass 2 with its split count forced (``_num_splits.force``).
+    The records hold only what this run measured and the bounds; the
+    scores' size is read from the tensor, and the all-reduce's wire bytes
+    (modelled: no all-reduce runs here) are only printed."""
+    import torch
+    from repro_torch.kernels.decode_attention import ops
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    H, Hkv, D = 12, 2, 128
+    out = {}
+    for dtype in ("bfloat16", "float32"):
+        q, k, v, qp, kp = decode_case(B, H, Hkv, D, C, [C] * B, dtype, gen)
+        es = q.element_size()
+        n_bytes, flops = decode_work(B, H, Hkv, D, C, [C] * B, es)
+        bound, by = _bound_ms(n_bytes, flops, dtype)
+        row = {"K3_whole": dict(
+            ms=_time_ms(lambda: ops.decode_attention(q, k, v, qp, kp), flush),
+            bound_ms=bound, bound_by=by)}
+        for m in (2, 16):
+            Dl = D // m
+            qs, ks, vs = (x[..., :Dl].contiguous() for x in (q, k, v))
+            qg = qs.reshape(B, Hkv, H // Hkv, Dl)
+            s = ops.decode_scores(qs, ks, scale=D ** -0.5)
+            b1 = es * (B * H * Dl + B * C * Hkv * Dl) + 4 * B * H * C
+            b2 = (4 * B * H * C + es * (B * C * Hkv * Dl + B * H * Dl)
+                  + 4 * B * (1 + C))
+            fl = 2.0 * B * H * C * Dl
+            t1, by1 = _bound_ms(b1, fl, dtype)
+            t2, by2 = _bound_ms(b2, fl, dtype)
+            scores_bytes = s.numel() * s.element_size()
+            row[f"m{m}"] = dict(
+                Dl=Dl,
+                decode_scores=dict(
+                    ms=_time_ms(lambda: ops.decode_scores(
+                        qs, ks, scale=D ** -0.5), flush),
+                    plain_ms=_time_ms(lambda: ops.decode_scores_ref(
+                        qs, ks, scale=D ** -0.5), flush),
+                    library_ms=_time_ms(lambda: torch.einsum(
+                        "bhgd,bchd->bhgc", qg, ks), flush),
+                    bound_ms=t1, bound_by=by1, n_split=None),
+                decode_softmax_pv=dict(
+                    ms=_time_ms(lambda: ops.decode_softmax_pv(
+                        s, vs, qp, kp), flush),
+                    plain_ms=_time_ms(lambda: ops.decode_softmax_pv_ref(
+                        s, vs, qp, kp), flush),
+                    library_ms=None, bound_ms=t2, bound_by=by2,
+                    n_split=ops.decode_softmax_pv.last_n_split))
+            if sweep:
+                split_ms = {}
+                try:
+                    for force in (1, 3, 8, 17, 34, 68):
+                        ops._num_splits.force = force
+                        split_ms[force] = _time_ms(
+                            lambda: ops.decode_softmax_pv(s, vs, qp, kp),
+                            flush)
+                finally:
+                    ops._num_splits.force = None
+                row[f"m{m}"]["decode_softmax_pv"]["split_sweep"] = split_ms
+                say(f"  time decode_softmax_pv B={B} C={C} {dtype} m={m} by "
+                    f"n_split: " + ", ".join(f"{n} {ms:.4f} ms" for n, ms in
+                                             split_ms.items()))
+            del qs, ks, vs, qg, s
+        out[dtype] = row
+        k1 = row["K3_whole"]
+        say(f"  time K3 over a head-dim split B={B} C={C} {dtype}: K3 whole "
+            f"{k1['ms']:.4f} ms (bound {k1['bound_ms']:.4f}); " + "; ".join(
+                f"m={m}: " + ", ".join(
+                    f"{name} {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} "
+                    f"{r['bound_by']}, plain {r['plain_ms']:.4f}"
+                    + (f", einsum {r['library_ms']:.4f}"
+                       if r["library_ms"] is not None else "")
+                    + (f", n_split {r['n_split']}" if r["n_split"] else "")
+                    + ")"
+                    for name, r in ((n, row[f"m{m}"][n]) for n in
+                                    ("decode_scores", "decode_softmax_pv")))
+                for m in (2, 16))
+            + f"; scores tensor {scores_bytes / 1e6:.2f} MB a layer (its "
+            f"numel x element size); modelled, not run here: a ring "
+            f"all-reduce of it sends 2(m-1)/m of that per rank, " + ", ".join(
+                f"m={m} {2 * (m - 1) / m * scores_bytes / 1e6:.2f} MB"
+                for m in (2, 16)) + f"; {CARD['card']}")
+        del q, k, v
+        torch.cuda.empty_cache()
+    return out
+
+
+def hd_phase(prompt_len):
+    """The kernels of a head-dim-split cache on the card: the checks of
+    ``_hd_split_check`` at the main decode shape (B 32, C prompt + 128)
+    and at B 64 over 8192 slots, ``_hd_extra_check``, and the timings at
+    both shapes.  Returns the two passes' records (without launches)."""
+    import torch
+    stats = _hd_split_check(32, prompt_len + 128)
+    for s, t in zip(stats, _hd_split_check(64, 8192)):
+        s["checks"] += t["checks"]
+        for key in ("max_abs_err", "bf16_row_excess"):
+            if key in t:
+                s[key] = max(s.get(key, 0.0), t[key])
+    _hd_extra_check(stats)
+    say(f"K3 over a head-dim split: m = 2 / 4 / 16 slices at B=32 C="
+        f"{prompt_len + 128} and B=64 C=8192, G=12, danube's ring (Dl 5), "
+        f"D 384: {stats[0]['checks']} decode_scores checks (max err "
+        f"{stats[0]['max_abs_err']:.2e}), {stats[1]['checks']} "
+        f"decode_softmax_pv and whole-decode checks (max err "
+        f"{stats[1]['max_abs_err']:.2e}; bfloat16 row excess over the "
+        f"float32 plain version {stats[1]['bf16_row_excess']:.2e} <= "
+        f"{BF16_ROW_TOL}) against the plain versions and K3 whole, "
+        f"_decode_split_hd included")
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    main = _hd_timings(32, prompt_len + 128, flush)
+    long = _hd_timings(64, 8192, flush, sweep=True)
+    del flush
+    records = {}
+    for i, name in enumerate(("decode_scores", "decode_softmax_pv")):
+        records[name] = dict(
+            route="cuda", source="src/repro_torch/kernels/csrc/decode_hd.cu",
+            replaces="src/repro/kernels/decode_attention/kernel.py:90",
+            max_abs_err=stats[i]["max_abs_err"], checks=stats[i]["checks"],
+            **main["bfloat16"]["m2"][name], shape=(32, 12, 2, 128,
+                                                   prompt_len + 128), m=2,
+            main=main, long=dict(shape=(64, 12, 2, 128, 8192), **long))
+    return records
+
+
+def hd_decode_phase():
+    """The slice's path at full width: qwen-distill-1.5B's published config
+    (28 layers, bf16, seed 0's weights), B=32 math prompts, 32 new tokens,
+    with every decode attention routed through ``_hd_passes`` over m = 2
+    head-dim slices (``parallel.local.decode_attention`` replaced for the
+    run; the package has no such switch).  K3's greedy decode from the
+    same prefill first; then the routed decode fed K3's tokens: each step
+    2 x 28 launches of each pass and none of K3, logits within 5e-2 of max
+    |logit|, and the decode ms per step beside K3's.  Then float32 at the
+    published width cut to 2 layers: the two greedy decodes give the same
+    tokens."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.tasks import MathTaskGenerator, Tokenizer
+    from repro_torch.models import transformer
+    from repro_torch.parallel import local as plocal
+
+    m, steps = 2, 32
+    k3 = plocal.decode_attention
+
+    def routed(q, k, v, q_pos, k_pos, *, window=None):
+        return _hd_passes(q, k, v, q_pos, k_pos, m, window)
+
+    tasks = MathTaskGenerator(seed=0).batch(32)
+    plen = max(len(t.prompt_ids) for t in tasks)
+    toks = np.full((32, plen), Tokenizer.PAD, np.int64)
+    for i, t in enumerate(tasks):
+        toks[i, plen - len(t.prompt_ids):] = t.prompt_ids
+    toks = torch.from_numpy(toks).cuda()
+
+    def decode(params, cfg, feed=None, hd=False):
+        """Greedy decode (or fed ``feed``'s tokens) from a fresh prefill:
+        tokens [steps, 32], logits per step, host ms per step, launches."""
+        lg, cache = transformer.prefill(params, cfg, toks,
+                                        max_len=plen + steps)
+        out, logits, ms, counts = [], [], [], []
+        plocal.decode_attention = routed if hd else k3
+        try:
+            for t in range(steps):
+                tok = (torch.argmax(lg[:, :cfg.vocab].float(), -1)
+                       .to(torch.int32) if feed is None else feed[t])
+                out.append(tok)
+                pos = torch.full((32,), plen + t, dtype=torch.int32,
+                                 device="cuda")
+                _reset_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                lg, cache = transformer.decode_step(params, cfg, cache, tok,
+                                                    pos)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                logits.append(lg[:, :cfg.vocab].float())
+                counts.append(dict(_read_counts(), **{
+                    n: f.launches for n, f in _hd_wrappers().items()}))
+        finally:
+            plocal.decode_attention = k3
+        return torch.stack(out), logits, ms, counts
+
+    def expect(what, counts, L, hd):
+        want = {"flash_attention_fwd": 0, "flash_decode": 0 if hd else L,
+                "paged_flash_decode": 0, "mlstm_scan": 0,
+                "decode_scores": m * L if hd else 0,
+                "decode_softmax_pv": m * L if hd else 0}
+        for t, c in enumerate(counts):
+            if c != want:
+                fail(f"{what} step {t}: launches {c}, expected {want}")
+
+    cfg = get_config(ARCH)
+    L = cfg.n_layers
+    params = _bf16_qwen(cfg)
+    out = {}
+    with torch.inference_mode():
+        tok_k3, lg_k3, ms_k3, c_k3 = decode(params, cfg)
+        expect("K3 decode (bf16)", c_k3, L, False)
+        tok_hd, lg_hd, ms_hd, c_hd = decode(params, cfg, feed=tok_k3,
+                                            hd=True)
+        expect("head-dim split decode (bf16)", c_hd, L, True)
+    worst = 0.0
+    for t, (a, b) in enumerate(zip(lg_hd, lg_k3)):
+        rel = float((a - b).abs().max() / b.abs().max())
+        worst = max(worst, rel)
+        if not (torch.isfinite(a).all() and rel <= 5e-2):
+            fail(f"head-dim split decode step {t}: max |hd - K3| / max |K3| "
+                 f"= {rel:.3e} > 5e-2")
+    agree = float(np.mean([bool((torch.argmax(a, -1) == torch.argmax(b, -1))
+                                .all()) for a, b in zip(lg_hd, lg_k3)]))
+    launches = {n: sum(c[n] for c in c_hd) for n in _hd_wrappers()}
+    out["bf16"] = dict(
+        layers=L, batch=32, prompt=plen, steps=steps, m=m,
+        worst_rel_logits=worst, steps_same_greedy=agree,
+        decode_ms_median=statistics.median(ms_hd[1:]),
+        k3_decode_ms_median=statistics.median(ms_k3[1:]),
+        decode_ms=ms_hd, k3_decode_ms=ms_k3, launches=launches,
+        modelled_scores_bytes_per_layer=4 * 32 * cfg.n_heads * (
+            plen + steps))
+    say(f"head-dim split decode, qwen-distill-1.5b published config (bf16, "
+        f"{L} layers, B=32, prompts of {plen} tokens padded, {steps} new "
+        f"tokens), m={m} slices through decode_scores / decode_softmax_pv: "
+        f"{launches} launches ({m} x {L} of each a step), worst max |hd - "
+        f"K3| / max |K3| logits {worst:.2e} <= 5e-2 (K3's greedy tokens fed;"
+        f" share of steps whose argmax agree {agree:.3f}); decode "
+        f"{out['bf16']['decode_ms_median']:.2f} ms a step (median of "
+        f"{steps - 1}, host clock) against K3's "
+        f"{out['bf16']['k3_decode_ms_median']:.2f} ms; scores all-reduce "
+        f"payload (modelled, B x H x C x 4: no all-reduce runs in one "
+        f"process) {out['bf16']['modelled_scores_bytes_per_layer'] / 1e3:.1f}"
+        f" kB a layer; {CARD['card']}")
+    del params, lg_k3, lg_hd
+    torch.cuda.empty_cache()
+
+    cfg = get_config(ARCH).replace(n_layers=2, dtype="float32")
+    params = transformer.init(0, cfg, "cuda")
+    with torch.inference_mode():
+        tok_k3, lg_k3, _, c_k3 = decode(params, cfg)
+        expect("K3 decode (f32, 2 layers)", c_k3, 2, False)
+        tok_hd, lg_hd, _, c_hd = decode(params, cfg, hd=True)
+        expect("head-dim split decode (f32, 2 layers)", c_hd, 2, True)
+    if not torch.equal(tok_k3, tok_hd):
+        fail("head-dim split decode (f32, 2 layers): greedy tokens differ "
+             "from K3's")
+    rel32 = max(float((a - b).abs().max() / b.abs().max())
+                for a, b in zip(lg_hd, lg_k3))
+    out["f32_2_layers"] = dict(tokens_identical=True, steps=steps,
+                               worst_rel_logits=rel32)
+    say(f"head-dim split decode (f32, published width, 2 layers, B=32, "
+        f"{steps} greedy steps each): tokens identical to K3's; worst max "
+        f"|hd - K3| / max |K3| logits {rel32:.2e}")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
 def parallel_phase():
     """Slice 11 on the card (``parallel/``, ``launch/{mesh,roofline,dryrun,
     report}``).  (1) The dry-run cells (``_dryrun_cells``) and the report's
@@ -3455,6 +3907,7 @@ def parallel_phase():
         f"runs of {plen + 128} slots, B=32, each with its lse, merged: "
         f"{ctx['checks']} checks against K3 over the whole cache and the "
         f"plain version, max err {ctx['max_abs_err']:.2e}")
+    out["hd"] = hd_phase(plen)
 
     # (4) the compressed all-reduce on the step's gradient tree, in float32
     # as the reference's test holds it: the mean is cast back to the
@@ -4740,7 +5193,12 @@ def main() -> None:
     records["flash_attention_fwd"]["train_step_launches_by_variant"] = (
         qstep["launches_by_variant"])
     par = parallel_phase()
+    records.update(par.pop("hd"))
     say("parallel summary " + json.dumps(dict(par, **CARD)))
+    hd = hd_decode_phase()
+    say("head-dim split decode summary " + json.dumps(dict(hd, **CARD)))
+    for name, n in hd["bf16"]["launches"].items():
+        records[name]["launches"] = n
     # counted in the sharded runs: K1 over the 3 train steps, K3 over the
     # 4 serve steps
     records["flash_attention_fwd"]["sharded_train_launches"] = (

@@ -14,6 +14,14 @@ a CUDA tensor it launches the kernel (or raises) and counts the launch in
 TPU wrapper padded D to 128 and C to ``block_c``), and takes any group of
 ``G = H / Hkv`` query heads: above ``MAX_GROUP`` the launch adds head
 groups (``_head_groups``), still one launch.
+
+A cache split on its head dim (each rank holds ``Dl = D / m`` of every
+head's dims) runs as two passes, ``csrc/decode_hd.cu``: ``decode_scores``
+(the slice's partial scaled q . k, float32 ``[B, H, C]``), summed over the
+ranks by the caller, then ``decode_softmax_pv`` (K3's masks, the softmax
+and p . v on the slice).  They have no limit on D, so ``decode_attention``
+runs D > 256 as the two passes over one slice.  Each counts its launches
+in ``decode_scores.launches`` / ``decode_softmax_pv.launches``.
 """
 from __future__ import annotations
 
@@ -24,33 +32,44 @@ from typing import Dict, Optional
 import torch
 
 from .. import _build, tuning
-from .ref import decode_attention_ref
+from .ref import (decode_attention_ref, decode_scores_ref,
+                  decode_softmax_pv_ref)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_GROUP = 8          # query heads a block serves (split_decode.cuh kMaxG)
 TILE = 16              # cache slots per tile (split_decode.cuh kTile)
 MIN_SPLIT_TILES = 8    # tiles a split holds at least, by default
 N_SM = 132             # the H100's SMs
+MAX_D = 256            # K3's kernel (split_decode.cuh kMaxD)
+PV_TILE = 32           # slots a tile of decode_softmax_pv (decode_hd.cu)
+PV_CHUNK = 64          # dims a block of decode_softmax_pv serves
+MIN_PV_TILES = 4       # tiles a split of decode_softmax_pv holds at least
+PV_WAVES = 8           # blocks per SM decode_softmax_pv aims for
 
-__all__ = ["decode_attention", "decode_attention_ref"]
+__all__ = ["decode_attention", "decode_attention_ref", "decode_scores",
+           "decode_scores_ref", "decode_softmax_pv", "decode_softmax_pv_ref"]
 
 
 def _num_splits(B: int, Hkv: int, C: int, n_sm: int = N_SM,
                 waves: float = 2.0, force: Optional[int] = None,
-                min_tiles: int = MIN_SPLIT_TILES) -> int:
+                min_tiles: int = MIN_SPLIT_TILES, tile: int = TILE,
+                round_down: bool = False) -> int:
     """Blocks per (row, KV head): enough for ``waves`` waves over ``n_sm``
     SMs (``B * Hkv * n >= waves * n_sm``) where the row has the tiles, with
-    every split at least ``min_tiles`` tiles of TILE slots long (each split
-    pays a merge of its fp32 partial), and 1 when C fits one tile.
+    every split at least ``min_tiles`` tiles of ``tile`` slots long (each
+    split pays a merge of its fp32 partial), and 1 when C fits one tile.
+    ``round_down`` takes the whole waves that fit instead (``B * Hkv * n
+    <= waves * n_sm``), for a body where a partial wave costs a whole one.
     ``force`` (tests and chip_smoke only) asks for a given count, capped at
     the tiles."""
     if min_tiles < 1:
         raise ValueError(f"min_tiles = {min_tiles}: a split walks at least "
                          "one tile")
-    tiles = -(-C // TILE)
+    tiles = -(-C // tile)
     if force is not None:
         return max(1, min(int(force), tiles))
-    want = math.ceil(waves * n_sm / (B * Hkv))
+    want = (math.floor if round_down else math.ceil)(
+        waves * n_sm / (B * Hkv))
     return max(1, min(want, tiles // min_tiles))
 
 
@@ -161,9 +180,9 @@ def decode_attention(
         raise ValueError(f"decode_attention: shapes q {tuple(q.shape)} "
                          f"k {tuple(k.shape)} v {tuple(v.shape)} q_pos "
                          f"{tuple(q_pos.shape)} k_pos {tuple(k_pos.shape)}")
-    if H % Hkv or D > 256:
-        raise ValueError(f"decode_attention: H={H} Hkv={Hkv} D={D} (needs "
-                         f"H % Hkv == 0 and D <= 256)")
+    if H % Hkv:
+        raise ValueError(f"decode_attention: H={H} Hkv={Hkv} (needs "
+                         f"H % Hkv == 0)")
     for t in (k, v, q_pos, k_pos):
         if t.device != q.device:
             raise ValueError("decode_attention: inputs on different devices")
@@ -175,6 +194,13 @@ def decode_attention(
     if not all(t.is_contiguous() for t in (q, k, v, q_pos, k_pos)):
         raise ValueError("decode_attention: inputs must be contiguous")
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    if D > MAX_D:
+        # the two passes of a head-dim split, over one slice
+        if return_lse:
+            raise ValueError(f"decode_attention: return_lse at D={D} > "
+                             f"{MAX_D}")
+        return decode_softmax_pv(decode_scores(q, k, scale=scale), v, q_pos,
+                                 k_pos, window=window)
     G = H // Hkv
     o = torch.empty_like(q)
     lse = (torch.empty((B, H), dtype=torch.float32, device=q.device)
@@ -213,3 +239,133 @@ def _launch_splits(B: int, H: int, Hkv: int, D: int, C: int,
 
 decode_attention.launches = 0
 decode_attention.last_n_split = None
+
+
+# ------------------------------------------------- a head-dim-split cache
+def _hd_lib() -> ctypes.CDLL:
+    lib = _build.load("decode_hd")
+    fn = lib.decode_scores
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 5
+                       + [ctypes.c_int] * 5
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        fn = lib.decode_softmax_pv
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 3
+                       + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _on_card(name: str, *tensors: torch.Tensor) -> bool:
+    """False for CPU and meta tensors (the plain version runs; on meta it
+    gives only its shapes, as the dry-run needs), True for CUDA ones;
+    raises for any other device or for tensors on different devices."""
+    dev = tensors[0].device
+    if any(t.device != dev for t in tensors):
+        raise ValueError(f"{name}: inputs on different devices")
+    if dev.type in ("cpu", "meta"):
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    return True
+
+
+def _last_dim_dense(name: str, *tensors: torch.Tensor) -> None:
+    """The kernels take any strides but a unit one on the last dim (a
+    slice of the head dim of a whole cache is such a view)."""
+    if any(t.stride(-1) != 1 for t in tensors):
+        raise ValueError(f"{name}: the last dim must be contiguous")
+
+
+def decode_scores(
+    q: torch.Tensor,          # [B, H, Dl]
+    k: torch.Tensor,          # [B, C, Hkv, Dl]
+    *,
+    scale: float,
+) -> torch.Tensor:
+    """Pass 1 of the decode over a head-dim slice: ``scale * q . k`` over
+    the slice, float32 ``[B, H, C]``, no mask.  The caller sums it over
+    the slices (an all-reduce over the ranks that hold them) and hands the
+    sum to ``decode_softmax_pv``."""
+    B, H, Dl = q.shape
+    Bk, C, Hkv, Dk = k.shape
+    if Bk != B or Dk != Dl or H % Hkv:
+        raise ValueError(f"decode_scores: shapes q {tuple(q.shape)} k "
+                         f"{tuple(k.shape)} (needs H % Hkv == 0)")
+    if k.dtype != q.dtype or q.dtype not in _DTYPES:
+        raise ValueError(f"decode_scores: dtypes q {q.dtype} k {k.dtype} "
+                         "(float32 or bfloat16, both equal)")
+    if not _on_card("decode_scores", q, k):
+        return decode_scores_ref(q, k, scale=scale)
+    _last_dim_dense("decode_scores", q, k)
+    s = torch.empty((B, H, C), dtype=torch.float32, device=q.device)
+    lib = _hd_lib()
+    err = lib.decode_scores(
+        q.data_ptr(), k.data_ptr(), s.data_ptr(), q.stride(0), q.stride(1),
+        k.stride(0), k.stride(1), k.stride(2), B, C, Hkv, H // Hkv, Dl,
+        float(scale), _DTYPES[q.dtype], q.device.index or 0,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, "decode_scores", err)
+    decode_scores.launches += 1
+    return s
+
+
+def decode_softmax_pv(
+    s: torch.Tensor,          # [B, H, C] float32, summed over the slices
+    v: torch.Tensor,          # [B, C, Hkv, Dl]
+    q_pos: torch.Tensor,      # [B] int32
+    k_pos: torch.Tensor,      # [B, C] int32
+    *,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """Pass 2 of the decode over a head-dim slice: K3's masks on the
+    summed scores, the float32 softmax and p . v on the slice of V;
+    ``[B, H, Dl]`` in v's dtype, 0 for a head that attends no slot.  The
+    launch's split count is left in ``decode_softmax_pv.last_n_split``."""
+    B, H, C = s.shape
+    Bv, Cv, Hkv, Dl = v.shape
+    if ((Bv, Cv) != (B, C) or H % Hkv or tuple(q_pos.shape) != (B,)
+            or tuple(k_pos.shape) != (B, C)):
+        raise ValueError(f"decode_softmax_pv: shapes s {tuple(s.shape)} v "
+                         f"{tuple(v.shape)} q_pos {tuple(q_pos.shape)} "
+                         f"k_pos {tuple(k_pos.shape)} (needs H % Hkv == 0)")
+    if s.dtype != torch.float32 or v.dtype not in _DTYPES:
+        raise ValueError(f"decode_softmax_pv: dtypes s {s.dtype} v "
+                         f"{v.dtype} (s float32, v float32 or bfloat16)")
+    if q_pos.dtype != torch.int32 or k_pos.dtype != torch.int32:
+        raise ValueError("decode_softmax_pv: q_pos and k_pos must be int32")
+    if not _on_card("decode_softmax_pv", s, v, q_pos, k_pos):
+        return decode_softmax_pv_ref(s, v, q_pos, k_pos, window=window)
+    _last_dim_dense("decode_softmax_pv", v)
+    if not all(t.is_contiguous() for t in (s, q_pos, k_pos)):
+        raise ValueError("decode_softmax_pv: s, q_pos and k_pos must be "
+                         "contiguous")
+    G = H // Hkv
+    ND = -(-Dl // PV_CHUNK)     # chunks of dims, a block each
+    # a block walks its tiles one at a time, so an SM needs several
+    # (PV_WAVES) to keep HBM busy; about 4 fit an SM at once, so the count
+    # is rounded down to whole waves
+    n_split = _num_splits(B, Hkv * ND * _head_groups(G)[0], C,
+                          _sm_count(s.device), waves=PV_WAVES,
+                          force=_num_splits.force, min_tiles=MIN_PV_TILES,
+                          tile=PV_TILE, round_down=True)
+    o = torch.empty((B, H, Dl), dtype=v.dtype, device=v.device)
+    scratch = _split_scratch(B, Hkv * ND, G, PV_CHUNK, n_split, v.device)
+    lib = _hd_lib()
+    err = lib.decode_softmax_pv(
+        s.data_ptr(), v.data_ptr(), q_pos.data_ptr(), k_pos.data_ptr(),
+        o.data_ptr(), *(0 if t is None else t.data_ptr() for t in scratch),
+        v.stride(0), v.stride(1), v.stride(2), B, C, Hkv, G, Dl, n_split,
+        -1 if window is None else int(window), _DTYPES[v.dtype],
+        v.device.index or 0, torch.cuda.current_stream(v.device).cuda_stream)
+    _build.check(lib, "decode_softmax_pv", err)
+    decode_softmax_pv.launches += 1
+    decode_softmax_pv.last_n_split = n_split
+    return o
+
+
+decode_scores.launches = 0
+decode_softmax_pv.launches = 0
+decode_softmax_pv.last_n_split = None

@@ -48,6 +48,48 @@ def decode_attention_ref(
     return o, lse.reshape(B, H)
 
 
+def decode_scores_ref(
+    q: torch.Tensor,         # [B, H, Dl]       a slice of each head's dims
+    k: torch.Tensor,         # [B, C, Hkv, Dl]  the same slice of the cache
+    *,
+    scale: float,
+) -> torch.Tensor:
+    """Pass 1 of the decode over a head-dim slice: the partial scaled
+    scores ``scale * q . k`` over the slice, float32 ``[B, H, C]``, no
+    mask (the slices' scores are summed before it)."""
+    B, H, D = q.shape
+    _, C, Hkv, _ = k.shape
+    s = torch.einsum("bhgd,bchd->bhgc", q.float().reshape(B, Hkv, H // Hkv, D),
+                     k.float()) * scale
+    return s.reshape(B, H, C)
+
+
+def decode_softmax_pv_ref(
+    s: torch.Tensor,         # [B, H, C] float32, summed over the slices
+    v: torch.Tensor,         # [B, C, Hkv, Dl]
+    q_pos: torch.Tensor,     # [B]
+    k_pos: torch.Tensor,     # [B, C]
+    *,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """Pass 2 of the decode over a head-dim slice: the masks of
+    ``decode_attention_ref`` on the whole scores, the softmax and p . v on
+    the local slice of V; ``[B, H, Dl]`` in v's dtype, 0 for a head that
+    attends no slot."""
+    B, H, C = s.shape
+    _, _, Hkv, D = v.shape
+    s = s.reshape(B, Hkv, H // Hkv, C)
+    ok = (k_pos >= 0) & (k_pos <= q_pos[:, None])
+    if window is not None:
+        ok = ok & (k_pos > (q_pos[:, None] - window))
+    s = torch.where(ok[:, None, None, :], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgc,bchd->bhgd", p, v.float())
+    o = torch.where(torch.any(ok, dim=-1)[:, None, None, None], o,
+                    torch.zeros_like(o))
+    return o.reshape(B, H, D).to(v.dtype)
+
+
 def merge_lse(o: torch.Tensor, lse: torch.Tensor, reduce) -> torch.Tensor:
     """Merge decode outputs over disjoint runs of the same cache rows: ``o``
     [..., B, H, D] normalised over its own run, ``lse`` [..., B, H] its

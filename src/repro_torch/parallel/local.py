@@ -331,11 +331,10 @@ def decode_attention(q, k, v, q_pos, k_pos, *, window=None):
       (``merge_lse``: all-reduces of [B, H] maxima and weights and of the
       weighted [B, H, D] outputs), so no rank gathers the cache;
     * head dim split (the default ``"hd"``): each rank's partial q·k
-      scores are summed over the split (an all-reduce of [B, H, C]
-      scores, as GSPMD partitions it), then softmax and p·v on the local
-      head-dim slice.  K3 has no partial-score mode, so this form runs
-      the plain version on CPU and meta tensors (the dry-run) and raises
-      on the card."""
+      scores (K3's ``decode_scores`` pass) are summed over the split (an
+      all-reduce of [B, H, C] float32 scores, as GSPMD partitions it),
+      then K3's ``decode_softmax_pv`` pass runs the masks, the softmax
+      and p·v on the local head-dim slice."""
     from repro_torch.kernels.decode_attention.ops import \
         decode_attention as kernel
     from repro_torch.kernels.decode_attention.ref import merge_lse
@@ -350,11 +349,6 @@ def decode_attention(q, k, v, q_pos, k_pos, *, window=None):
              if isinstance(p, Shard) and mesh.size(i) > 1}
     hd = [i for i, d in split.items() if d == 3]
     ctx = [i for i, d in split.items() if d == 1]
-    if hd and k.device.type == "cuda":
-        raise NotImplementedError(
-            "decode_attention: a cache split on its head dim (cache_shard="
-            "'hd' over a model axis > 1) has no K3 path; place the cache "
-            "with cache_shard='ctx' or 'heads'")
     cpl, qpl, kpl = [], [], []
     for p in k.placements:       # [B, C, Hkv, D] -> q / out [B, H, D]
         d = p.dim if isinstance(p, Shard) else None
@@ -391,25 +385,16 @@ def decode_attention(q, k, v, q_pos, k_pos, *, window=None):
 
 
 def _decode_split_hd(q, k, v, q_pos, k_pos, window, scale, groups):
-    """``decode_attention_ref`` on a head-dim slice: the partial scores are
-    all-reduced over ``groups`` before the softmax (CPU and meta only)."""
+    """K3 on a head-dim slice: pass 1 (``decode_scores``) on the local
+    slice, the float32 scores all-reduced over ``groups``, then pass 2
+    (``decode_softmax_pv``) on the local slice of V."""
     import torch.distributed._functional_collectives as funcol
-    B, H, D = q.shape
-    _, C, Hkv, _ = k.shape
-    G = H // Hkv
-    s = torch.einsum("bhgd,bchd->bhgc", q.float().reshape(B, Hkv, G, D),
-                     k.float()) * scale
+    from repro_torch.kernels.decode_attention.ops import (decode_scores,
+                                                          decode_softmax_pv)
+    s = decode_scores(q, k, scale=scale)
     for g in groups:
         s = funcol.wait_tensor(funcol.all_reduce(s, "sum", g))
-    ok = (k_pos >= 0) & (k_pos <= q_pos[:, None])
-    if window is not None:
-        ok = ok & (k_pos > (q_pos[:, None] - window))
-    s = torch.where(ok[:, None, None, :], s, torch.full_like(s, -1e30))
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhgc,bchd->bhgd", p, v.float())
-    o = torch.where(torch.any(ok, dim=-1)[:, None, None, None], o,
-                    torch.zeros_like(o))
-    return o.reshape(B, H, D).to(q.dtype)
+    return decode_softmax_pv(s, v, q_pos, k_pos, window=window)
 
 
 def scan(fn, q, k, v, ig, fg, n_out: int = 1):

@@ -426,7 +426,9 @@ def test_sharded_prefill_and_serve_at_gloo_world_two_equal_unsharded(
     sharded prefill's logits and cache and four sharded decode steps'
     logits equal the unsharded model's (f32, 2e-5).  ``ctx`` writes each
     slot on the rank that holds it and merges the ranks' decodes by their
-    log-sum-exp; ``hd`` runs its partial-score form (CPU only)."""
+    log-sum-exp; ``hd`` runs K3's two head-dim passes (``decode_scores``,
+    the all-reduce of the scores, ``decode_softmax_pv``; their plain
+    versions on the CPU)."""
     res = served[shard]
     assert res["placements"] == f"(Shard(dim=1), Shard(dim={dim}))"
     assert res["err"] <= 2e-5
