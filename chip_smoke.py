@@ -36,7 +36,8 @@ Phases (any failure exits non-zero before the result line):
    starcoder2-15b) and 16 (64 / 4), D = 128, at one split and at splits
    forced above 1, one launch a call; K1 prefill at the 7B / 14B head
    counts; bf16 times at G = 12 / 16.  Times
-   (CUDA events, median of 20 launches, L2 flushed before each) for the
+   (CUDA events, median of 20 launches, L2 flushed before each behind a
+   device-side wait longer than the host's enqueue) for the
    kernel, its plain version and ``scaled_dot_product_attention`` as a
    yardstick (for the paged kernel over the pre-gathered dense cache: the
    gather is not timed), and K1's and K4's CUDA-core kernels in bfloat16
@@ -152,19 +153,26 @@ Phases (any failure exits non-zero before the result line):
    slice, the slices' scores summed, ``decode_softmax_pv`` per slice)
    over 2, 4 and 16 slices at B=32 C=161 and B=64 C=8192, G=12, danube's
    D 80 (Dl 5) on a ring past its window, rows that attend nothing and K3's
-   wrapper at D 384, held to K3 whole and the plain versions (pass 1 at
-   2e-5 in either dtype; in bfloat16 pass 2 and the whole decode also row
-   by row to the float32 plain version), each pass also alone, and
+   wrapper at D 384, each through the wrappers (which must take the ring
+   body wherever 16-byte copies fit) and through each body directly (the
+   ring and slice 12's), held to K3 whole and the plain versions (pass 1
+   at 2e-5 in either dtype; in bfloat16 pass 2 and the whole decode also
+   row by row to the float32 plain version), each pass also alone, and
    ``parallel.local._decode_split_hd`` itself over one slice (one launch
-   of each pass); timed at m 2 and 16 beside K3 whole, the plain
-   versions, one ``torch.einsum`` for pass 1 and the bound; the int8
+   of each pass); a copy of ``decode_hd.cu`` whose ring pass 2 drops its
+   last split in the merge (built beside the kernels in phase 1) must
+   fail the row gate and f32's 2e-5; timed at m 2 and 16, both bodies,
+   beside K3 whole, the plain versions, one ``torch.einsum`` for pass 1,
+   the bound and each body's GB/s, and K3 whole at B=32 C=161 set beside
+   its phase-2 time (the timer's device-side wait); the int8
    error-feedback all-reduce over the
    NCCL group on the step's gradients in float32, every leaf within
    0.75 x scale, with the bytes it reduces and its time.  Then
    (``hd_decode_phase``) qwen-distill-1.5B's published config (bf16, 28
    layers, B=32, 32 new tokens) decodes with every attention routed
    through the two passes over 2 head-dim slices: 2 x 28 launches of each
-   pass a step and none of K3, logits within 5e-2 of K3's decode from the
+   pass a step, all on the ring bodies, and none of K3, logits within 5e-2
+   of K3's decode from the
    same weights, the decode ms a step beside K3's; in float32 at 2 layers
    the greedy tokens equal K3's.
 4. Card against CPU, teacher-forced: the full width cut to 4 layers in
@@ -268,6 +276,7 @@ def setup():
 
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
+    _start_mutant_build()            # waited for in hd_phase
     libs = _build.build_all()
     say(f"built {sorted(libs)} with {' '.join(_build.FLAGS)} in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -3313,19 +3322,46 @@ def _ctx_split_check(B, C):
     return stats
 
 
-def _hd_passes(q, k, v, qp, kp, m, window=None):
+def _hd_passes(q, k, v, qp, kp, m, window=None, body=None):
     """K3 over a cache split on its head dim into m slices, on one card:
     q, k and v cut on D by ``chunk`` (views, as a model axis of m cuts
     them), pass 1 per slice, the slices' scores summed on the card (in
     place of the all-reduce over ranks), pass 2 per slice, the outputs
-    concatenated."""
+    concatenated.  ``body=None`` goes through the wrappers (counted, each
+    choosing its body); a pair ``(pass 1's, pass 2's)`` of "ring" / "simt"
+    launches those bodies directly (not counted), as ``_simt_flash`` does
+    for K1."""
     import torch
     from repro_torch.kernels.decode_attention import ops
     scale = q.shape[-1] ** -0.5
-    s = sum(ops.decode_scores(a, b, scale=scale)
+    if body is None:
+        s = sum(ops.decode_scores(a, b, scale=scale)
+                for a, b in zip(q.chunk(m, -1), k.chunk(m, -1)))
+        return torch.cat([ops.decode_softmax_pv(s, c, qp, kp, window=window)
+                          for c in v.chunk(m, -1)], -1)
+    s = sum(ops._launch_scores(a, b, scale, body[0])
             for a, b in zip(q.chunk(m, -1), k.chunk(m, -1)))
-    return torch.cat([ops.decode_softmax_pv(s, c, qp, kp, window=window)
+    return torch.cat([ops._launch_softmax_pv(s, c, qp, kp, window,
+                                             body[1])[0]
                       for c in v.chunk(m, -1)], -1)
+
+
+def _hd_bodies(q, k, v, m):
+    """Each pass's bodies at m slices of the head dim, the wrapper's
+    choice first: the ring (csrc/decode_hd.cu's cp.async rings, where
+    16-byte copies fit the slice; pass 1's in bfloat16 only) and PR 22's
+    ("simt") everywhere."""
+    from repro_torch.kernels.decode_attention import ops
+    qs, ks, vs = (x.chunk(m, -1)[0] for x in (q, k, v))
+    B, H, Dl = qs.shape
+    C, Hkv = k.shape[1], k.shape[2]
+    first = ops._scores_variant(qs, ks)
+    second = ops._variant(vs.dtype, Dl, (vs,), ops._pv_geometry(
+        B, C, H, Hkv, Dl, vs.element_size(), ops._sm_count(vs.device))
+        is not None)
+    return {name: ("ring", "simt") if choice == "ring" else ("simt",)
+            for name, choice in (("decode_scores", first),
+                                 ("decode_softmax_pv", second))}
 
 
 def _hd_bf16_rows(name, got, want32, stats):
@@ -3342,43 +3378,69 @@ def _hd_bf16_rows(name, got, want32, stats):
 
 
 def _hd_case_check(what, q, k, v, qp, kp, m, window, dtype, shape, stats):
-    """One head-dim split of m slices held to the plain version and (D <=
-    256) to K3 over the whole head dim; each pass on its own held to its
-    plain version.  Pass 1 writes float32 scores from the same operands
-    as its plain version, so it is held at the float32 tolerance in either
-    dtype; in bfloat16, pass 2 and the whole decode are also held row by
-    row to the float32 plain version (``_hd_bf16_rows``)."""
-    import torch
+    """One head-dim split of m slices, through the wrappers and, where a
+    wrapper takes a ring body, through PR 22's bodies directly, held to
+    the plain version and (D <= 256) to K3 over the whole head dim; each
+    body of each pass (``_hd_bodies``) on its own held to its plain
+    version.  The wrappers must take the ring wherever it fits
+    (``launches_by_variant``).  Pass 1 writes float32 scores from the same
+    operands as its plain version, so it is held at the float32 tolerance
+    in either dtype; in bfloat16, pass 2 and the whole decode are also held
+    row by row to the float32 plain version (``_hd_bf16_rows``)."""
     from repro_torch.kernels.decode_attention import ops
     s1, s2 = stats
     scale = q.shape[-1] ** -0.5
+    bodies = _hd_bodies(q, k, v, m)
     want = ops.decode_attention_ref(q, k, v, qp, kp, window=window)
-    got = _hd_passes(q, k, v, qp, kp, m, window)
-    _check(f"{what} m={m}", got, want, dtype, shape, s2)
-    if dtype == "bfloat16":
-        _hd_bf16_rows(f"{what} m={m}", got, ops.decode_attention_ref(
-            q.float(), k.float(), v.float(), qp, kp, window=window), s2)
-    if q.shape[-1] <= 256:
-        whole = ops.decode_attention(q, k, v, qp, kp, window=window)
-        _check(f"{what} m={m} vs K3 whole", got, whole, dtype, shape, s2)
+    want32 = (ops.decode_attention_ref(q.float(), k.float(), v.float(), qp,
+                                       kp, window=window)
+              if dtype == "bfloat16" else None)
+    whole = (ops.decode_attention(q, k, v, qp, kp, window=window)
+             if q.shape[-1] <= 256 else None)
+    before = {n: dict(f.launches_by_variant)
+              for n, f in _hd_wrappers().items()}
+    runs = [("wrappers", _hd_passes(q, k, v, qp, kp, m, window))]
+    for n, f in _hd_wrappers().items():
+        added = {b: f.launches_by_variant[b] - before[n][b]
+                 for b in ("ring", "simt")}
+        if added != {b: m if b == bodies[n][0] else 0 for b in added}:
+            fail(f"{what} m={m} {dtype}: {n} launched {added}, expected "
+                 f"{m} of the {bodies[n][0]} body")
+    if any(len(b) > 1 for b in bodies.values()):
+        runs.append(("simt", _hd_passes(q, k, v, qp, kp, m, window,
+                                        ("simt", "simt"))))
     s = sum(ops.decode_scores_ref(a, b, scale=scale)
             for a, b in zip(q.chunk(m, -1), k.chunk(m, -1)))
-    for a, b, c in zip(q.chunk(m, -1), k.chunk(m, -1), v.chunk(m, -1)):
-        _check(f"decode_scores {what} m={m}",
-               ops.decode_scores(a, b, scale=scale),
-               ops.decode_scores_ref(a, b, scale=scale), dtype, shape, s1,
-               {dtype: TOL["float32"]})
-        o = ops.decode_softmax_pv(s, c, qp, kp, window=window)
-        _check(f"decode_softmax_pv {what} m={m}", o,
-               ops.decode_softmax_pv_ref(s, c, qp, kp, window=window), dtype,
-               shape, s2)
-        if dtype == "bfloat16":
-            _hd_bf16_rows(f"decode_softmax_pv {what} m={m}", o,
-                          ops.decode_softmax_pv_ref(s, c.float(), qp, kp,
-                                                    window=window), s2)
-    empty = ~((kp >= 0) & (kp <= qp[:, None])).any(dim=1)
-    if bool(empty.any()) and bool(got[empty].abs().max() != 0):
-        fail(f"{what} m={m} {dtype}: a row that attends nothing is not 0")
+    for body, got in runs:
+        name = f"{what} m={m} ({body})"
+        _check(name, got, want, dtype, shape, s2)
+        if want32 is not None:
+            _hd_bf16_rows(name, got, want32, s2)
+        if whole is not None:
+            _check(f"{name} vs K3 whole", got, whole, dtype, shape, s2)
+        empty = ~((kp >= 0) & (kp <= qp[:, None])).any(dim=1)
+        if bool(empty.any()) and bool(got[empty].abs().max() != 0):
+            fail(f"{name} {dtype}: a row that attends nothing is not 0")
+    for body in bodies["decode_scores"]:
+        for a, b in zip(q.chunk(m, -1), k.chunk(m, -1)):
+            _check(f"decode_scores {what} m={m} ({body})",
+                   ops._launch_scores(a, b, scale, body),
+                   ops.decode_scores_ref(a, b, scale=scale), dtype, shape,
+                   s1, {dtype: TOL["float32"]})
+        s1.setdefault("checks_by_body", {}).setdefault(body, 0)
+        s1["checks_by_body"][body] += 1
+    for body in bodies["decode_softmax_pv"]:
+        for c in v.chunk(m, -1):
+            o = ops._launch_softmax_pv(s, c, qp, kp, window, body)[0]
+            _check(f"decode_softmax_pv {what} m={m} ({body})", o,
+                   ops.decode_softmax_pv_ref(s, c, qp, kp, window=window),
+                   dtype, shape, s2)
+            if dtype == "bfloat16":
+                _hd_bf16_rows(f"decode_softmax_pv {what} m={m} ({body})", o,
+                              ops.decode_softmax_pv_ref(s, c.float(), qp, kp,
+                                                        window=window), s2)
+        s2.setdefault("checks_by_body", {}).setdefault(body, 0)
+        s2["checks_by_body"][body] += 1
 
 
 def _hd_launched(fn):
@@ -3466,26 +3528,31 @@ def _hd_extra_check(stats):
         if added != dict(decode_scores=1, decode_softmax_pv=1,
                          flash_decode=0):
             fail(f"decode_attention at D 384: launched {added}")
-        _check("flash_decode D=384 (two passes)", got,
-               ops.decode_attention_ref(q, k, v, qp, kp), dtype,
-               (8, 12, 2, 384, 300), stats[1])
-        if dtype == "bfloat16":
-            _hd_bf16_rows("flash_decode D=384 (two passes)", got,
-                          ops.decode_attention_ref(q.float(), k.float(),
-                                                   v.float(), qp, kp),
-                          stats[1])
+        for body, out in [("wrappers", got)] + [
+                ("simt", _hd_passes(q, k, v, qp, kp, 1, None,
+                                    ("simt", "simt")))]:
+            _check(f"flash_decode D=384 (two passes, {body})", out,
+                   ops.decode_attention_ref(q, k, v, qp, kp), dtype,
+                   (8, 12, 2, 384, 300), stats[1])
+            if dtype == "bfloat16":
+                _hd_bf16_rows(f"flash_decode D=384 (two passes, {body})",
+                              out, ops.decode_attention_ref(
+                                  q.float(), k.float(), v.float(), qp, kp),
+                              stats[1])
         del q, k, v
     torch.cuda.empty_cache()
 
 
 def _hd_timings(B, C, flush, sweep=False):
     """Each pass over one slice (contiguous, as a rank holds it) at m 2
-    and 16, beside K3 over the whole head dim, the plain versions, one
+    and 16: the wrapper's body (the ring), PR 22's body launched directly
+    (``simt_ms``), K3 over the whole head dim, the plain versions, one
     ``torch.einsum`` of q . k^T for pass 1 (pass 2 has no single PyTorch
-    call) and the bound; all rows attend all C slots.  ``sweep`` also
-    times pass 2 with its split count forced (``_num_splits.force``).
-    The records hold only what this run measured and the bounds; the
-    scores' size is read from the tensor, and the all-reduce's wire bytes
+    call), the bound and each body's achieved GB/s (the bound's bytes over
+    its time); all rows attend all C slots.  ``sweep`` also times the ring
+    pass 2 with its split count forced (``_num_splits.force``).  The
+    records hold only what this run measured and the bounds; the scores'
+    size is read from the tensor, and the all-reduce's wire bytes
     (modelled: no all-reduce runs here) are only printed."""
     import torch
     from repro_torch.kernels.decode_attention import ops
@@ -3512,48 +3579,63 @@ def _hd_timings(B, C, flush, sweep=False):
             t1, by1 = _bound_ms(b1, fl, dtype)
             t2, by2 = _bound_ms(b2, fl, dtype)
             scores_bytes = s.numel() * s.element_size()
-            row[f"m{m}"] = dict(
-                Dl=Dl,
-                decode_scores=dict(
-                    ms=_time_ms(lambda: ops.decode_scores(
-                        qs, ks, scale=D ** -0.5), flush),
-                    plain_ms=_time_ms(lambda: ops.decode_scores_ref(
-                        qs, ks, scale=D ** -0.5), flush),
-                    library_ms=_time_ms(lambda: torch.einsum(
-                        "bhgd,bchd->bhgc", qg, ks), flush),
-                    bound_ms=t1, bound_by=by1, n_split=None),
-                decode_softmax_pv=dict(
-                    ms=_time_ms(lambda: ops.decode_softmax_pv(
-                        s, vs, qp, kp), flush),
-                    plain_ms=_time_ms(lambda: ops.decode_softmax_pv_ref(
-                        s, vs, qp, kp), flush),
-                    library_ms=None, bound_ms=t2, bound_by=by2,
-                    n_split=ops.decode_softmax_pv.last_n_split))
+            variant = {n: b[0] for n, b in _hd_bodies(qs, ks, vs, 1).items()}
+            r1 = dict(
+                variant=variant["decode_scores"],
+                ms=_time_ms(lambda: ops.decode_scores(
+                    qs, ks, scale=D ** -0.5), flush),
+                simt_ms=_time_ms(lambda: ops._launch_scores(
+                    qs, ks, D ** -0.5, "simt"), flush),
+                plain_ms=_time_ms(lambda: ops.decode_scores_ref(
+                    qs, ks, scale=D ** -0.5), flush),
+                library_ms=_time_ms(lambda: torch.einsum(
+                    "bhgd,bchd->bhgc", qg, ks), flush),
+                bound_ms=t1, bound_by=by1, n_split=None)
+            r2 = dict(
+                variant=variant["decode_softmax_pv"],
+                ms=_time_ms(lambda: ops.decode_softmax_pv(
+                    s, vs, qp, kp), flush),
+                simt_ms=_time_ms(lambda: ops._launch_softmax_pv(
+                    s, vs, qp, kp, None, "simt"), flush),
+                plain_ms=_time_ms(lambda: ops.decode_softmax_pv_ref(
+                    s, vs, qp, kp), flush),
+                library_ms=None, bound_ms=t2, bound_by=by2,
+                n_split=ops.decode_softmax_pv.last_n_split,
+                simt_n_split=ops._launch_softmax_pv(s, vs, qp, kp, None,
+                                                    "simt")[1])
+            for r, nb in ((r1, b1), (r2, b2)):
+                r["gbps"] = nb / r["ms"] / 1e6
+                r["simt_gbps"] = nb / r["simt_ms"] / 1e6
+            row[f"m{m}"] = dict(Dl=Dl, decode_scores=r1, decode_softmax_pv=r2)
             if sweep:
                 split_ms = {}
                 try:
-                    for force in (1, 3, 8, 17, 34, 68):
+                    for force in (1, 2, 3, 4, 6, 8, 12, 16):
                         ops._num_splits.force = force
                         split_ms[force] = _time_ms(
                             lambda: ops.decode_softmax_pv(s, vs, qp, kp),
                             flush)
                 finally:
                     ops._num_splits.force = None
-                row[f"m{m}"]["decode_softmax_pv"]["split_sweep"] = split_ms
-                say(f"  time decode_softmax_pv B={B} C={C} {dtype} m={m} by "
-                    f"n_split: " + ", ".join(f"{n} {ms:.4f} ms" for n, ms in
-                                             split_ms.items()))
+                r2["split_sweep"] = split_ms
+                say(f"  time decode_softmax_pv ({r2['variant']}) B={B} C={C} "
+                    f"{dtype} m={m} by n_split: " + ", ".join(
+                        f"{n} {ms:.4f} ms" for n, ms in split_ms.items()))
             del qs, ks, vs, qg, s
         out[dtype] = row
         k1 = row["K3_whole"]
         say(f"  time K3 over a head-dim split B={B} C={C} {dtype}: K3 whole "
             f"{k1['ms']:.4f} ms (bound {k1['bound_ms']:.4f}); " + "; ".join(
                 f"m={m}: " + ", ".join(
-                    f"{name} {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} "
-                    f"{r['bound_by']}, plain {r['plain_ms']:.4f}"
+                    f"{name} {r['variant']} {r['ms']:.4f} ms "
+                    f"({r['gbps']:.0f} GB/s), PR 22's body "
+                    f"{r['simt_ms']:.4f} ms ({r['simt_gbps']:.0f} GB/s) "
+                    f"(bound {r['bound_ms']:.4f} {r['bound_by']}, plain "
+                    f"{r['plain_ms']:.4f}"
                     + (f", einsum {r['library_ms']:.4f}"
                        if r["library_ms"] is not None else "")
-                    + (f", n_split {r['n_split']}" if r["n_split"] else "")
+                    + (f", n_split {r['n_split']} / {r['simt_n_split']}"
+                       if r["n_split"] else "")
                     + ")"
                     for name, r in ((n, row[f"m{m}"][n]) for n in
                                     ("decode_scores", "decode_softmax_pv")))
@@ -3568,11 +3650,99 @@ def _hd_timings(B, C, flush, sweep=False):
     return out
 
 
+MUTANT_DIR = ROOT / "build" / "chip_smoke_mutant"
+MUTANT_MARK = "// every split's partial"
+MUTANT = {}        # the mutant's nvcc process and library, from setup()
+
+
+def _start_mutant_build():
+    """Start nvcc (in the background, beside ``build_all``) on a copy of
+    ``csrc`` whose ring pass 2 merges every split but the last: the line
+    of ``decode_hd.cu`` marked ``MUTANT_MARK`` loops ``sp < n_split - 1``.
+    ``_hd_mutation_check`` runs it."""
+    import shutil
+    from repro_torch.kernels import _build
+    shutil.rmtree(MUTANT_DIR, ignore_errors=True)
+    MUTANT_DIR.mkdir(parents=True)
+    for path in list(_build.CSRC.glob("*.cu")) + list(_build.CSRC.glob(
+            "*.cuh")):
+        shutil.copy(path, MUTANT_DIR / path.name)
+    cu = MUTANT_DIR / "decode_hd.cu"
+    text = cu.read_text()
+    marked = [line for line in text.splitlines() if MUTANT_MARK in line]
+    if len(marked) != 1 or "sp < n_split;" not in marked[0]:
+        fail(f"decode_hd.cu: expected one loop marked {MUTANT_MARK!r} over "
+             f"'sp < n_split;', found {marked}")
+    cu.write_text(text.replace(marked[0], marked[0].replace(
+        "sp < n_split;", "sp < n_split - 1;")))
+    so = MUTANT_DIR / "decode_hd_mutant.so"
+    log = open(MUTANT_DIR / "nvcc.log", "w")
+    MUTANT.update(so=so, log=MUTANT_DIR / "nvcc.log", proc=subprocess.Popen(
+        [_build.nvcc()] + _build.FLAGS + ["-o", str(so), str(cu)],
+        stdout=log, stderr=subprocess.STDOUT))
+
+
+def _hd_mutation_check():
+    """PR 22's mutation check on the ring pass 2: its merge dropping the
+    last split (``_start_mutant_build``), at B=64 C=8192 m=2 (the ring's
+    own split count, several splits), rows attending 0 to 8192 slots.  The
+    bf16 row gate must fail it, and so must f32's 2e-5; the plain bf16
+    gate's (5e-2) verdict is printed beside them.  The mutant library
+    stands in for ``decode_hd`` only inside this check."""
+    import ctypes
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.decode_attention import ops
+    if MUTANT["proc"].wait() != 0:
+        fail(f"the mutant of decode_hd.cu did not build:\n"
+             f"{MUTANT['log'].read_text()[-3000:]}")
+    B, C = 64, 8192
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    valid = [0] + [max(1, C * i // (B - 1)) for i in range(1, B)]
+    real = ops._hd_lib()
+    out = {}
+    try:
+        _build._LIBS["decode_hd"] = ctypes.CDLL(str(MUTANT["so"]))
+        for dtype in ("bfloat16", "float32"):
+            q, k, v, qp, kp = decode_case(B, 12, 2, 128, C, valid, dtype, gen)
+            s = sum(ops.decode_scores_ref(a, b, scale=128 ** -0.5)
+                    for a, b in zip(q.chunk(2, -1), k.chunk(2, -1)))
+            vs = v.chunk(2, -1)[0]
+            got, n_split = ops._launch_softmax_pv(s, vs, qp, kp, None, "ring")
+            want = ops.decode_softmax_pv_ref(s, vs, qp, kp)
+            torch.cuda.synchronize()
+            rec = dict(n_split=n_split, max_abs_err=_max_err(got, want))
+            if dtype == "bfloat16":
+                want32 = ops.decode_softmax_pv_ref(s, vs.float(), qp, kp)
+                rec["row_excess"] = _bf16_excess(got, want32)
+                rec["plain_gate_passes"] = bool(torch.allclose(
+                    got.float(), want.float(), **TOL["bfloat16"]))
+                caught = rec["row_excess"] > BF16_ROW_TOL
+            else:
+                caught = not torch.allclose(got, want, **TOL["float32"])
+            if n_split < 2 or not caught:
+                fail(f"mutation check {dtype}: a ring pass 2 whose merge "
+                     f"drops its last split was not caught: {rec}")
+            out[dtype] = rec
+            del q, k, v, s
+    finally:
+        _build._LIBS["decode_hd"] = real
+    say(f"mutation check (ring pass 2's merge dropping its last split, "
+        f"B=64 C=8192 m=2, {out['bfloat16']['n_split']} splits): bf16 row "
+        f"excess {out['bfloat16']['row_excess']:.3f} > {BF16_ROW_TOL} "
+        f"(caught; the 5e-2 gate alone "
+        f"{'passes' if out['bfloat16']['plain_gate_passes'] else 'fails'} "
+        f"it, max err {out['bfloat16']['max_abs_err']:.2e}); f32 max err "
+        f"{out['float32']['max_abs_err']:.2e} > 2e-5 (caught)")
+    return out
+
+
 def hd_phase(prompt_len):
     """The kernels of a head-dim-split cache on the card: the checks of
     ``_hd_split_check`` at the main decode shape (B 32, C prompt + 128)
-    and at B 64 over 8192 slots, ``_hd_extra_check``, and the timings at
-    both shapes.  Returns the two passes' records (without launches)."""
+    and at B 64 over 8192 slots and ``_hd_extra_check``, over both bodies
+    of each pass; the mutation check; and the timings at both shapes.
+    Returns the two passes' records (without launches)."""
     import torch
     stats = _hd_split_check(32, prompt_len + 128)
     for s, t in zip(stats, _hd_split_check(64, 8192)):
@@ -3580,16 +3750,21 @@ def hd_phase(prompt_len):
         for key in ("max_abs_err", "bf16_row_excess"):
             if key in t:
                 s[key] = max(s.get(key, 0.0), t[key])
+        for body, n in t["checks_by_body"].items():
+            s["checks_by_body"][body] = s["checks_by_body"].get(body, 0) + n
     _hd_extra_check(stats)
     say(f"K3 over a head-dim split: m = 2 / 4 / 16 slices at B=32 C="
         f"{prompt_len + 128} and B=64 C=8192, G=12, danube's ring (Dl 5), "
-        f"D 384: {stats[0]['checks']} decode_scores checks (max err "
-        f"{stats[0]['max_abs_err']:.2e}), {stats[1]['checks']} "
-        f"decode_softmax_pv and whole-decode checks (max err "
-        f"{stats[1]['max_abs_err']:.2e}; bfloat16 row excess over the "
-        f"float32 plain version {stats[1]['bf16_row_excess']:.2e} <= "
+        f"D 384, through the wrappers and each body (cases by body: pass 1 "
+        f"{stats[0]['checks_by_body']}, pass 2 {stats[1]['checks_by_body']}"
+        f"): {stats[0]['checks']} decode_scores "
+        f"checks (max err {stats[0]['max_abs_err']:.2e}), "
+        f"{stats[1]['checks']} decode_softmax_pv and whole-decode checks "
+        f"(max err {stats[1]['max_abs_err']:.2e}; bfloat16 row excess over "
+        f"the float32 plain version {stats[1]['bf16_row_excess']:.2e} <= "
         f"{BF16_ROW_TOL}) against the plain versions and K3 whole, "
         f"_decode_split_hd included")
+    mutation = _hd_mutation_check()
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
     main = _hd_timings(32, prompt_len + 128, flush)
     long = _hd_timings(64, 8192, flush, sweep=True)
@@ -3598,11 +3773,15 @@ def hd_phase(prompt_len):
     for i, name in enumerate(("decode_scores", "decode_softmax_pv")):
         records[name] = dict(
             route="cuda", source="src/repro_torch/kernels/csrc/decode_hd.cu",
+            bodies={"ring": f"decode_hd.cu::{name}_ring",
+                    "simt": f"decode_hd.cu::{name}"},
             replaces="src/repro/kernels/decode_attention/kernel.py:90",
             max_abs_err=stats[i]["max_abs_err"], checks=stats[i]["checks"],
+            checks_by_body=stats[i]["checks_by_body"],
             **main["bfloat16"]["m2"][name], shape=(32, 12, 2, 128,
                                                    prompt_len + 128), m=2,
-            main=main, long=dict(shape=(64, 12, 2, 128, 8192), **long))
+            main=main, long=dict(shape=(64, 12, 2, 128, 8192), **long),
+            mutation_check=mutation if i == 1 else None)
     return records
 
 
@@ -3660,16 +3839,23 @@ def hd_decode_phase():
                 ms.append((time.perf_counter() - t0) * 1e3)
                 logits.append(lg[:, :cfg.vocab].float())
                 counts.append(dict(_read_counts(), **{
-                    n: f.launches for n, f in _hd_wrappers().items()}))
+                    n: f.launches for n, f in _hd_wrappers().items()}, **{
+                    f"{n} by variant": dict(f.launches_by_variant)
+                    for n, f in _hd_wrappers().items()}))
         finally:
             plocal.decode_attention = k3
         return torch.stack(out), logits, ms, counts
 
-    def expect(what, counts, L, hd):
+    def expect(what, counts, L, hd, bf16=True):
+        n = m * L if hd else 0
         want = {"flash_attention_fwd": 0, "flash_decode": 0 if hd else L,
                 "paged_flash_decode": 0, "mlstm_scan": 0,
-                "decode_scores": m * L if hd else 0,
-                "decode_softmax_pv": m * L if hd else 0}
+                "decode_scores": n, "decode_softmax_pv": n,
+                # the 1.5B's Dl 64 takes each pass's ring body (pass 1's in
+                # bfloat16 only)
+                "decode_scores by variant": dict(ring=n, simt=0) if bf16
+                else dict(ring=0, simt=n),
+                "decode_softmax_pv by variant": dict(ring=n, simt=0)}
         for t, c in enumerate(counts):
             if c != want:
                 fail(f"{what} step {t}: launches {c}, expected {want}")
@@ -3694,18 +3880,22 @@ def hd_decode_phase():
     agree = float(np.mean([bool((torch.argmax(a, -1) == torch.argmax(b, -1))
                                 .all()) for a, b in zip(lg_hd, lg_k3)]))
     launches = {n: sum(c[n] for c in c_hd) for n in _hd_wrappers()}
+    by_variant = {n: {b: sum(c[f"{n} by variant"][b] for c in c_hd)
+                      for b in ("ring", "simt")} for n in _hd_wrappers()}
     out["bf16"] = dict(
         layers=L, batch=32, prompt=plen, steps=steps, m=m,
         worst_rel_logits=worst, steps_same_greedy=agree,
         decode_ms_median=statistics.median(ms_hd[1:]),
         k3_decode_ms_median=statistics.median(ms_k3[1:]),
         decode_ms=ms_hd, k3_decode_ms=ms_k3, launches=launches,
+        launches_by_variant=by_variant,
         modelled_scores_bytes_per_layer=4 * 32 * cfg.n_heads * (
             plen + steps))
     say(f"head-dim split decode, qwen-distill-1.5b published config (bf16, "
         f"{L} layers, B=32, prompts of {plen} tokens padded, {steps} new "
         f"tokens), m={m} slices through decode_scores / decode_softmax_pv: "
-        f"{launches} launches ({m} x {L} of each a step), worst max |hd - "
+        f"{launches} launches ({m} x {L} of each a step; by body "
+        f"{by_variant}), worst max |hd - "
         f"K3| / max |K3| logits {worst:.2e} <= 5e-2 (K3's greedy tokens fed;"
         f" share of steps whose argmax agree {agree:.3f}); decode "
         f"{out['bf16']['decode_ms_median']:.2f} ms a step (median of "
@@ -3721,9 +3911,9 @@ def hd_decode_phase():
     params = transformer.init(0, cfg, "cuda")
     with torch.inference_mode():
         tok_k3, lg_k3, _, c_k3 = decode(params, cfg)
-        expect("K3 decode (f32, 2 layers)", c_k3, 2, False)
+        expect("K3 decode (f32, 2 layers)", c_k3, 2, False, False)
         tok_hd, lg_hd, _, c_hd = decode(params, cfg, hd=True)
-        expect("head-dim split decode (f32, 2 layers)", c_hd, 2, True)
+        expect("head-dim split decode (f32, 2 layers)", c_hd, 2, True, False)
     if not torch.equal(tok_k3, tok_hd):
         fail("head-dim split decode (f32, 2 layers): greedy tokens differ "
              "from K3's")
@@ -5199,6 +5389,18 @@ def main() -> None:
     say("head-dim split decode summary " + json.dumps(dict(hd, **CARD)))
     for name, n in hd["bf16"]["launches"].items():
         records[name]["launches"] = n
+        records[name]["launches_by_variant"] = (
+            hd["bf16"]["launches_by_variant"][name])
+    # the timer's repair: K3 whole at the main decode shape read in phase 2
+    # and again inside parallel_phase (hd_phase)
+    k3_first = records["flash_decode"]["ms"]
+    k3_par = records["decode_scores"]["main"]["bfloat16"]["K3_whole"]["ms"]
+    records["flash_decode"]["ms_in_parallel_phase"] = k3_par
+    say(f"K3 whole bf16 B=32 C={prompt_len + 128}: {k3_first:.4f} ms in "
+        f"phase 2, {k3_par:.4f} ms inside parallel_phase (ratio "
+        f"{k3_par / k3_first:.3f}, "
+        f"{'within' if abs(k3_par / k3_first - 1) <= 0.2 else 'NOT within'}"
+        f" 20%); {CARD['card']}")
     # counted in the sharded runs: K1 over the 3 train steps, K3 over the
     # 4 serve steps
     records["flash_attention_fwd"]["sharded_train_launches"] = (

@@ -10,7 +10,11 @@ Two modes, chosen per requested device type:
   events: 3 warm-up launches, then ``REPS`` launches each after a write of
   a 256 MiB buffer that flushes the 50 MB L2, and the **median** of the
   ``REPS`` event times is kept (``chip_smoke.py::_time_ms`` is this
-  timer).  Configs
+  timer).  Each rep's flush is queued behind a device-side wait
+  (``torch.cuda._sleep``) of at least twice the host's enqueue time of
+  one call, so the launch is already queued when the start event is
+  reached and a slow host does not leave the card idle inside the timed
+  window.  Configs
   that launch the same way (``KernelSpace.launch_key``: K3's split count,
   K2's split count and page, K4's chunk) are one candidate: its time is
   the median of their times, and it is represented by the config nearest
@@ -62,6 +66,8 @@ REPS = 20                  # timed launches per config (median kept)
 WARMUP = 3                 # untimed launches before each config's REPS
 WARM_S = 0.2               # seconds of launches before a bucket's first
 FLUSH_BYTES = 256 * 2 ** 20
+MIN_WAIT_S = 50e-6         # least device-side wait before each flush
+MAX_CLOCK_HZ = 1.98e9      # the H100's highest SM clock: cycles of a wait
 
 # Micro shapes: run once per kernel to exercise the plumbing.
 _MICRO_SHAPES = {
@@ -180,12 +186,23 @@ def on_device_type(device: torch.device) -> Optional[str]:
 def time_on_device(fn: Callable[[], object], flush: torch.Tensor,
                    reps: int = REPS) -> float:
     """Median seconds of ``reps`` launches of ``fn`` by CUDA events, each
-    after ``flush`` is rewritten (L2 cold), after WARMUP launches."""
+    after ``flush`` is rewritten (L2 cold), after WARMUP launches; each
+    flush waits on the card (``torch.cuda._sleep``) at least twice the
+    longest host time of one call, so the start event never waits on the
+    host."""
     for _ in range(WARMUP):
         fn()
     torch.cuda.synchronize()
+    host = 0.0                     # the longest enqueue of one call
+    for _ in range(WARMUP):
+        t0 = time.perf_counter()
+        fn()
+        host = max(host, time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    cycles = int(max(MIN_WAIT_S, 2 * host) * MAX_CLOCK_HZ)
     events = []
     for _ in range(reps):
+        torch.cuda._sleep(cycles)  # the card waits while the host queues
         flush.zero_()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)

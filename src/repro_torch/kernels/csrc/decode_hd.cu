@@ -20,51 +20,83 @@
 //   k_pos > q_pos - window), an fp32 softmax and p.v over the local slice
 //   of V; o [B, H, Dl] in V's type; a head with nothing attended gives 0.
 //
-// Every product and sum is fp32 on the CUDA cores: no TF32, no bf16
-// operand.
+// Bound on the H100: HBM bytes, in both passes and both dtypes (2 FLOPs
+// per K or V element and head, far under the ridge).  Pass 1 reads the K
+// slice and writes B * H * C * 4 bytes of scores; pass 2 reads those
+// scores, the V slice and the positions.  At a large model axis the slice
+// is small and the f32 scores, not the cache, are most of the bytes.  To
+// move them at HBM's 3.35 TB/s against ~1 us of latency under load, an SM
+// needs some 16-32 KB in flight at every moment, so both passes are built
+// around a ring of shared-memory stages filled by 16-byte cp.async:
 //
-// Bound on the H100: HBM bytes.  Pass 1 reads the K slice and writes
-// B * H * C * 4 bytes of scores for 2 FLOPs per K element and head; pass 2
-// reads those scores and the V slice.  At a large model axis the slice is
-// small and the scores, not the cache, bound both passes.
+// Pass 1, "ring" (scores_ring_kernel): persistent blocks (2 an SM, 256
+//   threads) walk the (row, run of TS slots) tiles, tile blockIdx.x +
+//   i * gridDim.x.  A tile's K rows [TS, Hkv, Dl] for every KV head, with
+//   its row's q [H, Dl], go into stage i % 3 of a 3-stage ring (TS sized so
+//   a stage holds <= 16 KB of K), so 2 tiles are in flight while one is
+//   used and a tile's score stores overlap the next tiles' copies; one
+//   barrier a tile.  Staged rows are padded to an odd number of
+//   16-byte pieces (no bank conflicts for ldmatrix or float4 reads).  bf16:
+//   S^T = Q K^T on the tensor cores (mma.sync m16n8k16: Q's 16 head rows
+//   of a KV head as A, loaded once a tile, K's slots as B through
+//   ldmatrix; bf16 products are exact in fp32, the sums fp32).  The
+//   scores go out along C, 16 bytes a lane: neighbouring lanes swap a pair
+//   so each holds 4 slots of a head.  bfloat16 only: float32 dots on the
+//   CUDA cores cost some 40 instructions a slot in this layout, and
+//   PR 22's body takes float32 faster.
+// Pass 2, "ring" (softmax_pv_ring_kernel): grid (n_split, units, B), 128
+//   threads.  A unit is (KV head, group of <= 16 heads, chunk of <= 64
+//   dims); a block serves one unit of split s of row b.  Each of its 4
+//   warps walks every 4th tile of 16 or 32 slots of the split through its
+//   own ring of 3 stages, as decode_block_mma
+//   does for K3 whole: a stage holds the tile's scores of the unit's heads
+//   (rows of TW + 8 floats) and its V rows.  Lane l loads slot l's
+//   position 2 tiles ahead of the tile's copies, and a ballot of the
+//   attended slots decides them: only attended slots are copied (V rows of
+//   the rest are zero-filled, whatever they hold; scores by 4-slot
+//   pieces), a tile with none is skipped, and the mask stays in a register
+//   for the softmax.  The warp syncs only with itself, so no warp waits on
+//   another's copies.  Its fp32 online softmax runs in the mma A layout
+//   (lane (g, t4) holds heads g and g + 8 of 4 slots a 16-slot chunk;
+//   rows 8..15 are skipped when the unit has <= 8 heads).  bf16: O += P V
+//   on the tensor cores, P packed to bf16 from registers, V through
+//   ldmatrix.trans.  f32: P goes through 1 KB of shared memory a warp and
+//   each lane accumulates two dims of every head on the CUDA cores (no
+//   TF32).  The warps merge through shared memory; with several splits
+//   each writes its fp32 (acc, m, l) to scratch and the last to finish (a
+//   __threadfence, then an atomicAdd ticket) merges them, writes o and
+//   resets the ticket to 0.  The split count is chosen by the caller to
+//   fill whole waves.  (A first version, a block over every KV head with
+//   one block-wide barrier a tile, measured 2-4x slower at a 8-dim slice:
+//   every warp waited on the block's slowest copy and its positions.)
 //
-// Design (simple and right first; wgmma and TMA are later work):
+// PR 22's bodies stay for what 16-byte copies cannot reach ("simt": Dl *
+// sizeof(T) not a multiple of 16, such as Dl 5, or a pointer or stride not
+// 16-byte aligned) and for pass 1 in float32, behind the original entry
+// points decode_scores and decode_softmax_pv:
 // Pass 1: grid (ceil(C / 128), Hkv * NG, B), 128 threads.  A block stages
 //   128 slots of its KV head's K slice in shared memory as fp32, kChunk
-//   dims at a time (16-byte loads where the slice's rows allow, each
-//   thread's 8 loads issued before any is stored), with the group's Gc
-//   queries; thread c then owns slot c and keeps Gc dots in registers, so
-//   each K element is read from HBM once per head group and the scores
-//   are written coalesced along C.  Staged rows are padded to an odd
-//   number of 16-byte pieces (an odd number of floats on the scalar
-//   path), so 32 threads reading 32 rows meet no bank conflict.
+//   dims at a time, with the group's Gc queries; thread c then owns slot c
+//   and keeps Gc dots in registers.
 // Pass 2: grid (n_split, Hkv * NG * ND, B), 128 threads.  Block (s, y, b)
 //   walks split s of row b's tiles of kPvTile slots for one head group and
-//   one chunk of kChunk dims (ND = ceil(Dl / kChunk)).  A tile's positions,
-//   scores and V pieces are loaded into registers one tile ahead (two
-//   register sets), so a tile waits on no load of its own.  Per tile,
-//   warp w turns the scores of heads w and w + 4 into p against a running
-//   max (lane = slot; shuffles give the tile's max and sum), the block
-//   stages p and the tile's V chunk (slots not attended as zeros, whatever
-//   they hold), and thread (row group, dim) rescales its Gc sums and adds
-//   its row group's slots, reading each staged V value once for all Gc
-//   heads and their p as broadcast float4s (a read of p and V for each
-//   (head, dim) would make shared memory the limit: 2 reads an FMA).
-//   The row groups' sums meet in shared memory at the end.  With several splits each writes
-//   its fp32 (acc, m, l) to scratch and the last to finish (a
-//   __threadfence, then an atomicAdd ticket) merges them, writes o and
-//   resets the ticket to 0 for the next launch.  The TPU's sequential
-//   cache axis becomes the tile loop; its VMEM (acc, m, l) carry becomes
-//   registers.
+//   one chunk of kChunk dims, the next tile's positions, scores and V
+//   pieces loaded into a second register set while the current one is
+//   used; thread (row group, dim) owns one dim of every head.  Splits
+//   merge as in the ring body.
+#include <initializer_list>
+
 #include "split_decode.cuh"
 
 namespace {
 
+using repro::allow_smem;
 using repro::from_f32;
 using repro::kEmptyPos;
 using repro::kNegInf;
 using repro::to_f32;
 namespace sd = repro::split;
+namespace sm90 = repro::sm90;
 
 constexpr int kThreads = 128;
 constexpr int kScoreTile = kThreads;   // pass 1: slots a block serves
@@ -491,6 +523,698 @@ cudaError_t launch_softmax_pv(const void* s, const void* v, const void* q_pos,
   });
 }
 
+// ------------------------------------------------------ ring bodies
+constexpr int kRingThreads = 256;
+constexpr int kRingWarps = kRingThreads / 32;
+constexpr int kUnitRows = 16;          // heads of a pass-2 unit (m16 rows)
+constexpr int kUnitDims = 64;          // dims of a pass-2 unit
+constexpr int kScoresStages = 3;       // pass 1: stages of a block's ring
+constexpr int kQregs = 4;              // pass 1: q's k16 steps in registers
+constexpr int kPvWarps = 4;            // pass 2: warps of a block, each
+constexpr int kPvThreads = 32 * kPvWarps;  // with its own ring
+constexpr int kPvStages = 3;           // pass 2: stages of a warp's ring
+constexpr int kPvAhead = 2;            // pass 2: tiles of positions loaded
+                                       // ahead of the copies
+constexpr int kMaxKC = 2;              // pass 2: 16-slot chunks of a tile
+constexpr int kMaxSmem = 231424;       // dynamic shared memory of a block
+                                       // (227 KB less 1 KB for static)
+
+// Bytes of a staged row of `bytes` (a multiple of 16): an odd number of
+// 16-byte pieces, so 8 rows read together meet no bank conflict.
+__host__ __device__ inline int odd16(int bytes) {
+  return 16 * ((bytes / 16) | 1);
+}
+
+// 2^x in one MUFU instruction (max relative error ~2^-22, far inside the
+// 2e-5 gate); subnormal results flush to 0.
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// 16 / 4 bytes from global memory to the shared-memory address dst, or
+// zeros (nothing read)
+__device__ __forceinline__ void cp16_or_zero(uint32_t dst, const void* src,
+                                             bool copy) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(copy ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp4_or_zero(uint32_t dst, const void* src,
+                                            bool copy) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(copy ? 4 : 0)
+               : "memory");
+}
+
+// Pass 1's stage: q [H][qrow] then K [TS][krow] (bytes).
+__host__ __device__ inline int scores_stage_bytes(int H, int Hkv, int Dl,
+                                                  int es, int TS) {
+  return H * odd16(Dl * es) + TS * odd16(Hkv * Dl * es);
+}
+
+// bf16 only: float32 dots on the CUDA cores cost some 40 instructions a
+// slot here, and PR 22's body takes float32 faster (PERF.md, PR 23).
+__global__ void __launch_bounds__(kRingThreads, 2)
+    scores_ring_kernel(const __nv_bfloat16* __restrict__ q,
+                       const __nv_bfloat16* __restrict__ k,
+                       float* __restrict__ s, Strides st, int B, int C,
+                       int Hkv, int G, int Dl, int TS, float scale) {
+  using T = __nv_bfloat16;
+  constexpr int S = kScoresStages;
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int E = 16 / sizeof(T);
+  const int H = Hkv * G, P = Dl / E;   // 16-byte pieces of a head's row
+  const int qrow = odd16(Dl * (int)sizeof(T));
+  const int krow = odd16(Hkv * Dl * (int)sizeof(T));
+  const int stage_bytes = H * qrow + TS * krow;
+  const int nt = (C + TS - 1) / TS, n_tiles = B * nt;
+  const int n_my = (int)blockIdx.x < n_tiles
+                       ? (n_tiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1
+                       : 0;
+  const int tid = threadIdx.x;
+  // K's 16-byte pieces: Hkv * P a slot; where that is at most the block's
+  // threads, thread tid always copies piece col_k of slots row_k, row_k +
+  // rows_k, ... (no division in the copy loop)
+  const int per_slot = Hkv * P;
+  const int rows_k = kRingThreads / max(per_slot, 1);
+  const int row_k = tid / max(per_slot, 1);
+  const int col_k = per_slot <= kRingThreads && row_k < rows_k
+                        ? tid - row_k * per_slot
+                        : (per_slot <= kRingThreads ? -2 : -1);
+  const long long off_k =
+      col_k >= 0 ? (col_k / P) * st.kh + (col_k % P) * E : 0;
+  // warps over (KV head, 16 heads) pairs, wpp warps a pair
+  const int NR = (G + 15) / 16, KK = (Dl + 15) / 16, n_pairs = Hkv * NR;
+  const int wpp = max(1, kRingWarps / n_pairs);
+  const int pr0 = (tid >> 5) / wpp, jw = (tid >> 5) - pr0 * wpp;
+  const int pr_step = kRingWarps / wpp;
+
+  // q's pieces: thread tid copies piece q_pc of heads q_h, q_h + q_rows,
+  // ... (P <= kRingThreads: Dl <= 2048)
+  const int q_rows = kRingThreads / P, q_h = tid / P, q_pc = tid - q_h * P;
+  const long long q_off = q_h * st.qh + q_pc * E;
+  // tile i's row and first slot, kept for its use S - 1 tiles later
+  int tb[S], tc[S];
+
+  // copy tile i of this block (its row's q and its K rows) into stage i % S
+  auto issue = [&](int i) {
+    tb[S - 1] = tc[S - 1] = 0;
+    if (i < n_my) {
+      const int t = blockIdx.x + i * gridDim.x, b = t / nt;
+      const int c0 = (t - b * nt) * TS, n = min(TS, C - c0);
+      tb[S - 1] = b;
+      tc[S - 1] = c0;
+      unsigned char* sq = smem + (i % S) * stage_bytes;
+      unsigned char* sk = sq + H * qrow;
+      if (q_h < q_rows) {
+        const T* qb = q + b * st.qb + q_off;
+        for (int h = q_h; h < H; h += q_rows)
+          sm90::cp_async<16>(sq + h * qrow + q_pc * 16, qb + (h - q_h) * st.qh);
+      }
+      const T* kb = k + b * st.kb + c0 * st.kc;
+      if (col_k >= 0) {              // a fixed piece of every rows_k-th slot
+        for (int c = row_k; c < n; c += rows_k)
+          sm90::cp_async<16>(sk + c * krow + col_k * 16,
+                             kb + c * st.kc + off_k);
+      } else if (col_k == -1) {      // more pieces a slot than threads
+        for (int idx = tid; idx < n * per_slot; idx += kRingThreads) {
+          const int c = idx / per_slot, r = idx - c * per_slot;
+          const int hk = r / P, pc = r - hk * P;
+          sm90::cp_async<16>(sk + c * krow + r * 16,
+                             kb + c * st.kc + hk * st.kh + pc * E);
+        }
+      }
+    }
+    sm90::cp_async_commit();
+  };
+
+  auto compute = [&](int i) {
+    const int b = tb[0], c0 = tc[0], n = min(TS, C - c0);
+    const unsigned char* sq = smem + (i % S) * stage_bytes;
+    const unsigned char* sk = sq + H * qrow;
+    float* sb = s + (long long)b * H * C + c0;
+    // warp: (KV head, 16 heads) pairs, wpp warps a pair, each taking
+    // every wpp-th 16 slots; S^T tile [heads x slots] = Q [heads x Dl]
+    // K^T [Dl x slots], Q's fragments loaded once a pair (the first
+    // kQregs k16 steps) and K's through ldmatrix
+    const int lane = tid & 31;
+    const int g = lane >> 2, t4 = lane & 3, mi = lane >> 3, r8 = lane & 7;
+    const int NJ = (n + 15) / 16;
+    const bool quads = C % 4 == 0;       // float4 stores stay aligned
+    for (int pr = pr0; pr < n_pairs; pr += pr_step) {
+      const int hk = pr / NR, rg = pr - hk * NR;
+      const bool lo_ok = rg * 16 + g < G, hi_ok = rg * 16 + g + 8 < G;
+      const bool two = rg * 16 + 8 < G;  // rows 8..15 hold heads (uniform)
+      // rows past G (or H) read a valid row, then count as zero
+      const int arow = min(hk * G + rg * 16 + r8 + 8 * (mi & 1), H - 1);
+      auto load_a = [&](int kk, uint32_t (&a)[4]) {
+        const bool hi = 16 * kk + 8 < Dl;
+        sm90::ldmatrix_x4(
+            a, sq + arow * qrow + (16 * kk + (hi ? 8 * (mi >> 1) : 0)) * 2,
+            false);
+        if (!lo_ok) a[0] = a[2] = 0u;
+        if (!hi_ok) a[1] = a[3] = 0u;
+        if (!hi) a[2] = a[3] = 0u;
+      };
+      uint32_t aq[kQregs][4];
+#pragma unroll
+      for (int kk = 0; kk < kQregs; ++kk)
+        if (kk < KK) load_a(kk, aq[kk]);
+      for (int j = jw; j < NJ; j += wpp) {
+        const unsigned char* kr =
+            sk + (j * 16 + r8 + 8 * (mi >> 1)) * krow + hk * Dl * 2;
+        float acc[2][4];
+#pragma unroll
+        for (int nt2 = 0; nt2 < 2; ++nt2)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[nt2][e] = 0.f;
+        auto step = [&](int kk, const uint32_t (&a)[4]) {
+          const bool hi = 16 * kk + 8 < Dl;  // a whole k16 step (else k8)
+          uint32_t bk[4];
+          sm90::ldmatrix_x4(
+              bk, kr + (16 * kk + (hi ? 8 * (mi & 1) : 0)) * 2, false);
+          if (!hi) bk[1] = bk[3] = 0u;
+          sm90::mma_m16n8k16(acc[0], a, bk[0], bk[1]);
+          sm90::mma_m16n8k16(acc[1], a, bk[2], bk[3]);
+        };
+#pragma unroll
+        for (int kk = 0; kk < kQregs; ++kk)
+          if (kk < KK) step(kk, aq[kk]);
+        for (int kk = kQregs; kk < KK; ++kk) {
+          uint32_t a[4];
+          load_a(kk, a);
+          step(kk, a);
+        }
+        // lanes t4 and t4 ^ 1 swap a pair, so the even one stores slots
+        // 2 t4 .. 2 t4 + 3 of n8 tile 0 and the odd one slots 8 + 2 (t4 -
+        // 1) .. of tile 1: one 16-byte store a lane and head
+        const bool odd = t4 & 1;
+        const int c = j * 16 + (odd ? 8 + 2 * (t4 - 1) : 2 * t4);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          if (half == 1 && !two) break;
+          const float a0 = acc[0][2 * half] * scale;
+          const float a1 = acc[0][2 * half + 1] * scale;
+          const float b0 = acc[1][2 * half] * scale;
+          const float b1 = acc[1][2 * half + 1] * scale;
+          const float x0 = __shfl_xor_sync(0xffffffffu, odd ? a0 : b0, 1);
+          const float x1 = __shfl_xor_sync(0xffffffffu, odd ? a1 : b1, 1);
+          const float4 q4 = odd ? make_float4(x0, x1, b0, b1)
+                                : make_float4(a0, a1, x0, x1);
+          const int hh = rg * 16 + g + 8 * half;
+          if (hh >= G) continue;
+          float* dst = sb + (long long)(hk * G + hh) * C + c;
+          if (quads && c + 3 < n) {
+            *reinterpret_cast<float4*>(dst) = q4;
+          } else {
+            const float x[4] = {q4.x, q4.y, q4.z, q4.w};
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (c + e < n) dst[e] = x[e];
+          }
+        }
+      }
+    }
+  };
+
+  // tb / tc shift down a place per issue: after issue(i + S - 1), entry 0
+  // holds tile i
+  auto shift = [&]() {
+#pragma unroll
+    for (int j = 0; j < S - 1; ++j) {
+      tb[j] = tb[j + 1];
+      tc[j] = tc[j + 1];
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < S - 1; ++i) {
+    issue(i);
+    shift();
+  }
+  for (int i = 0; i < n_my; ++i) {
+    sm90::cp_async_wait<S - 2>();    // tile i's copies (this thread's) landed
+    __syncthreads();                 // ... everyone's; tile i - 1 is used
+    issue(i + S - 1);                // into tile i - 1's stage
+    compute(i);
+    shift();
+  }
+  sm90::cp_async_wait<0>();
+}
+
+// Pass 2's shared memory: each of the kPvWarps warps' ring of kPvStages
+// stages of
+// [GR][TW + 8] f32 scores and [TW][vrow] V, then (f32) each warp's P
+// [16][16]; at the end the warps' partials [kPvWarps][16][DW] + (m, l)
+// reuse it.
+__host__ __device__ inline int pv_stage_bytes(int G, int Dl, int es,
+                                              int TW) {
+  const int GR = G < kUnitRows ? G : kUnitRows;
+  const int DW = Dl < kUnitDims ? Dl : kUnitDims;
+  return GR * (TW + 8) * 4 + TW * odd16(DW * es);
+}
+
+__host__ __device__ inline int pv_smem_bytes(int G, int Dl, int es,
+                                             int TW) {
+  const int DW = Dl < kUnitDims ? Dl : kUnitDims;
+  const int ring = kPvWarps * kPvStages * pv_stage_bytes(G, Dl, es, TW) +
+                   (es == 4 ? kPvWarps * 16 * 16 * 4 : 0);
+  const int merge = kPvWarps * kUnitRows * (DW + 2) * 4;
+  return ring > merge ? ring : merge;
+}
+
+// A block serves one unit (KV head, group of <= 16 heads, chunk of <= 64
+// dims) of one split of row b: blockIdx.y = (hk * NG + hg) * ND + dc.
+// NW: the bf16 accumulator's n8 tiles (8: 64 dims; 2: 16).
+template <typename T, int NW>
+__global__ void __launch_bounds__(kPvThreads, 4) softmax_pv_ring_kernel(
+    const float* __restrict__ s, const T* __restrict__ v,
+    const int* __restrict__ q_pos, const int* __restrict__ k_pos,
+    T* __restrict__ o, float* __restrict__ part_acc,
+    float* __restrict__ part_ml, int* __restrict__ counters, long long vb_,
+    long long vc_, long long vh_, int C, int Hkv, int G, int Dl, int TW,
+    int n_split, int window) {
+  constexpr int S = kPvStages;
+  constexpr int E = 16 / sizeof(T);
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3, mi = lane >> 3, r8 = lane & 7;
+  const int b = blockIdx.z, split = blockIdx.x;
+  const int H = Hkv * G, NG = (G + 15) / 16, ND = (Dl + 63) / 64;
+  const int GR = min(G, kUnitRows), DW = min(Dl, kUnitDims);
+  // the block's unit
+  const int hg = (blockIdx.y / ND) % NG, dc = blockIdx.y % ND;
+  const int hk = blockIdx.y / (NG * ND);
+  const int h0 = hk * G + hg * kUnitRows, d0 = dc * kUnitDims;
+  const int Gu = min(kUnitRows, G - hg * kUnitRows);
+  const int Dc = min(kUnitDims, Dl - d0), nN = Dc / 8;
+  const int srow = TW + 8;                         // floats a score row
+  const int vrow = odd16(DW * (int)sizeof(T));     // bytes a V row
+  const int sc_bytes = GR * srow * 4;
+  const int stage_bytes = sc_bytes + TW * vrow;
+  unsigned char* ring = smem + warp * S * stage_bytes;
+
+  // this warp's tiles of TW slots: every kPvWarps-th of the split's
+  const int n_tiles = (C + TW - 1) / TW;
+  const int t_lo = (int)((long long)split * n_tiles / n_split) + warp;
+  const int t_hi = (int)((long long)(split + 1) * n_tiles / n_split);
+  const int n_my = t_lo < t_hi ? (t_hi - t_lo + kPvWarps - 1) / kPvWarps : 0;
+  const int qp = q_pos[b];
+  const int* kpb = k_pos + (long long)b * C;
+  const bool vec_s = C % 4 == 0 && reinterpret_cast<uintptr_t>(s) % 16 == 0;
+  auto attended = [&](int kp) {
+    return kp >= 0 && kp <= qp && (window < 0 || kp > qp - window);
+  };
+  // lane l's slot of this warp's u-th tile
+  auto pos = [&](int u) {
+    const int c = (t_lo + kPvWarps * u) * TW + lane;
+    return u < n_my && lane < TW && c < C ? __ldg(kpb + c) : kEmptyPos;
+  };
+  // fixed copy columns, set up once: lane copies V piece col_v of slots
+  // row_v, row_v + rows_v, ... and score piece col_s of rows row_s, row_s
+  // + rows_s, ... of every tile, stepping its pointers
+  const int PW = Dc / E;                           // V pieces a slot
+  const int rows_v = 32 / PW, row_v = lane / PW, col_v = lane - row_v * PW;
+  const int n_v =
+      row_v < rows_v && row_v < TW ? (TW - 1 - row_v) / rows_v + 1 : 0;
+  const int per = vec_s ? TW / 4 : TW;             // score pieces a row
+  const int rows_s = 32 / per, row_s = lane / per, col_s = lane - row_s * per;
+  const int n_s = row_s < Gu ? (Gu - 1 - row_s) / rows_s + 1 : 0;
+  const int first_s = vec_s ? 4 * col_s : col_s;   // its first slot in a row
+  const unsigned bits_s = vec_s ? 0xfu << first_s : 1u << first_s;
+  const float* s_lane = s + ((long long)b * H + h0 + row_s) * C + first_s;
+  const long long s_step = (long long)rows_s * C;
+  const T* v_lane =
+      v + b * vb_ + row_v * vc_ + hk * vh_ + d0 + col_v * E;
+  const long long v_step = rows_v * vc_;
+  const uint32_t ring_u32 = sm90::smem_u32(ring);
+  const uint32_t dst_s = ring_u32 + (row_s * srow + first_s) * 4;
+  const uint32_t dst_v = ring_u32 + sc_bytes + row_v * vrow + col_v * 16;
+
+  // copy the attended slots of this warp's u-th tile into stage u % S
+  // (V rows of the others are zero-filled; scores go by 4-slot pieces);
+  // returns the tile's attended mask (bit l: slot l)
+  auto issue = [&](int u, int kp) {
+    const unsigned mask = __ballot_sync(0xffffffffu, attended(kp));
+    if (mask) {
+      const int c0 = (t_lo + kPvWarps * u) * TW;
+      const uint32_t st = (u % S) * stage_bytes;
+      const bool cp = mask & bits_s;
+      const float* ss = s_lane + c0;
+      uint32_t ds = dst_s + st;
+      for (int k = 0; k < n_s; ++k, ss += s_step, ds += rows_s * srow * 4) {
+        if (vec_s)
+          cp16_or_zero(ds, cp ? ss : s, cp);
+        else
+          cp4_or_zero(ds, cp ? ss : s, cp);
+      }
+      const T* vv = v_lane + c0 * vc_;
+      uint32_t dv = dst_v + st;
+      for (int k = 0, c = row_v; k < n_v;
+           ++k, c += rows_v, vv += v_step, dv += rows_v * vrow) {
+        const bool cv = (mask >> c) & 1u;
+        cp16_or_zero(dv, cv ? vv : v, cv);
+      }
+    }
+    sm90::cp_async_commit();
+    return mask;
+  };
+
+  // the online softmax of heads g and g + 8 (lane-held m; l over this
+  // lane's slots) and acc in the mma C layout (bf16: [n8][4]) or two dims
+  // of every head (f32: [head][2])
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+  float acc[kF32 ? 16 : NW][kF32 ? 2 : 4];
+#pragma unroll
+  for (int a = 0; a < (kF32 ? 16 : NW); ++a)
+#pragma unroll
+    for (int e = 0; e < (kF32 ? 2 : 4); ++e) acc[a][e] = 0.f;
+  float* pw = reinterpret_cast<float*>(smem + kPvWarps * S * stage_bytes) +
+              warp * 16 * 16;                       // f32: P [slot][head]
+  const int KC = TW / 16;
+  const bool two = Gu > 8;           // rows g + 8 hold heads (uniform)
+
+  // this lane's score rows g and g + 8 (a row past Gu reads a valid row
+  // instead; its results are never merged) at its slot 2 t4, and its
+  // ldmatrix row of V
+  const int y_off0 = min(g, GR - 1) * srow + 2 * t4;
+  const int y_off1 = min(g + 8, GR - 1) * srow + 2 * t4;
+  const int v_off = (r8 + 8 * (mi & 1)) * vrow;
+  auto compute = [&](int u, unsigned mask) {
+    const unsigned char* st = ring + (u % S) * stage_bytes;
+    const unsigned char* vs = st + sc_bytes;
+    const float* sr0 = reinterpret_cast<const float*>(st) + y_off0;
+    const float* sr1 = reinterpret_cast<const float*>(st) + y_off1;
+    const unsigned ml = mask >> (2 * t4);
+    // the raw score of (row, slot 16 kc + 2 t4 + {0, 1, 8, 9}), kNegInf
+    // where not attended
+    auto y = [&](const float* sr, int kc, int e) {
+      const int c = 16 * kc + (e & 1) + 8 * (e >> 1);
+      return (ml >> c) & 1u ? sr[c] : kNegInf;
+    };
+    float y0[kMaxKC][4];
+    float mx0 = m0, mx1 = m1;
+#pragma unroll
+    for (int kc = 0; kc < kMaxKC; ++kc) {
+      if (kc < KC) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          y0[kc][e] = y(sr0, kc, e);
+          mx0 = fmaxf(mx0, y0[kc][e]);
+          if (two) mx1 = fmaxf(mx1, y(sr1, kc, e));
+        }
+      }
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    if (two) {
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    }
+    // m0 / m1 stay in score units; log2(e) goes into each exponent's fma
+    const float cr0 = fast_exp2((m0 - mx0) * kLog2e);
+    const float cr1 = fast_exp2((m1 - mx1) * kLog2e);
+    m0 = mx0;
+    m1 = mx1;
+    const float nm0 = -mx0 * kLog2e, nm1 = -mx1 * kLog2e;
+    l0 *= cr0;
+    l1 *= cr1;
+    if constexpr (kF32) {
+      if (t4 == 0) {                                // rescale every head
+        pw[g] = cr0;
+        pw[g + 8] = cr1;
+      }
+      __syncwarp();
+#pragma unroll
+      for (int h = 0; h < 16; ++h) {
+        const float cr = pw[h];
+        acc[h][0] *= cr;
+        acc[h][1] *= cr;
+      }
+      __syncwarp();
+    } else {
+#pragma unroll
+      for (int j = 0; j < NW; ++j) {
+        acc[j][0] *= cr0;
+        acc[j][1] *= cr0;
+        if (two) {
+          acc[j][2] *= cr1;
+          acc[j][3] *= cr1;
+        }
+      }
+    }
+    // p = exp(score - m); a masked slot gives exactly 0 (never
+    // exp2(kNegInf - kNegInf))
+    auto prob = [&](float yv, float nm) {
+      return yv != kNegInf ? fast_exp2(fmaf(yv, kLog2e, nm)) : 0.f;
+    };
+#pragma unroll
+    for (int kc = 0; kc < kMaxKC; ++kc) {
+      if (kc >= KC) break;
+      float p[2][4];                 // [row g / g + 8][slot 2t4 + {0,1,8,9}]
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        p[0][e] = prob(y0[kc][e], nm0);
+        l0 += p[0][e];
+        p[1][e] = 0.f;
+        if (two) {
+          p[1][e] = prob(y(sr1, kc, e), nm1);
+          l1 += p[1][e];
+        }
+      }
+      if constexpr (kF32) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = 2 * t4 + (e & 1) + 8 * (e >> 1);
+          pw[c * 16 + g] = p[0][e];
+          pw[c * 16 + g + 8] = p[1][e];
+        }
+        __syncwarp();
+        const int vr = vrow / 4;
+        const float* vf = reinterpret_cast<const float*>(vs) + 16 * kc * vr;
+        for (int c = 0; c < 16; ++c) {
+          const float v0 = lane < Dc ? vf[c * vr + lane] : 0.f;
+          const float v1 = lane + 32 < Dc ? vf[c * vr + lane + 32] : 0.f;
+#pragma unroll
+          for (int h4 = 0; h4 < 16; h4 += 4) {
+            const float4 pp =
+                *reinterpret_cast<const float4*>(pw + c * 16 + h4);
+            const float ph[4] = {pp.x, pp.y, pp.z, pp.w};
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              acc[h4 + e][0] = fmaf(ph[e], v0, acc[h4 + e][0]);
+              acc[h4 + e][1] = fmaf(ph[e], v1, acc[h4 + e][1]);
+            }
+          }
+        }
+        __syncwarp();
+      } else {
+        const uint32_t a[4] = {sm90::pack_bf16(p[0][0], p[0][1]),
+                               two ? sm90::pack_bf16(p[1][0], p[1][1]) : 0u,
+                               sm90::pack_bf16(p[0][2], p[0][3]),
+                               two ? sm90::pack_bf16(p[1][2], p[1][3]) : 0u};
+        const unsigned char* vr = vs + 16 * kc * vrow + v_off;
+#pragma unroll
+        for (int j = 0; j < NW; j += 2) {
+          if (j < nN) {
+            uint32_t bv[4];
+            sm90::ldmatrix_x4(
+                bv, vr + (8 * j + (j + 1 < nN ? 8 * (mi >> 1) : 0)) * 2,
+                true);
+            sm90::mma_m16n8k16(acc[j], a, bv[0], bv[1]);
+            if (j + 1 < NW && j + 1 < nN)
+              sm90::mma_m16n8k16(acc[j + 1], a, bv[2], bv[3]);
+          }
+        }
+      }
+    }
+  };
+
+  // the ring, as split_decode.cuh's decode_block_mma, each warp on its
+  // own: a tile's positions are loaded kPvAhead tiles ahead of its copies,
+  // its copies S - 1 tiles ahead of its use
+  unsigned ok[S];
+  int kq[kPvAhead];                  // positions of tiles u + S - 1 + j
+  {
+    int kp[S - 1];
+#pragma unroll
+    for (int i = 0; i < S - 1; ++i) kp[i] = pos(i);
+#pragma unroll
+    for (int j = 0; j < kPvAhead; ++j) kq[j] = pos(S - 1 + j);
+#pragma unroll
+    for (int i = 0; i < S - 1; ++i) ok[i] = issue(i, kp[i]);
+  }
+  for (int u = 0; u < n_my; ++u) {
+    __syncwarp();                    // stage (u - 1) % S is read: refill it
+    ok[S - 1] = issue(u + S - 1, kq[0]);
+#pragma unroll
+    for (int j = 0; j < kPvAhead - 1; ++j) kq[j] = kq[j + 1];
+    kq[kPvAhead - 1] = pos(u + S - 1 + kPvAhead);
+    sm90::cp_async_wait<S - 1>();
+    __syncwarp();                    // the warp's copies of tile u landed
+    const unsigned mask = ok[0];
+#pragma unroll
+    for (int i = 0; i < S - 1; ++i) ok[i] = ok[i + 1];
+    if (mask) compute(u, mask);
+  }
+  sm90::cp_async_wait<0>();
+  __syncthreads();                   // the rings are free: merge the warps
+
+  float* a_s = reinterpret_cast<float*>(smem);     // [warp][16][DW]
+  float* m_s = a_s + kPvWarps * kUnitRows * DW;    // [warp][16]
+  float* l_s = m_s + kPvWarps * kUnitRows;         // [warp][16]
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  {
+    float* aw = a_s + warp * kUnitRows * DW;
+    if constexpr (kF32) {
+#pragma unroll
+      for (int h = 0; h < 16; ++h) {
+        if (lane < Dc) aw[h * DW + lane] = acc[h][0];
+        if (lane + 32 < Dc) aw[h * DW + lane + 32] = acc[h][1];
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < NW; ++j) {
+        const int d = 8 * j + 2 * t4;
+        if (d < Dc) {
+          aw[g * DW + d] = acc[j][0];
+          aw[g * DW + d + 1] = acc[j][1];
+          aw[(g + 8) * DW + d] = acc[j][2];
+          aw[(g + 8) * DW + d + 1] = acc[j][3];
+        }
+      }
+    }
+    if (t4 == 0) {                   // m in log2 units from here on
+      m_s[warp * kUnitRows + g] = m0 * kLog2e;
+      l_s[warp * kUnitRows + g] = l0;
+      m_s[warp * kUnitRows + g + 8] = m1 * kLog2e;
+      l_s[warp * kUnitRows + g + 8] = l1;
+    }
+  }
+  __syncthreads();
+
+  // the warps -> this split's partial (or o); element (r, d)
+  const long long blk = (long long)b * gridDim.y + blockIdx.y;
+  const int per_unit = kUnitRows * kUnitDims;
+  float* pa = part_acc + blk * n_split * per_unit;
+  float* pm = part_ml + blk * n_split * kUnitRows * 2;
+  T* ob = o + ((long long)b * H + h0) * Dl + d0;
+  for (int idx = tid; idx < Gu * Dc; idx += kPvThreads) {
+    const int r = idx / Dc, d = idx - r * Dc;
+    float mx = kNegInf;
+    for (int w = 0; w < kPvWarps; ++w)
+      mx = fmaxf(mx, m_s[w * kUnitRows + r]);
+    float L = 0.f, A = 0.f;
+    for (int w = 0; w < kPvWarps; ++w) {
+      const float wt = exp2f(m_s[w * kUnitRows + r] - mx);
+      L = fmaf(l_s[w * kUnitRows + r], wt, L);
+      A = fmaf(a_s[(w * kUnitRows + r) * DW + d], wt, A);
+    }
+    if (n_split == 1) {
+      ob[(long long)r * Dl + d] = from_f32<T>(A / fmaxf(L, 1e-30f));
+    } else {
+      pa[split * per_unit + r * kUnitDims + d] = A;
+      if (d == 0) {
+        pm[(split * kUnitRows + r) * 2] = mx;
+        pm[(split * kUnitRows + r) * 2 + 1] = L;
+      }
+    }
+  }
+  if (n_split == 1) return;
+
+  // the last split of this (b, unit) to finish merges all of them
+  __shared__ int last;
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(counters + blk, 1) == n_split - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (int idx = tid; idx < Gu * Dc; idx += kPvThreads) {
+    const int r = idx / Dc, d = idx - r * Dc;
+    float mx = kNegInf;
+    for (int sp = 0; sp < n_split; ++sp)
+      mx = fmaxf(mx, __ldcg(pm + (sp * kUnitRows + r) * 2));
+    float L = 0.f, A = 0.f;
+    for (int sp = 0; sp < n_split; ++sp) {   // every split's partial
+      const float wt = exp2f(__ldcg(pm + (sp * kUnitRows + r) * 2) - mx);
+      L = fmaf(__ldcg(pm + (sp * kUnitRows + r) * 2 + 1), wt, L);
+      A = fmaf(__ldcg(pa + sp * per_unit + r * kUnitDims + d), wt, A);
+    }
+    ob[(long long)r * Dl + d] = from_f32<T>(A / fmaxf(L, 1e-30f));
+  }
+  if (tid == 0) counters[blk] = 0;   // ready for the next launch
+}
+
+// The ring bodies' preconditions: 16-byte copies of every row piece.
+template <typename T>
+bool ring_fits(const void* p, int Dl,
+               std::initializer_list<long long> strides) {
+  constexpr int E = 16 / sizeof(T);
+  if (!aligned16(p) || Dl % E) return false;
+  for (long long st : strides)
+    if (st % E) return false;
+  return true;
+}
+
+cudaError_t launch_scores_ring(const void* q, const void* k, void* s,
+                               const Strides& st, int B, int C, int Hkv,
+                               int G, int Dl, int TS, int blocks, float scale,
+                               cudaStream_t stream) {
+  using T = __nv_bfloat16;
+  if (!ring_fits<T>(q, Dl, {st.qb, st.qh}) ||
+      !ring_fits<T>(k, Dl, {st.kb, st.kc, st.kh}) || TS < 16 || TS % 16 ||
+      blocks < 1)
+    return cudaErrorInvalidValue;
+  const long long smem = (long long)kScoresStages *
+                         scores_stage_bytes(Hkv * G, Hkv, Dl, sizeof(T), TS);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  auto run = [&](auto kernel) {
+    cudaError_t err = allow_smem(kernel, (size_t)smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<blocks, kRingThreads, (size_t)smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<float*>(s), st, B, C, Hkv, G, Dl, TS, scale);
+    return cudaGetLastError();
+  };
+  return run(scores_ring_kernel);
+}
+
+template <typename T>
+cudaError_t launch_softmax_pv_ring(
+    const void* s, const void* v, const void* q_pos, const void* k_pos,
+    void* o, void* part_acc, void* part_ml, void* counters, long long vb,
+    long long vc, long long vh, int B, int C, int Hkv, int G, int Dl, int TW,
+    int n_split, int window, cudaStream_t stream) {
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  const int gy = Hkv * ((G + 15) / 16) * ((Dl + 63) / 64);
+  if (!ring_fits<T>(v, Dl, {vb, vc, vh}) || (TW != 16 && TW != 32) ||
+      gy > 65535 || n_split > (C + TW - 1) / TW)
+    return cudaErrorInvalidValue;
+  const int smem = pv_smem_bytes(G, Dl, sizeof(T), TW);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  const dim3 grid(n_split, gy, B);
+  auto run = [&](auto kernel) {
+    cudaError_t err = allow_smem(kernel, (size_t)smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, kPvThreads, (size_t)smem, stream>>>(
+        static_cast<const float*>(s), static_cast<const T*>(v),
+        static_cast<const int*>(q_pos), static_cast<const int*>(k_pos),
+        static_cast<T*>(o), static_cast<float*>(part_acc),
+        static_cast<float*>(part_ml), static_cast<int*>(counters), vb, vc,
+        vh, C, Hkv, G, Dl, TW, n_split, window);
+    return cudaGetLastError();
+  };
+  // the bf16 accumulator: 8 n8 tiles (64 dims), or 2 for <= 16 dims
+  if (kF32 || Dl > 16) return run(softmax_pv_ring_kernel<T, 8>);
+  return run(softmax_pv_ring_kernel<T, 2>);
+}
+
 bool bad_sizes(int B, int C, int Hkv, int G, int Dl, int ND) {
   return B < 1 || C < 1 || Hkv < 1 || G < 1 || Dl < 1 || B > 65535 ||
          (long long)Hkv * sd::head_groups(G) * ND > 65535;
@@ -563,5 +1287,65 @@ extern "C" const char* decode_scores_error_string(int err) {
 }
 
 extern "C" const char* decode_softmax_pv_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// The ring bodies (see the header).  decode_scores_ring: the arguments of
+// decode_scores (bfloat16 only: dtype 1), then tile (TS slots, a multiple
+// of 16) and blocks (the persistent grid).
+// decode_softmax_pv_ring: those of decode_softmax_pv, then tile (TW, 16 or
+// 32 slots a warp's tile); with
+// n_split > 1, over gy = Hkv * ceil(G / 16) * ceil(Dl / 64) units (a block
+// each) a row: part_acc float32 [B, gy, n_split, 16, 64], part_ml float32
+// [B, gy, n_split, 16, 2] and counters int32 [B * gy], all 0
+// before the first launch (each launch leaves them 0).  Both need q / k /
+// v 16-byte aligned, Dl * sizeof(T) and every stride's bytes multiples of
+// 16; they return cudaErrorInvalidValue otherwise.
+extern "C" int decode_scores_ring(const void* q, const void* k, void* s,
+                                  long long q_sb, long long q_sh,
+                                  long long k_sb, long long k_sc,
+                                  long long k_sh, int B, int C, int Hkv,
+                                  int G, int Dl, int tile, int blocks,
+                                  float scale, int dtype, int device,
+                                  void* stream) {
+  if (bad_sizes(B, C, Hkv, G, Dl, 1)) return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const Strides st{q_sb, q_sh, k_sb, k_sc, k_sh};
+  auto cs = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return launch_scores_ring(q, k, s, st, B, C, Hkv, G, Dl, tile, blocks,
+                              scale, cs);
+  return cudaErrorInvalidValue;
+}
+
+extern "C" int decode_softmax_pv_ring(
+    const void* s, const void* v, const void* q_pos, const void* k_pos,
+    void* o, void* part_acc, void* part_ml, void* counters, long long v_sb,
+    long long v_sc, long long v_sh, int B, int C, int Hkv, int G, int Dl,
+    int n_split, int window, int tile, int dtype, int device,
+    void* stream) {
+  if (bad_sizes(B, C, Hkv, G, Dl, 1) || n_split < 1 ||
+      (n_split > 1 && (!part_acc || !part_ml || !counters)))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  auto cs = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_softmax_pv_ring<float>(
+        s, v, q_pos, k_pos, o, part_acc, part_ml, counters, v_sb, v_sc, v_sh,
+        B, C, Hkv, G, Dl, tile, n_split, window, cs);
+  if (dtype == 1)
+    return launch_softmax_pv_ring<__nv_bfloat16>(
+        s, v, q_pos, k_pos, o, part_acc, part_ml, counters, v_sb, v_sc, v_sh,
+        B, C, Hkv, G, Dl, tile, n_split, window, cs);
+  return cudaErrorInvalidValue;
+}
+
+extern "C" const char* decode_scores_ring_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+extern "C" const char* decode_softmax_pv_ring_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -20,12 +20,20 @@ head's dims) runs as two passes, ``csrc/decode_hd.cu``: ``decode_scores``
 (the slice's partial scaled q . k, float32 ``[B, H, C]``), summed over the
 ranks by the caller, then ``decode_softmax_pv`` (K3's masks, the softmax
 and p . v on the slice).  They have no limit on D, so ``decode_attention``
-runs D > 256 as the two passes over one slice.  Each counts its launches
-in ``decode_scores.launches`` / ``decode_softmax_pv.launches``.
+runs D > 256 as the two passes over one slice.  Each pass has two bodies,
+chosen by ``_variant``: ``"ring"`` (cp.async rings of shared-memory
+stages; pass 1 on persistent blocks with bf16 products on the tensor
+cores, bfloat16 only; pass 2 a ring a warp) wherever 16-byte copies fit,
+and ``"simt"`` (the first design's CUDA-core bodies) for the rest, such
+as a slice of 5 dims or pass 1 in float32.  ``_scores_geometry`` and
+``_pv_geometry`` size the ring's launches.  Each pass counts its launches
+in ``decode_scores.launches`` / ``decode_softmax_pv.launches`` and, per
+body, in ``.launches_by_variant``.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Dict, Optional
 
@@ -45,6 +53,19 @@ PV_TILE = 32           # slots a tile of decode_softmax_pv (decode_hd.cu)
 PV_CHUNK = 64          # dims a block of decode_softmax_pv serves
 MIN_PV_TILES = 4       # tiles a split of decode_softmax_pv holds at least
 PV_WAVES = 8           # blocks per SM decode_softmax_pv aims for
+# the ring bodies of the two passes (decode_hd.cu)
+RING_K_STAGE = 16384   # bytes of K a pass-1 stage holds at most
+RING_PV_STAGE = 6144   # bytes a pass-2 stage holds at most with 32 slots
+RING_MAX_TILE = 512    # slots a pass-1 tile holds at most
+SCORES_STAGES = 3      # stages of a pass-1 block's ring (decode_hd.cu)
+RING_PV_BLOCKS = 4     # pass-2 blocks an SM holds at most (registers)
+PV_WARPS, PV_STAGES = 4, 3      # pass 2: warps a block, stages a warp
+MIN_RING_TILES = 2 * PV_WARPS   # tiles a pass-2 split holds at least
+SCORES_RING_DTYPES = (torch.bfloat16,)   # the pass-1 ring body's
+UNIT_ROWS, UNIT_DIMS = 16, 64   # heads and dims of a pass-2 unit
+MAX_SMEM = 231424      # dynamic shared memory a ring block asks for at most
+SM_SMEM = 233472       # shared memory of an SM (228 KB)
+SMEM_RESERVED = 1024   # of it, reserved per resident block
 
 __all__ = ["decode_attention", "decode_attention_ref", "decode_scores",
            "decode_scores_ref", "decode_softmax_pv", "decode_softmax_pv_ref"]
@@ -242,6 +263,80 @@ decode_attention.last_n_split = None
 
 
 # ------------------------------------------------- a head-dim-split cache
+def _odd16(n_bytes: int) -> int:
+    """A staged row of ``n_bytes``: an odd number of 16-byte pieces
+    (decode_hd.cu ``odd16``), so 8 rows read together meet no bank
+    conflict."""
+    return 16 * ((n_bytes // 16) | 1)
+
+
+@functools.lru_cache(maxsize=256)
+def _scores_geometry(B: int, C: int, H: int, Hkv: int, Dl: int, es: int,
+                     n_sm: int = N_SM) -> Optional[Dict[str, int]]:
+    """Pass 1's ring launch: ``tile`` slots a tile (a power of two, 16 to
+    RING_MAX_TILE, the most whose K rows fit RING_K_STAGE bytes, halved
+    while the rows' tiles fill fewer than half the SMs), SCORES_STAGES
+    stages of ``smem`` bytes in all (4 measured no faster on the H100), and
+    ``blocks`` persistent blocks (2 an SM where two fit, never more than
+    the tiles).  None where no ring fits a block's shared memory."""
+    slot = Hkv * Dl * es
+    tile = 16
+    while tile < RING_MAX_TILE and 2 * tile * slot <= RING_K_STAGE:
+        tile *= 2
+    while tile > 16 and 2 * B * -(-C // tile) < n_sm:
+        tile //= 2
+    smem = SCORES_STAGES * (H * _odd16(Dl * es) + tile * _odd16(slot))
+    for per_sm in (2, 1):
+        if smem <= MAX_SMEM and per_sm * (smem + SMEM_RESERVED) <= SM_SMEM:
+            return dict(tile=tile, smem=smem,
+                        blocks=min(B * -(-C // tile), per_sm * n_sm))
+    return None
+
+
+@functools.lru_cache(maxsize=256)
+def _pv_geometry(B: int, C: int, H: int, Hkv: int, Dl: int, es: int,
+                 n_sm: int = N_SM) -> Optional[Dict[str, int]]:
+    """Pass 2's ring launch.  A block serves one unit (KV head, group of
+    <= 16 heads, chunk of <= 64 dims) of a split of a row, ``gy`` units a
+    row; each of its PV_WARPS warps walks its own tiles of ``tile`` slots
+    (32 where a stage of them holds at most RING_PV_STAGE bytes, else 16)
+    through its own ring of PV_STAGES stages; ``smem`` bytes a block;
+    ``blocks_per_sm`` the blocks an SM holds (the waves ``_num_splits``
+    fills).  None where no ring fits."""
+    G = H // Hkv
+    gy = Hkv * -(-G // UNIT_ROWS) * -(-Dl // UNIT_DIMS)
+    gr, dw = min(G, UNIT_ROWS), min(Dl, UNIT_DIMS)
+
+    def stage(tile):
+        return gr * (tile + 8) * 4 + tile * _odd16(dw * es)
+
+    tile = 32 if stage(32) <= RING_PV_STAGE else 16
+    smem = max(PV_WARPS * PV_STAGES * stage(tile)
+               + (PV_WARPS * 16 * 16 * 4 if es == 4 else 0),
+               PV_WARPS * UNIT_ROWS * (dw + 2) * 4)
+    if smem > MAX_SMEM:
+        return None
+    return dict(gy=gy, tile=tile, smem=smem,
+                blocks_per_sm=max(1, min(RING_PV_BLOCKS,
+                                         SM_SMEM // (smem + SMEM_RESERVED))))
+
+
+def _variant(dtype: torch.dtype, Dl: int, tensors, fits: bool = True,
+             dtypes=(torch.float32, torch.bfloat16)) -> str:
+    """The body that serves a pass: ``"ring"`` for the ``dtypes`` its ring
+    body takes where 16-byte copies reach every row piece (``Dl`` elements
+    of ``dtype`` a multiple of 16 bytes, each tensor 16-byte aligned with
+    every stride but the last a multiple of 16 bytes) and its ring ``fits``
+    a block; else ``"simt"``."""
+    es = torch.finfo(dtype).bits // 8
+    if dtype not in dtypes or not fits or (Dl * es) % 16:
+        return "simt"
+    for t in tensors:
+        if t.data_ptr() % 16 or any((st * es) % 16 for st in t.stride()[:-1]):
+            return "simt"
+    return "ring"
+
+
 def _hd_lib() -> ctypes.CDLL:
     lib = _build.load("decode_hd")
     fn = lib.decode_scores
@@ -254,6 +349,17 @@ def _hd_lib() -> ctypes.CDLL:
         fn = lib.decode_softmax_pv
         fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 3
                        + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        # the ring bodies: the same, plus their geometry
+        fn = lib.decode_scores_ring
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 5
+                       + [ctypes.c_int] * 7
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        fn = lib.decode_softmax_pv_ring
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 3
+                       + [ctypes.c_int] * 10 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
 
@@ -300,15 +406,53 @@ def decode_scores(
     if not _on_card("decode_scores", q, k):
         return decode_scores_ref(q, k, scale=scale)
     _last_dim_dense("decode_scores", q, k)
-    s = torch.empty((B, H, C), dtype=torch.float32, device=q.device)
-    lib = _hd_lib()
-    err = lib.decode_scores(
-        q.data_ptr(), k.data_ptr(), s.data_ptr(), q.stride(0), q.stride(1),
-        k.stride(0), k.stride(1), k.stride(2), B, C, Hkv, H // Hkv, Dl,
-        float(scale), _DTYPES[q.dtype], q.device.index or 0,
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(lib, "decode_scores", err)
+    variant = _scores_variant(q, k)
+    s = _launch_scores(q, k, scale, variant)
     decode_scores.launches += 1
+    decode_scores.launches_by_variant[variant] += 1
+    return s
+
+
+def _scores_variant(q: torch.Tensor, k: torch.Tensor) -> str:
+    """Pass 1's body: the ring takes bfloat16 only (its float32 dots on
+    the CUDA cores measured slower than the first design's, PERF.md)."""
+    B, H, Dl = q.shape
+    _, C, Hkv, _ = k.shape
+    geo = _scores_geometry(B, C, H, Hkv, Dl, q.element_size(),
+                           _sm_count(q.device))
+    return _variant(q.dtype, Dl, (q, k), geo is not None,
+                    dtypes=SCORES_RING_DTYPES)
+
+
+def _launch_scores(q: torch.Tensor, k: torch.Tensor, scale: float,
+                   variant: str) -> torch.Tensor:
+    """Pass 1's ``variant`` body on CUDA tensors that ``decode_scores``
+    has checked; not counted (the wrapper counts, and ``chip_smoke.py``
+    holds each body to the plain version through it)."""
+    B, H, Dl = q.shape
+    _, C, Hkv, _ = k.shape
+    if variant == "ring":
+        geo = _scores_geometry(B, C, H, Hkv, Dl, q.element_size(),
+                               _sm_count(q.device))
+        if geo is None or _variant(q.dtype, Dl, (q, k),
+                                   dtypes=SCORES_RING_DTYPES) != "ring":
+            raise ValueError(f"decode_scores: the ring body does not take "
+                             f"q {tuple(q.shape)} k {tuple(k.shape)}")
+    s = torch.empty((B, H, C), dtype=torch.float32, device=q.device)
+    head = (q.data_ptr(), k.data_ptr(), s.data_ptr(), q.stride(0),
+            q.stride(1), k.stride(0), k.stride(1), k.stride(2), B, C, Hkv,
+            H // Hkv, Dl)
+    tail = (float(scale), _DTYPES[q.dtype], q.device.index or 0,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    lib = _hd_lib()
+    if variant == "ring":
+        name = "decode_scores_ring"
+        err = lib.decode_scores_ring(*head, geo["tile"], geo["blocks"],
+                                     *tail)
+    else:
+        name = "decode_scores"
+        err = lib.decode_scores(*head, *tail)
+    _build.check(lib, name, err)
     return s
 
 
@@ -342,30 +486,80 @@ def decode_softmax_pv(
     if not all(t.is_contiguous() for t in (s, q_pos, k_pos)):
         raise ValueError("decode_softmax_pv: s, q_pos and k_pos must be "
                          "contiguous")
-    G = H // Hkv
-    ND = -(-Dl // PV_CHUNK)     # chunks of dims, a block each
-    # a block walks its tiles one at a time, so an SM needs several
-    # (PV_WAVES) to keep HBM busy; about 4 fit an SM at once, so the count
-    # is rounded down to whole waves
-    n_split = _num_splits(B, Hkv * ND * _head_groups(G)[0], C,
-                          _sm_count(s.device), waves=PV_WAVES,
-                          force=_num_splits.force, min_tiles=MIN_PV_TILES,
-                          tile=PV_TILE, round_down=True)
-    o = torch.empty((B, H, Dl), dtype=v.dtype, device=v.device)
-    scratch = _split_scratch(B, Hkv * ND, G, PV_CHUNK, n_split, v.device)
-    lib = _hd_lib()
-    err = lib.decode_softmax_pv(
-        s.data_ptr(), v.data_ptr(), q_pos.data_ptr(), k_pos.data_ptr(),
-        o.data_ptr(), *(0 if t is None else t.data_ptr() for t in scratch),
-        v.stride(0), v.stride(1), v.stride(2), B, C, Hkv, G, Dl, n_split,
-        -1 if window is None else int(window), _DTYPES[v.dtype],
-        v.device.index or 0, torch.cuda.current_stream(v.device).cuda_stream)
-    _build.check(lib, "decode_softmax_pv", err)
+    variant = _variant(v.dtype, Dl, (v,), _pv_geometry(
+        B, C, H, Hkv, Dl, v.element_size(), _sm_count(v.device)) is not None)
+    o, n_split = _launch_softmax_pv(s, v, q_pos, k_pos, window, variant)
     decode_softmax_pv.launches += 1
+    decode_softmax_pv.launches_by_variant[variant] += 1
     decode_softmax_pv.last_n_split = n_split
     return o
 
 
+def _launch_softmax_pv(s: torch.Tensor, v: torch.Tensor,
+                       q_pos: torch.Tensor, k_pos: torch.Tensor,
+                       window: Optional[int], variant: str):
+    """Pass 2's ``variant`` body on CUDA tensors that ``decode_softmax_pv``
+    has checked; returns ``(o, n_split)``, not counted."""
+    B, H, C = s.shape
+    _, _, Hkv, Dl = v.shape
+    G = H // Hkv
+    n_sm = _sm_count(s.device)
+    if variant == "ring":
+        geo = _pv_geometry(B, C, H, Hkv, Dl, v.element_size(), n_sm)
+        if geo is None or _variant(v.dtype, Dl, (v,)) != "ring":
+            raise ValueError(f"decode_softmax_pv: the ring body does not "
+                             f"take v {tuple(v.shape)}")
+    o = torch.empty((B, H, Dl), dtype=v.dtype, device=v.device)
+    if variant == "ring":
+        # whole waves of the blocks an SM holds, >= 2 tiles a warp
+        n_split = _num_splits(B, geo["gy"], C, n_sm,
+                              waves=geo["blocks_per_sm"],
+                              force=_num_splits.force,
+                              min_tiles=MIN_RING_TILES, tile=geo["tile"],
+                              round_down=True)
+        scratch = _ring_scratch(B, geo["gy"], n_split, v.device)
+    else:
+        ND = -(-Dl // PV_CHUNK)     # chunks of dims, a block each
+        # a block walks its tiles one at a time, so an SM needs several
+        # (PV_WAVES) to keep HBM busy; about 4 fit an SM at once, so the
+        # count is rounded down to whole waves
+        n_split = _num_splits(B, Hkv * ND * _head_groups(G)[0], C, n_sm,
+                              waves=PV_WAVES, force=_num_splits.force,
+                              min_tiles=MIN_PV_TILES, tile=PV_TILE,
+                              round_down=True)
+        scratch = _split_scratch(B, Hkv * ND, G, PV_CHUNK, n_split, v.device)
+    head = (s.data_ptr(), v.data_ptr(), q_pos.data_ptr(), k_pos.data_ptr(),
+            o.data_ptr(), *(0 if t is None else t.data_ptr() for t in scratch),
+            v.stride(0), v.stride(1), v.stride(2), B, C, Hkv, G, Dl, n_split,
+            -1 if window is None else int(window))
+    tail = (_DTYPES[v.dtype], v.device.index or 0,
+            torch.cuda.current_stream(v.device).cuda_stream)
+    lib = _hd_lib()
+    if variant == "ring":
+        name = "decode_softmax_pv_ring"
+        err = lib.decode_softmax_pv_ring(*head, geo["tile"], *tail)
+    else:
+        name = "decode_softmax_pv"
+        err = lib.decode_softmax_pv(*head, *tail)
+    _build.check(lib, name, err)
+    return o, n_split
+
+
+def _ring_scratch(B: int, gy: int, n_split: int, device: torch.device):
+    """The ring body's merge scratch: per (row, unit) and split, fp32 acc
+    [16, 64] and (m, l) [16, 2], and the tickets; ``(None,) * 3`` for one
+    split."""
+    if n_split == 1:
+        return None, None, None
+    blocks = B * gy * n_split * UNIT_ROWS
+    return (torch.empty(blocks * UNIT_DIMS, dtype=torch.float32,
+                        device=device),
+            torch.empty(blocks * 2, dtype=torch.float32, device=device),
+            _counters(device, B * gy))
+
+
 decode_scores.launches = 0
+decode_scores.launches_by_variant = {"ring": 0, "simt": 0}
 decode_softmax_pv.launches = 0
+decode_softmax_pv.launches_by_variant = {"ring": 0, "simt": 0}
 decode_softmax_pv.last_n_split = None

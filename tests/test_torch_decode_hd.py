@@ -8,9 +8,14 @@ are summed (in place of the all-reduce over ranks), pass 2 runs per slice
 and the outputs are concatenated.  The same numpy inputs, made from a seed,
 go through JAX's ``repro.kernels.decode_attention.ref.decode_attention_ref``
 over the whole head dim.  Tolerance: 2e-5 in float32
-(``tests/test_kernels.py::_tol``).  The CUDA kernels are held to the plain
-versions on the card by the ``gpu`` test below and by ``chip_smoke.py``;
-the ``gpu`` test imports no JAX, so on a card without JAX::
+(``tests/test_kernels.py::_tol``).  Each pass has two CUDA bodies (the
+cp.async "ring" and the first design's "simt"); the pure-Python parts
+around them are tested here: the ring launches' geometry
+(``_scores_geometry``, ``_pv_geometry``), ``_variant``'s choice of body,
+and the refusal of bad inputs at a slice either body takes.  The CUDA
+kernels are held to the plain versions on the card by the ``gpu`` test
+below (both bodies) and by ``chip_smoke.py``; the ``gpu`` test imports no
+JAX, so on a card without JAX::
 
     PYTHONPATH=src python -m pytest --noconftest -q -m gpu \\
         tests/test_torch_decode_hd.py
@@ -134,18 +139,18 @@ def test_wrappers_run_the_plain_versions_on_cpu_and_meta():
     assert (decode_scores.launches, decode_softmax_pv.launches) == before
 
 
-def _bad(name):
+def _bad(name, Dl=8):
     """(function, args, kwargs, message) of an input each wrapper
-    refuses."""
-    q = torch.zeros(2, 6, 8)
-    k = torch.zeros(2, 5, 2, 8)
+    refuses, at a slice of ``Dl`` dims."""
+    q = torch.zeros(2, 6, Dl)
+    k = torch.zeros(2, 5, 2, Dl)
     s = torch.zeros(2, 6, 5)
     qp = torch.zeros(2, dtype=torch.int32)
     kp = torch.zeros(2, 5, dtype=torch.int32)
     sc = dict(scale=1.0)
     return {
         "scores rows": (decode_scores, (q, k[:1]), sc, "shapes"),
-        "scores dims": (decode_scores, (q, k[..., :4]), sc, "shapes"),
+        "scores dims": (decode_scores, (q, k[..., :Dl // 2]), sc, "shapes"),
         "scores groups": (decode_scores, (q[:, :5], k), sc, "H % Hkv"),
         "scores dtypes": (decode_scores, (q, k.bfloat16()), sc, "dtypes"),
         "scores float16": (decode_scores, (q.half(), k.half()), sc,
@@ -184,6 +189,149 @@ def test_wrappers_refuse_bad_inputs(name):
         fn(*args, **kwargs)
 
 
+BAD = ["scores rows", "scores dims", "scores groups", "scores dtypes",
+       "scores float16", "scores devices", "pv slots", "pv groups",
+       "pv q_pos shape", "pv k_pos shape", "pv scores bf16", "pv float16",
+       "pv q_pos int64", "pv k_pos int64", "pv devices"]
+
+
+@pytest.mark.parametrize("name", BAD)
+@pytest.mark.parametrize("Dl,body", [(8, "ring"), (5, "simt")])
+def test_wrappers_refuse_bad_inputs_for_either_body(name, Dl, body):
+    """The wrappers check their inputs before they choose a body: the same
+    refusals at a slice that pass 2's ring body takes (8 dims of float32,
+    32 bytes) and at one that only PR 22's body takes (5 dims, 20 bytes)."""
+    q, k = torch.zeros(2, 6, Dl), torch.zeros(2, 5, 2, Dl)
+    assert ops._variant(q.dtype, Dl, (q, k)) == body
+    fn, args, kwargs, msg = _bad(name, Dl)
+    with pytest.raises(ValueError, match=msg):
+        fn(*args, **kwargs)
+
+
+def test_ring_launches_refuse_what_the_ring_cannot_take(monkeypatch):
+    """Launching the ring body on a slice that 16-byte copies cannot reach
+    (5 dims) raises before anything reaches the card."""
+    monkeypatch.setattr(ops, "_sm_count", lambda device: 132)
+    q, k = torch.zeros(2, 6, 5), torch.zeros(2, 5, 2, 5)
+    s = torch.zeros(2, 6, 5)
+    pos = torch.zeros(2, dtype=torch.int32)
+    kp = torch.zeros(2, 5, dtype=torch.int32)
+    with pytest.raises(ValueError, match="ring body does not take"):
+        ops._launch_scores(q, k, 1.0, "ring")
+    with pytest.raises(ValueError, match="ring body does not take"):
+        ops._launch_softmax_pv(s, k, pos, kp, None, "ring")
+
+
+def _view(shape, dtype, offset=0, pad=0):
+    """A view of ``shape`` inside a larger buffer: its last dim padded by
+    ``pad`` elements and its start moved by ``offset`` elements."""
+    whole = torch.zeros(*shape[:-1], shape[-1] + pad, dtype=dtype)
+    flat = torch.zeros(whole.numel() + offset, dtype=dtype)
+    return flat[offset:].view(whole.shape)[..., :shape[-1]]
+
+
+@pytest.mark.parametrize("dtype,Dl,offset,pad,fits,want", [
+    (torch.bfloat16, 64, 0, 0, True, "ring"),      # m = 2 at D 128
+    (torch.bfloat16, 8, 0, 0, True, "ring"),       # m = 16: 16 bytes
+    (torch.float32, 8, 0, 0, True, "ring"),        # 32 bytes
+    (torch.float32, 4, 0, 0, True, "ring"),        # 16 bytes
+    (torch.bfloat16, 4, 0, 0, True, "simt"),       # 8 bytes
+    (torch.bfloat16, 5, 0, 0, True, "simt"),       # danube at m = 16
+    (torch.float32, 5, 0, 0, True, "simt"),
+    (torch.bfloat16, 64, 64, 64, True, "ring"),    # a slice of D 128
+    (torch.bfloat16, 64, 1, 0, True, "simt"),      # start not aligned
+    (torch.bfloat16, 64, 0, 4, True, "simt"),      # row stride 136 bytes
+    (torch.float32, 8, 4, 4, True, "ring"),        # 16-byte steps
+    (torch.float32, 8, 2, 0, True, "simt"),
+    (torch.bfloat16, 64, 0, 0, False, "simt"),     # no ring fits a block
+])
+def test_variant_choice(dtype, Dl, offset, pad, fits, want):
+    """``_variant`` takes the ring body exactly where 16-byte copies reach
+    every row piece: Dl elements a multiple of 16 bytes, every tensor
+    16-byte aligned with every stride but the last a multiple of 16 bytes,
+    and a ring that fits; PR 22's body otherwise.  Pass 1's ring takes
+    bfloat16 only (``_scores_variant``)."""
+    q = _view((2, 6, Dl), dtype, offset, pad)
+    k = _view((2, 5, 2, Dl), dtype, offset, pad)
+    assert ops._variant(dtype, Dl, (q, k), fits) == want
+    first = ops._variant(dtype, Dl, (q, k), fits,
+                         dtypes=ops.SCORES_RING_DTYPES)
+    assert first == (want if dtype == torch.bfloat16 else "simt")
+    assert ops._variant(torch.float16, Dl, (q, k), fits) == "simt"
+
+
+SHAPES = [(64, 8192, 12, 2, 64), (64, 8192, 12, 2, 8), (32, 161, 12, 2, 64),
+          (32, 161, 12, 2, 8), (4, 700, 48, 4, 64), (8, 300, 12, 2, 384),
+          (1, 1, 6, 2, 8), (3, 40, 64, 4, 16), (2, 5000, 56, 8, 128)]
+
+
+@pytest.mark.parametrize("es", [2, 4])
+@pytest.mark.parametrize("B,C,H,Hkv,Dl", SHAPES)
+def test_scores_geometry(B, C, H, Hkv, Dl, es):
+    """Pass 1's ring: a power-of-two tile of 16 to RING_MAX_TILE slots, the
+    most whose K rows fit RING_K_STAGE bytes, halved while the rows' tiles
+    fill fewer than half the SMs; SCORES_STAGES stages inside a block's
+    shared memory; persistent blocks, 2 an SM where two fit, never more
+    than the tiles."""
+    geo = ops._scores_geometry(B, C, H, Hkv, Dl, es, 132)
+    slot = Hkv * Dl * es
+    if geo is None:                 # even 3 stages of 16 slots overflow
+        assert ops.SCORES_STAGES * (H * ops._odd16(Dl * es)
+                                    + 16 * ops._odd16(slot)) > ops.MAX_SMEM
+        return
+    tile, smem, blocks = geo["tile"], geo["smem"], geo["blocks"]
+    assert tile in (16, 32, 64, 128, 256, 512)
+    assert tile == 16 or tile * slot <= ops.RING_K_STAGE
+    bigger = 2 * tile
+    assert (bigger > ops.RING_MAX_TILE or bigger * slot > ops.RING_K_STAGE
+            or 2 * B * -(-C // bigger) < 132)
+    assert tile == 16 or 2 * B * -(-C // tile) >= 132
+    stage = H * ops._odd16(Dl * es) + tile * ops._odd16(slot)
+    assert smem == ops.SCORES_STAGES * stage <= ops.MAX_SMEM
+    tiles = B * -(-C // tile)
+    per_sm = 2 if 2 * (smem + ops.SMEM_RESERVED) <= ops.SM_SMEM else 1
+    assert blocks == min(tiles, per_sm * 132) >= 1
+    if (B, C, Dl, es) == (64, 8192, 64, 2):        # m = 2, bf16
+        assert (tile, blocks) == (64, 264)
+    if (B, C, Dl, es) == (64, 8192, 8, 2):         # m = 16, bf16
+        assert (tile, blocks) == (512, 264)
+    if (B, C, Dl, es) == (32, 161, 64, 2):         # the main shape
+        assert (tile, blocks) == (64, 96)
+
+
+@pytest.mark.parametrize("es", [2, 4])
+@pytest.mark.parametrize("B,C,H,Hkv,Dl", SHAPES)
+def test_pv_geometry(B, C, H, Hkv, Dl, es):
+    """Pass 2's ring: a block a unit (KV head, <= 16 heads, <= 64 dims) of
+    a split of a row; 32-slot tiles a warp where a stage of them holds at
+    most RING_PV_STAGE bytes, else 16; the block's rings of PV_STAGES
+    stages inside its shared memory; and the split count filling whole
+    waves of the blocks an SM holds, with >= 2 tiles a warp."""
+    G = H // Hkv
+    geo = ops._pv_geometry(B, C, H, Hkv, Dl, es, 132)
+    gy, tile = geo["gy"], geo["tile"]
+    assert gy == Hkv * -(-G // 16) * -(-Dl // 64)
+    dw = min(Dl, 64)
+    assert (dw * es // 16) <= 32                    # a lane's V pieces
+    stage = lambda t: min(G, 16) * (t + 8) * 4 + t * ops._odd16(dw * es)
+    assert (tile == 32) == (stage(32) <= ops.RING_PV_STAGE)
+    assert geo["smem"] >= ops.PV_WARPS * ops.PV_STAGES * stage(tile)
+    assert geo["smem"] <= ops.MAX_SMEM
+    bps = geo["blocks_per_sm"]
+    assert 1 <= bps <= ops.RING_PV_BLOCKS
+    assert bps == 1 or bps * (geo["smem"] + ops.SMEM_RESERVED) <= ops.SM_SMEM
+    n = _num_splits(B, gy, C, 132, waves=bps, min_tiles=ops.MIN_RING_TILES,
+                    tile=tile, round_down=True)
+    tiles = -(-C // tile)
+    assert 1 <= n <= max(1, tiles // ops.MIN_RING_TILES)
+    if 1 < n < tiles // ops.MIN_RING_TILES:
+        assert B * gy * n <= bps * 132 < B * gy * (n + 1)
+    if (B, C, Dl, es) == (64, 8192, 64, 2):        # m = 2, bf16
+        assert (gy, tile, bps, n) == (2, 32, 3, 3)
+    if (B, C, Dl, es) == (64, 8192, 8, 2):         # m = 16, bf16
+        assert (gy, tile, bps, n) == (2, 32, 4, 4)
+
+
 def test_pv_splits():
     """Pass 2's split count (``_num_splits`` over PV_TILE-slot tiles,
     rounded down to whole waves): at least one split, never more than the
@@ -209,13 +357,16 @@ def test_pv_splits():
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_two_passes_on_the_card(dtype):
-    """The kernels against the plain versions and K3 over the whole head
-    dim: G 6 and 12, slices Dl 64 / 16 / 8 / 5 taken as views of the whole
-    cache (strided), a window over a ring, an empty row, one split and
-    splits forced to 3; and K3's wrapper at D 384 (through the passes)."""
+    """Both bodies of each pass against the plain versions and K3 over the
+    whole head dim: G 6 and 12, slices Dl 64 / 16 / 8 / 5 taken as views of
+    the whole cache (strided), a window over a ring, an empty row, one
+    split and splits forced to 3; the wrappers take the ring body where
+    16-byte copies fit (Dl 5 takes the other; pass 1's ring takes bfloat16
+    only).  And K3's wrapper at D 384 (through the passes)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the kernels have no CPU mode)")
     tol = (dict(atol=5e-2, rtol=5e-2) if dtype == torch.bfloat16 else TOL)
+    es = torch.finfo(dtype).bits // 8
     for G, D, m, window, force in [(6, 128, 2, None, None),
                                    (6, 128, 8, 8, 3), (12, 128, 16, None, 3),
                                    (4, 80, 16, 8, None)]:
@@ -224,22 +375,43 @@ def test_two_passes_on_the_card(dtype):
              _case(4, 300, G * Hkv, Hkv, D, window, seed=G + m)]
         q, k, v = (x.to(dtype) for x in t[:3])
         qp, kp = t[3], t[4]
+        fits = (D // m * es) % 16 == 0
+        want = {"scores": "ring" if fits and dtype == torch.bfloat16
+                else "simt", "pv": "ring" if fits else "simt"}
+        before = (dict(decode_scores.launches_by_variant),
+                  dict(decode_softmax_pv.launches_by_variant))
         _num_splits.force = force
         try:
             s = sum(decode_scores(a, b, scale=D ** -0.5) for a, b in
                     zip(q.chunk(m, -1), k.chunk(m, -1)))
             o = torch.cat([decode_softmax_pv(s, c, qp, kp, window=window)
                            for c in v.chunk(m, -1)], -1)
+            # the other body, launched directly (not counted)
+            # each pass's other body, launched directly (not counted)
+            bodies = {"wrappers": (s, o)}
+            if "ring" in want.values():
+                sb = sum(ops._launch_scores(a, b, D ** -0.5, "simt")
+                         for a, b in zip(q.chunk(m, -1), k.chunk(m, -1)))
+                ob = torch.cat([ops._launch_softmax_pv(sb, c, qp, kp, window,
+                                                       "simt")[0]
+                                for c in v.chunk(m, -1)], -1)
+                bodies["simt"] = (sb, ob)
         finally:
             _num_splits.force = None
+        for name, fn in (("scores", decode_scores),
+                         ("pv", decode_softmax_pv)):
+            got = fn.launches_by_variant
+            base = before[0] if name == "scores" else before[1]
+            assert got[want[name]] - base[want[name]] == m
         s_ref = sum(decode_scores_ref(a, b, scale=D ** -0.5) for a, b in
                     zip(q.chunk(m, -1), k.chunk(m, -1)))
-        torch.testing.assert_close(s, s_ref, **TOL)
         want = decode_attention_ref(q, k, v, qp, kp, window=window)
-        torch.testing.assert_close(o.float(), want.float(), **tol)
         whole = decode_attention(q, k, v, qp, kp, window=window)
-        torch.testing.assert_close(o.float(), whole.float(), **tol)
-        assert not o[0].any()
+        for body, (sb, ob) in bodies.items():
+            torch.testing.assert_close(sb, s_ref, **TOL)
+            torch.testing.assert_close(ob.float(), want.float(), **tol)
+            torch.testing.assert_close(ob.float(), whole.float(), **tol)
+            assert not ob[0].any()
     q, k, v, qp, kp = _case(3, 200, 12, 2, 384, None, seed=384)
     q, k, v = (torch.from_numpy(x).cuda().to(dtype) for x in (q, k, v))
     qp, kp = torch.from_numpy(qp).cuda(), torch.from_numpy(kp).cuda()
