@@ -18,12 +18,15 @@ Phases (any failure exits non-zero before the result line):
    and one long shape each.  K1 has two kernels (``_variant``): every
    bfloat16 case runs the tensor-core kernel through the wrapper (its
    launch counted by variant) and the CUDA-core kernel through its C
-   entry, over a sweep of D 64 / 128, groups of 1, 5, 6, 7 and 8 heads,
+   entry, over a sweep of D 64 / 80 / 128, groups of 1, 5, 6, 7 and 8 heads,
    Sq 2..160, windows 9 / 200, Sq != Sk and non-causal, and a case whose
    rows at positions >= 47 attend nothing and must read 0.  K3 adds
    n_split forced to 1, 2 and 7 over 8192 slots with one valid, a window
    that empties the early splits, ring layouts over 1 and 4 splits,
-   groups of 5..8, D 64 / 128 and C not a multiple of the tile, and is
+   groups of 5..8, D 64 / 80 / 128 and C not a multiple of the tile (each
+   call on the block body ``_decode_body`` names, read from the
+   wrapper's ``launches_by_variant``: the tensor cores for bfloat16 at
+   D 64 / 80 / 128, the CUDA cores otherwise), and is
    timed at n_split 1, 2, 4, 8 and the default at B=32 and B=8, 64 over
    8192 slots.  K2, on the same split-cache kernels, gets the same split
    cases over the paged layout (pages of 4 / 16 / 128) and the same split
@@ -187,14 +190,21 @@ Phases (any failure exits non-zero before the result line):
    yi-34b, internvl2-2b, qwen3-moe-235b-a22b, grok-1-314b, hymba-1.5b,
    whisper-small).  Kernels at their shapes in float32 and bfloat16
    against the plain versions, timed in bfloat16 beside the plain version,
-   SDPA and the bound: K1 at D = 80 with window 4096 (S 33 and 4200, the
-   CUDA-core kernel), non-causal at Sq 33 / Sk 1500 and 1500 / 1500 (H 12,
-   D 64), at 25 / 5 heads with window 1024 and at G = 12 and 16; K3 over
-   rings of 4096 (D = 80) and 1024 slots past the window, over whisper's
-   1500 frames and at G = 16; K2 at D = 80 with window 4096 and lengths
-   past it.  Card against CPU in float32, teacher-forced, logits within
-   1e-3 and greedy tokens identical, with exact K1 / K3 launches: 2 layers
-   at the published width (qwen3-moe 1; grok-1 at its smoke width),
+   SDPA and the bound, each call on the kernel or body it should take: K1
+   at D = 80 with window 4096 (S 33 and 4200, the tensor-core kernel; the
+   CUDA-core kernel held and timed beside it), non-causal at Sq 33 / Sk
+   1500 and 1500 / 1500 (H 12, D 64), at 25 / 5 heads with window 1024 and
+   at G = 12 and 16; K3 over rings of 4096 (D = 80) and 1024 slots past
+   the window, over whisper's 1500 frames and at G = 16; K2 at D = 80 with
+   window 4096 and lengths past it (K3 and K2 at D = 80 on the tensor-core
+   body, the CUDA-core body held and timed beside it); at D = 80 a planted
+   fault that zeroes q's dims 64..79 must fail the bfloat16 row gate for
+   each of the three.  h2o-danube's 24-layer bf16 prefill of a 4200-token
+   prompt: host ms, 24 K1 launches all on the tensor-core kernel, their
+   device ms (torch.profiler).  Card against CPU in float32,
+   teacher-forced, logits within 1e-3 and greedy tokens identical, with
+   exact K1 / K3 launches: 2 layers at the published width (qwen3-moe 1;
+   grok-1 at its smoke width),
    h2o-danube over a 4200-token prompt and hymba over 1100 (past their
    windows), whisper with frames [2, 1500, 768], internvl2 with patches
    [2, 256, 1024].  Serving in bfloat16 at the published width (random
@@ -204,8 +214,10 @@ Phases (any failure exits non-zero before the result line):
    32 new tokens, greedy, through ``RolloutEngine`` (whisper: through
    ``prefill(frames=...)`` and ``decode_step``, since no engine passes
    frames): exact launches (K1 once per attention layer per prefill,
-   whisper 36; K3 once per attention layer per decode step, whisper 24),
-   tok/s with and without the fetch, prefill ms, decode ms/step, and a
+   whisper 36; K3 once per attention layer per decode step, whisper 24;
+   h2o-danube's K3 and K2 launches all on the tensor-core body, the other
+   families' reported by body), tok/s with and without the fetch, prefill
+   ms, decode ms/step, and a
    profiled decode step's device busy time and idle share; h2o-danube and
    starcoder2 also through ``PagedEngine`` with exact K2 launches.  Timed
    bf16 GRPO train steps (remat, B = 8 x 160) of qwen2.5-3b at full depth
@@ -393,7 +405,8 @@ def paged_kernel_phase(prompt_len, new_tokens):
     main-path and long shapes.  Returns its record of the result line."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.decode_attention.ops import _num_splits, _sm_count
+    from repro_torch.kernels.decode_attention.ops import (
+        _decode_body, _num_splits, _sm_count)
     from repro_torch.kernels.paged_attention.ops import (
         _paged_splits, paged_decode_attention, paged_decode_attention_ref)
 
@@ -465,13 +478,13 @@ def paged_kernel_phase(prompt_len, new_tokens):
     # _num_splits.force (shared by both kernels): most splits empty (one
     # valid slot of 8192), a window that empties the early splits, pages of
     # 4 / 16 / 128 (tiles spanning pages), groups of 5..8 heads at D 64 /
-    # 128 with and without a window
+    # 80 / 128 with and without a window
     pcases = [((2, 12, 2, 128, 16, 512), None, n, "one") for n in (1, 2, 7)]
     pcases += [((4, 12, 2, 128, 16, 63), 100, n, "full") for n in (None, 5)]
     pcases += [((3, 12, 2, 128, page, -(-1000 // page)), None, None,
                 "ragged") for page in (4, 16, 128)]
     pcases += [((3, 2 * G, 2, D, 8, 10), w, n, "ragged")
-               for G in (5, 6, 7, 8) for D in (64, 128)
+               for G in (5, 6, 7, 8) for D in (64, 80, 128)
                for w, n in [(None, None), (30, 3)]]
     try:
         for shape, window, force, kind in pcases:
@@ -485,9 +498,17 @@ def paged_kernel_phase(prompt_len, new_tokens):
                 n_split = _paged_splits(B, Hkv, maxp, page, window,
                                         args[0].dtype, D, _sm_count(
                                             args[0].device))
-                check(f"window={window} n_split={n_split} {kind}",
-                      paged_decode_attention(*args, window=window),
-                      paged_decode_attention_ref(*args, window=window),
+                body = _decode_body(args[0].dtype, D, True)
+                before = dict(paged_decode_attention.launches_by_variant)
+                got = paged_decode_attention(*args, window=window)
+                if (paged_decode_attention.launches_by_variant[body]
+                        != before[body] + 1):
+                    fail(f"paged_flash_decode {shape} {dtype}: bodies "
+                         f"{before} -> "
+                         f"{paged_decode_attention.launches_by_variant}, "
+                         f"expected one {body} launch")
+                check(f"window={window} n_split={n_split} {kind} ({body})",
+                      got, paged_decode_attention_ref(*args, window=window),
                       dtype, shape)
     finally:
         _num_splits.force = None
@@ -941,8 +962,8 @@ def flash_grad_phase():
 
 def _simt_flash(q, k, v, causal, window):
     """K1's CUDA-core kernel (csrc/flash_attention_fwd.cu) through its C
-    entry, whatever the dtype: the wrapper sends bfloat16 at D = 64 or 128
-    to the tensor-core kernel, so this is how the sweep holds the older
+    entry, whatever the dtype: the wrapper sends bfloat16 at D = 64, 80 or
+    128 to the tensor-core kernel, so this is how the sweep holds the older
     design to the plain version in bfloat16 too, and how the phase times
     it beside the new one.  Not counted as a launch."""
     import torch
@@ -962,6 +983,36 @@ def _simt_flash(q, k, v, causal, window):
     return o
 
 
+def _core_decode(q, k, v, q_pos, k_pos, window=None):
+    """K3's CUDA-core body (``split_decode.cuh::decode_block``) through
+    ``ops._launch``, at the split count it took before the tensor-core
+    body served D = 80 (two waves): how the families phase times the older
+    design beside the new one.  Not counted as a launch."""
+    from repro_torch.kernels.decode_attention import ops
+    B, H, D = q.shape
+    C, Hkv = k.shape[1], k.shape[2]
+    n = ops._num_splits(B, Hkv * ops._head_groups(H // Hkv)[0], C,
+                        ops._sm_count(q.device), waves=2.0)
+    return ops._launch(q, k, v, q_pos, k_pos, window, 1.0 / math.sqrt(D), n,
+                       "core")[0]
+
+
+def _core_paged(q, kp, vp, bt, lengths, window=None):
+    """K2's CUDA-core body through ``paged_attention.ops._launch``, as
+    ``_core_decode``.  Not counted as a launch."""
+    from repro_torch.kernels.decode_attention.ops import (
+        _head_groups, _num_splits, _sm_count)
+    from repro_torch.kernels.paged_attention import ops
+    B, H, D = q.shape
+    page, Hkv = kp.shape[1], kp.shape[2]
+    maxp = bt.shape[1]
+    reach = maxp * page if window is None else min(maxp * page, window)
+    n = _num_splits(B, Hkv * _head_groups(H // Hkv)[0], reach,
+                    _sm_count(q.device), waves=2.0)
+    return ops._launch(q, kp, vp, bt, lengths, window, 1.0 / math.sqrt(D), n,
+                       "core")
+
+
 def kernels_phase(prompt_len, new_tokens):
     """Hold K1 (both kernels) and K3 to their plain versions over the
     sweeps; time the main-path and long shapes.  Returns the per-kernel
@@ -969,7 +1020,7 @@ def kernels_phase(prompt_len, new_tokens):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention.ops import (
-        _num_splits, _sm_count, _waves, decode_attention,
+        _decode_body, _num_splits, _sm_count, _waves, decode_attention,
         decode_attention_ref)
     from repro_torch.kernels.flash_attention.ops import (
         _variant, flash_attention, flash_attention_ref)
@@ -995,11 +1046,12 @@ def kernels_phase(prompt_len, new_tokens):
                (masked_f, (True, 16)),
                (serve_f, (True, None)), (main_f, (True, None)),
                (long_f, (True, None))]
-    # the tensor-core sweep: D 64 / 128, groups of 1 and of the
+    # the tensor-core sweep: D 64 / 80 / 128 (80: h2o-danube, padded to
+    # two 64-column chunks in shared memory), groups of 1 and of the
     # 1.5B / 7B / 14B configs (6, 7, 5) and 8; lengths around the 128-row
     # tile (G = 6, Sq = 22 is 132 rows); windows; Sq != Sk; non-causal
     sweep = []
-    for D in (64, 128):
+    for D in (64, 80, 128):
         for G in (1, 5, 6, 7, 8):
             sweep += [((2, S, S, 2 * G, 2, D), (True, None))
                       for S in (2, 22, 33, 65, 100, 160)]
@@ -1076,9 +1128,9 @@ def kernels_phase(prompt_len, new_tokens):
     dcases += [((2, 12, 2, 128, 8192), None, n, "one") for n in (1, 2, 7)]
     # a window that empties the early splits
     dcases += [((4, 12, 2, 128, 1000), 100, n, "full") for n in (None, 5)]
-    # groups of 5..8 heads, D 64 / 128, C not a multiple of the tile
+    # groups of 5..8 heads, D 64 / 80 / 128, C not a multiple of the tile
     dcases += [((3, 2 * G, 2, D, 77), w, n, "ragged")
-               for G in (5, 6, 7, 8) for D in (64, 128)
+               for G in (5, 6, 7, 8) for D in (64, 80, 128)
                for w, n in [(None, None), (30, 3)]]
     try:
         for shape, window, force, lens in dcases:
@@ -1092,12 +1144,19 @@ def kernels_phase(prompt_len, new_tokens):
                                                     gen)
                 n_split = _num_splits(B, Hkv, C, _sm_count(q.device),
                                       waves=_waves(q.dtype, D), force=force)
+                body = _decode_body(q.dtype, D, True)
+                before = dict(decode_attention.launches_by_variant)
                 got = decode_attention(q, k, v, q_pos, k_pos, window=window)
+                if (decode_attention.launches_by_variant[body]
+                        != before[body] + 1):
+                    fail(f"flash_decode {shape} {dtype}: bodies {before} -> "
+                         f"{decode_attention.launches_by_variant}, expected "
+                         f"one {body} launch")
                 want = decode_attention_ref(q, k, v, q_pos, k_pos,
                                             window=window)
                 _check("flash_decode", got, want, dtype, shape, dstats)
                 say(f"  flash_decode {shape} window={window} n_split="
-                    f"{n_split} {lens} {dtype}: ok, max err "
+                    f"{n_split} {lens} {dtype} ({body}): ok, max err "
                     f"{_max_err(got, want):.2e}")
                 if shape in (main_d, long_d):
                     qt = q[:, :, None]                   # [B, H, 1, D]
@@ -4588,21 +4647,27 @@ def _ring_pos(q_pos, C):
 
 def families_kernel_phase(prompt_len):
     """K1, K3 and K2 at the shapes the families put them at, in float32 and
-    bfloat16 against their plain versions (one launch a call), timed in
-    bfloat16 beside the plain version, ``scaled_dot_product_attention``
-    and the bound: K1 at D = 80 with window 4096 (h2o-danube, on the
-    CUDA-core kernel) at S 33 and 4200; K1 non-causal at Sq 33 / Sk 1500
+    bfloat16 against their plain versions (one launch a call, on the
+    kernel or body ``_variant`` / ``_decode_body`` names, read from the
+    wrapper's counts), timed in bfloat16 beside the plain version,
+    ``scaled_dot_product_attention`` and the bound: K1 at D = 80 with
+    window 4096 (h2o-danube, on the tensor-core kernel, its CUDA-core
+    kernel held and timed beside it) at S 33 and 4200; K1 non-causal at
+    Sq 33 / Sk 1500
     and 1500 / 1500, H 12, D 64 (whisper's cross-attention and encoder);
     K1 at hymba's 25 / 5 heads, D 64, window 1024, and at G = 12 and 16
     (starcoder2, qwen3-moe); K3 at D = 80 over a ring of 4096 slots past
     the window (rows at 3000, 4100, 4200 and 5000), at hymba's ring of
     1024, whisper's cross-attention (the query at Se - 1 over 1500 frames)
     and G = 16, D 128 (qwen3-moe); K2 at D = 80, window 4096, with lengths
-    past the window.  Returns {kernel: {shape: record}}."""
+    past the window.  At D = 80 K3 and K2 run the tensor-core body, their
+    CUDA-core body held and timed beside it, and each D = 80 case must
+    reject a planted fault that zeroes q's dims 64..79 (the second
+    chunk's real columns).  Returns {kernel: {shape: record}}."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention.ops import (
-        decode_attention, decode_attention_ref)
+        _decode_body, _num_splits, decode_attention, decode_attention_ref)
     from repro_torch.kernels.flash_attention.ops import (
         _variant, flash_attention, flash_attention_ref)
     from repro_torch.kernels.paged_attention.ops import (
@@ -4614,20 +4679,31 @@ def families_kernel_phase(prompt_len):
            "paged_flash_decode": {}}
 
     def hold(name, wrapper, shape, what, call, plain, library, work,
-             faults=()):
+             faults=(), expect=None, old=None, sweep=False):
         """Check one case in both dtypes; in bfloat16 also against the
         float32 plain version of the same inputs, row by row
         (``_bf16_excess``), and show that each planted fault in
         ``faults`` (name, args -> (args, kwargs) of a wrong call) fails
-        that check; time it in bfloat16."""
+        that check; time it in bfloat16.  ``expect(dtype)`` names the
+        kernel or body the call must launch (``launches_by_variant``);
+        ``old(args)``, the older kernel or body (not counted), is held to
+        the plain version and timed beside it in bfloat16; ``sweep`` (K3,
+        K2) also times the wrapper with n_split forced."""
         rec = {"max_abs_err": 0.0}
         for dtype in ("float32", "bfloat16"):
             args = call(dtype)
             before = wrapper.launches
+            by_before = dict(wrapper.launches_by_variant)
             got = wrapper(*args[0], **args[1])
             if wrapper.launches != before + 1:
                 fail(f"{name} {shape} {what} {dtype}: "
                      f"{wrapper.launches - before} launches for one call")
+            ran = [v for v, n in wrapper.launches_by_variant.items()
+                   if n != by_before[v]]
+            rec[f"variant_{dtype}"] = ran[0] if len(ran) == 1 else ran
+            if expect is not None and ran != [expect(dtype)]:
+                fail(f"{name} {shape} {what} {dtype}: launched {ran}, "
+                     f"expected {expect(dtype)}")
             stats = {"checks": 0, "max_abs_err": 0.0}
             _check(name, got, plain(*args[0], **args[1]), dtype, shape, stats)
             rec["max_abs_err"] = max(rec["max_abs_err"], stats["max_abs_err"])
@@ -4653,24 +4729,61 @@ def families_kernel_phase(prompt_len):
                 n_bytes, flops = work(2)
                 bound, by = _bound_ms(n_bytes, flops, dtype)
                 rec.update(
+                    variant=rec["variant_bfloat16"],
                     ms=_time_ms(lambda: wrapper(*args[0], **args[1]), flush),
                     plain_ms=_time_ms(lambda: plain(*args[0], **args[1]),
                                       flush),
                     library_ms=_time_ms(library(args), flush),
                     bound_ms=bound, bound_by=by)
+                if old is not None:
+                    got_old = old(args)
+                    _check(f"{name} (old)", got_old,
+                           plain(*args[0], **args[1]), dtype, shape, stats)
+                    rec["old_max_abs_err"] = _max_err(
+                        got_old, plain(*args[0], **args[1]))
+                    rec["old_bf16_excess"] = _bf16_excess(got_old, want32)
+                    rec["old_ms"] = _time_ms(lambda: old(args), flush)
+                    del got_old
+                if sweep:
+                    rec["split_sweep"] = {}
+                    try:
+                        for force in (1, 2, 3, 4, 6, 8, None):
+                            _num_splits.force = force
+                            t = _time_ms(lambda: wrapper(*args[0], **args[1]),
+                                         flush)
+                            rec["split_sweep"][str(force or "default")] = (
+                                dict(n_split=wrapper.last_n_split, ms=t))
+                    finally:
+                        _num_splits.force = None
             del args, got
             torch.cuda.synchronize()
         out[name][f"{what} {shape}"] = rec
         planted = "".join(f", planted '{k}' {v:.2e}"
                           for k, v in rec["planted"].items())
+        older = (f", old kernel {rec['old_ms']:.4f} ms (max err "
+                 f"{rec['old_max_abs_err']:.2e})" if old is not None else "")
+        if sweep:
+            older += "; by n_split " + ", ".join(
+                f"{r['n_split']}{' (default)' if k == 'default' else ''} "
+                f"{r['ms']:.4f} ms" for k, r in rec["split_sweep"].items())
         say(f"  {name} {shape} {what}: ok, max err float32 "
             f"{rec['max_abs_err_float32']:.2e}, bfloat16 "
             f"{rec['max_abs_err_bfloat16']:.2e}; bfloat16 vs float32 plain: "
             f"row excess {rec['bf16_excess']:.2e} <= {BF16_ROW_TOL}{planted}; "
-            f"bf16 kernel {rec['ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
-            f"({rec['bound_by']}), plain {rec['plain_ms']:.4f} ms, sdpa "
-            f"{rec['library_ms']:.4f} ms ({CARD['card']})")
+            f"bf16 kernel ({rec['variant']}) {rec['ms']:.4f} ms, bound "
+            f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), plain "
+            f"{rec['plain_ms']:.4f} ms, sdpa {rec['library_ms']:.4f} ms"
+            f"{older} ({CARD['card']})")
         return rec
+
+    def q_tail_zeroed(args):
+        """q's dims 64..79 zeroed: the real columns of a D = 80 head's
+        second 64-column chunk"""
+        q = args[0][0].clone()
+        q[..., 64:80] = 0
+        return (q, *args[0][1:]), args[1]
+
+    tail = ("q dims 64..79 zeroed", q_tail_zeroed)
 
     # -- K1
     P = prompt_len
@@ -4721,14 +4834,15 @@ def families_kernel_phase(prompt_len):
             return lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=ok, enable_gqa=True)
 
-        rec = hold("flash_attention_fwd", flash_attention, shape,
-                   f"{what} causal={causal} window={window}", call,
-                   flash_attention_ref, sdpa,
-                   lambda item, shape=shape, causal=causal, window=window:
-                   flash_work(*shape, causal, window, item),
-                   faults.get(what, []) if window is None or Sq > window
-                   else [])
-        rec["variant"] = _variant(torch.bfloat16, D)
+        hold("flash_attention_fwd", flash_attention, shape,
+             f"{what} causal={causal} window={window}", call,
+             flash_attention_ref, sdpa,
+             lambda item, shape=shape, causal=causal, window=window:
+             flash_work(*shape, causal, window, item),
+             (faults.get(what, []) if window is None or Sq > window else [])
+             + ([tail] if D == 80 else []),
+             expect=lambda dtype, D=D: _variant(getattr(torch, dtype), D),
+             old=(lambda args: _simt_flash(*args[0])) if D == 80 else None)
 
     # -- K3
     dcases = [("h2o-danube-1.8b ring", 32, 8, 80, 4096, 4096,
@@ -4765,7 +4879,12 @@ def families_kernel_phase(prompt_len):
              decode_attention_ref, sdpa,
              lambda item, shape=shape, attended=attended:
              decode_work(*shape, attended, item),
-             [(f"window {window - 1}", dshort)] if window else [])
+             ([(f"window {window - 1}", dshort)] if window else [])
+             + ([tail] if D == 80 else []),
+             expect=lambda dtype, D=D: _decode_body(getattr(torch, dtype), D,
+                                                    True),
+             old=(lambda args: _core_decode(*args[0], **args[1]))
+             if D == 80 else None, sweep=D == 80)
     # whisper's cross-attention decode: every frame visible to a query at
     # position Se - 1
     shape = (8, 12, 12, 64, 1500)
@@ -4791,7 +4910,8 @@ def families_kernel_phase(prompt_len):
     hold("flash_decode", decode_attention, shape, "whisper-small cross",
          xcall, decode_attention_ref, xsdpa,
          lambda item: decode_work(*shape, [1500] * 8, item),
-         [("frames past 1488 dropped", xdropped)])
+         [("frames past 1488 dropped", xdropped)],
+         expect=lambda dtype: _decode_body(getattr(torch, dtype), 64, True))
 
     # -- K2: D = 80, window 4096, lengths past it, pages of 128
     lens = [4200, 4500, 300, 4097]
@@ -4818,7 +4938,9 @@ def families_kernel_phase(prompt_len):
          psdpa, lambda item: (
              item * 80 * (2 * 4 * 32 + 2 * 8 * sum(attended))
              + 4 * 4 * (maxp + 1), 4.0 * 80 * 32 * sum(attended)),
-         [("window 4095", lambda args: (args[0], dict(window=4095)))])
+         [("window 4095", lambda args: (args[0], dict(window=4095))), tail],
+         expect=lambda dtype: _decode_body(getattr(torch, dtype), 80, True),
+         old=lambda args: _core_paged(*args[0], **args[1]), sweep=True)
     say("kernels at the families' shapes: "
         + ", ".join(f"{k} {len(v)} shapes" for k, v in out.items())
         + " hold to their plain versions in float32 and bfloat16")
@@ -4985,6 +5107,87 @@ def _whisper_generate(params, cfg, tokens, frames, max_new):
                                      decode_steps=max_new - 1)
 
 
+def _decode_bodies(what, arch, name, cfg, n):
+    """K3's or K2's launches by block body since the last _reset_counts().
+    h2o-danube (D = 80) must have run all ``n`` on the tensor-core body,
+    as ``_decode_body`` names it for the config's dtype and head dim; the
+    other families' counts are reported."""
+    from repro_torch.kernels.decode_attention.ops import _decode_body
+    got = dict(_wrappers()[name].launches_by_variant)
+    body = _decode_body(cfg.tdtype, cfg.hd, True)
+    want = {b: n * (b == body) for b in got}
+    if arch == "h2o-danube-1.8b" and (got != want or body != "mma"):
+        fail(f"{what}: {name} launches by body {got}, expected {want} on "
+             "the tensor-core body")
+    return got
+
+
+def danube_prefill_phase(S=4200):
+    """h2o-danube-1.8b's published config (bfloat16, 24 layers, random
+    init on the card) prefills one S-token prompt, past its 4096 window:
+    a warm-up, three timed prefills (host clock, synchronised; the
+    median) with one K1 launch a layer, all on the tensor-core kernel,
+    finite logits, and a profiled one whose trace gives K1's device ms and
+    the device's busy time (torch.profiler).  Returns the summary."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models.api import get_model
+
+    arch = "h2o-danube-1.8b"
+    cfg, _ = _serve_config(arch)
+    model = get_model(cfg)
+    k1, _ = _attn_sites(cfg)
+    params = model.init(0, cfg, DEV)
+    toks = _family_inputs(cfg, 1, S, seed=4)[0].to(DEV)
+    what = f"{arch} bf16 prefill B=1 S={S} ({cfg.n_layers} layers)"
+    times = []
+    with torch.inference_mode():
+        model.prefill(params, cfg, toks, max_len=S + 1)           # warm-up
+        for _ in range(3):
+            torch.cuda.synchronize()
+            _reset_counts()
+            t0 = time.perf_counter()
+            logits, cache = model.prefill(params, cfg, toks, max_len=S + 1)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            del cache
+        counts = _read_counts()
+        want = {"flash_attention_fwd": k1, "flash_decode": 0,
+                "paged_flash_decode": 0, "mlstm_scan": 0}
+        if counts != want:
+            fail(f"{what}: kernel launches {counts}, expected {want}")
+        _expect_variants(what, {"simt": 0, "wgmma": k1})
+        if not bool(torch.isfinite(logits.float()).all()):
+            fail(f"{what}: logits not finite")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            model.prefill(params, cfg, toks, max_len=S + 1)
+            torch.cuda.synchronize()
+    kernels = _trace_kernels(prof, "danube_prefill")
+    mine = [e - s for s, e, name in kernels if "flash_fwd_sm90" in name]
+    if len(mine) != k1:
+        fail(f"{what}: the trace holds {len(mine)} tensor-core K1 kernels, "
+             f"expected {k1}")
+    busy = _busy(kernels, kernels[0][0], 1)
+    out = dict(layers=cfg.n_layers, prompt=S, host_ms=statistics.median(times),
+               host_ms_runs=times, k1_launches=k1,
+               k1_device_ms=sum(mine) / 1e3,
+               k1_device_ms_per_launch=sum(mine) / 1e3 / k1,
+               device_busy_ms=busy["busy_ms"], idle_share=busy["idle_share"],
+               top_kernels_ms=busy["top_kernels_ms"])
+    say(f"{what}: host {out['host_ms']:.2f} ms (median of "
+        f"{', '.join(f'{t:.2f}' for t in times)}); K1 {k1} launches, all "
+        f"wgmma, {out['k1_device_ms']:.3f} ms on the device "
+        f"({out['k1_device_ms_per_launch']:.4f} a launch); device busy "
+        f"{out['device_busy_ms']:.3f} ms, idle share "
+        f"{out['idle_share']:.3f}; top kernels ms "
+        + ", ".join(f"{k} {v:.3f}" for k, v in out["top_kernels_ms"].items())
+        + f" ({CARD['card']})")
+    del params, logits
+    torch.cuda.empty_cache()
+    return out
+
+
 def family_serve_phase(arch, paged=False):
     """``arch``'s published config (bfloat16, full vocab and width, random
     init on the card) at its serving depth, B = 8 math prompts, 32 new
@@ -5078,8 +5281,10 @@ def family_serve_phase(arch, paged=False):
              f"prefill, {m['decode_steps']} decode steps)")
     _expect_variants(what, {"simt": k1 * (variant == "simt"),
                             "wgmma": k1 * (variant == "wgmma")})
+    bodies = _decode_bodies(what, arch, "flash_decode", cfg,
+                            k3 * m["decode_steps"])
     out["static"] = dict(_timed(m, n_tok, dt), launches=counts,
-                         k1_variant=variant)
+                         k1_variant=variant, k3_by_body=bodies)
     s = out["static"]
     say(f"{what} max_new=32: {n_tok} tokens in {dt:.3f} s = "
         f"{s['tok_per_s']:.1f} tok/s ({s['gen_tok_per_s']:.1f} without the "
@@ -5087,7 +5292,8 @@ def family_serve_phase(arch, paged=False):
         f" GiB), prefill {s['prefill_ms']:.2f} ms, decode "
         f"{s['decode_ms_per_step']:.3f} ms/step over {m['decode_steps']} "
         f"steps (host clock); launches {counts} (= {k1} per prefill, {k3} "
-        f"per decode step), K1 on {variant} ({CARD['card']})")
+        f"per decode step), K1 on {variant}, K3 by body {bodies} "
+        f"({CARD['card']})")
     out["static"]["profile"] = profile_decode(
         profiled, "decode_(mma_)?kernel<.*DenseRows", arch)
     engine = profiled = None              # the static engine's weights go
@@ -5123,6 +5329,8 @@ def _family_paged(arch, cfg, store, tasks):
     what = f"{arch} PagedEngine bf16 2 tasks x 8, slots=8"
     counts = _read_counts()
     _expect_paged_counts(what, cfg.n_layers, m["decode_steps"], counts)
+    bodies = _decode_bodies(what, arch, "paged_flash_decode", cfg,
+                            cfg.n_layers * m["decode_steps"])
     _check_rollouts(what, rollouts, cfg.vocab, 32)
     n_tok = sum(len(r.completion_ids) for r in rollouts)
     steps = clock.count["decode_step"]
@@ -5130,11 +5338,12 @@ def _family_paged(arch, cfg, store, tasks):
                decode_steps=m["decode_steps"],
                decode_ms_per_step=clock.total["decode_step"] * 1e3 / steps,
                prefill_ms=clock.total.get("prefill_chunk", 0.0) * 1e3,
-               forks=m["forks"], launches=counts)
+               forks=m["forks"], launches=counts, k2_by_body=bodies)
     say(f"{what} max_new=32: {n_tok} tokens in {dt:.3f} s = "
         f"{out['tok_per_s']:.1f} tok/s; decode {out['decode_ms_per_step']:.3f}"
         f" ms/step over {steps} steps, prefill {out['prefill_ms']:.2f} ms "
-        f"(host clock); forks {m['forks']}; launches {counts}")
+        f"(host clock); forks {m['forks']}; launches {counts}, K2 by body "
+        f"{bodies}")
     del engine
     return out
 
@@ -5294,6 +5503,7 @@ def families(records, prompt_len):
     launches go into ``records``."""
     for name, part in families_kernel_phase(prompt_len).items():
         records[name]["families"] = part
+    records["flash_attention_fwd"]["danube_prefill"] = danube_prefill_phase()
     say("families teacher-forced summary " + json.dumps(
         families_teacher_forced_phase()))
     for arch in FAMILY_ARCHS:
@@ -5303,9 +5513,14 @@ def families(records, prompt_len):
         for name in ("flash_attention_fwd", "flash_decode"):
             records[name].setdefault("serve_launches", {})[arch] = (
                 out["static"]["launches"][name])
+        records["flash_decode"].setdefault("serve_launches_by_body", {})[
+            arch] = out["static"]["k3_by_body"]
         if "paged" in out:
             records["paged_flash_decode"].setdefault("serve_launches", {})[
                 arch] = out["paged"]["launches"]["paged_flash_decode"]
+            records["paged_flash_decode"].setdefault(
+                "serve_launches_by_body", {})[arch] = out["paged"][
+                    "k2_by_body"]
     say("families launcher summary " + json.dumps(
         dict(families_launcher_phase(), **CARD)))
     for arch, n_layers in (("qwen2.5-3b", None), ("qwen3-moe-235b-a22b", 1)):

@@ -1,11 +1,11 @@
 // Flash-attention forward on the Hopper tensor cores (sm_90a), bf16,
-// head dim 64 or 128: causal / sliding-window / GQA attention over
+// head dim 64, 80 or 128: causal / sliding-window / GQA attention over
 // contiguous positions (prefill and training forward).
 //
 // Replaces the Pallas TPU kernel repro/kernels/flash_attention/kernel.py
-// ::flash_attention_fwd (body _fwd_kernel) for bf16 at D in {64, 128}; the
-// fp32 CUDA-core kernel (flash_attention_fwd.cu) keeps float32 and every
-// other D.  Same semantics: query row i and key row j sit at absolute
+// ::flash_attention_fwd (body _fwd_kernel) for bf16 at D in {64, 80, 128};
+// the fp32 CUDA-core kernel (flash_attention_fwd.cu) keeps float32 and
+// every other D.  Same semantics: query row i and key row j sit at absolute
 // positions i and j (not right-aligned when Sq != Sk); j is attended iff
 // j < Sk, j <= i when causal, and j > i - window with a window.  Query
 // head h reads KV head h / G.  fp32 online softmax; p is rounded to bf16
@@ -30,6 +30,13 @@
 // - Skips.  The k-tile range of a block is the union over its positions
 //   (from the window's first tile to the causal diagonal), and only tiles
 //   that straddle the diagonal, the window edge or Sk are masked.
+// - D = 80 (h2o-danube) is padded to two 64-column chunks in shared
+//   memory only, as the reference's wrapper pads D to 128 in HBM: the
+//   tensor maps keep the true extent, so TMA reads 80 columns a row and
+//   fills columns 80..127 of each K/V tile with zeros; Q's padded pieces
+//   are written as zeros; Q K^T runs only the 5 k16 steps of real
+//   columns; P V runs both 64-wide chunks and the store drops columns
+//   past D.
 #include <cuda.h>
 
 #include <initializer_list>
@@ -53,7 +60,8 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 template <int D>
 struct Layout {
-  static constexpr int kChunks = D / kSub;             // 128-byte columns
+  static_assert(D % 16 == 0, "whole k16 steps of Q K^T");
+  static constexpr int kChunks = (D + kSub - 1) / kSub;  // 128-byte columns
   static constexpr int kQSub = kBM * 128;              // bytes per Q chunk
   static constexpr int kKSub = kBK * 128;              // bytes per K chunk
   static constexpr int kQ = kQSub * kChunks;
@@ -132,13 +140,14 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_k,
   const size_t q_stride = (size_t)H * D;
 
   // Q: this warpgroup's 64 packed rows, 16-byte pieces, written in the
-  // 128-byte-swizzled layout (piece c of row r at c ^ (r % 8))
-  constexpr int kPieces = D / 8;
+  // 128-byte-swizzled layout (piece c of row r at c ^ (r % 8)); pieces
+  // past D pad the last chunk with zeros (shared memory is not cleared)
+  constexpr int kPieces = L::kChunks * 8;
   for (int i = tid; i < 64 * kPieces; i += 128) {
     const int rr = i / kPieces, pc = i % kPieces;
     const int row = wg * 64 + rr, R = r0 + row;
     uint4 val = make_uint4(0, 0, 0, 0);
-    if (R < rows) {
+    if (R < rows && pc < D / 8) {
       const bf16* src = q + ((size_t)b * Sq + R / G) * q_stride +
                         (size_t)(hk * G + R % G) * D + pc * 8;
       val = __ldg(reinterpret_cast<const uint4*>(src));
@@ -169,7 +178,8 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_k,
     const unsigned char* vt = v_s + s * L::kKV;
     sm::mbar_wait(&full[s], (t / kStages) & 1);
 
-    // S = Q K^T over D in k16 steps (32 bytes within a 128-byte row)
+    // S = Q K^T over the true D in k16 steps (32 bytes within a 128-byte
+    // row); the padded columns are never read
     constexpr int kS = kBK / 2;       // scores a thread holds
     float sc[kS];
 #pragma unroll
@@ -259,7 +269,8 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_k,
     sm::mbar_arrive(&empty[s]);
   }
 
-  // epilogue: O / l, straight from the accumulator to [B, Sq, H, D]
+  // epilogue: O / l, straight from the accumulator to [B, Sq, H, D];
+  // the padded columns (past D) are not stored
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     float lh = l[h];
@@ -274,9 +285,10 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_k,
     for (int c = 0; c < L::kChunks; ++c)
 #pragma unroll
       for (int j = 0; j < 8; ++j)
-        *reinterpret_cast<__nv_bfloat162*>(dst + c * kSub + 8 * j) =
-            __floats2bfloat162_rn(acc[c][4 * j + 2 * h] * inv,
-                                  acc[c][4 * j + 2 * h + 1] * inv);
+        if (c * kSub + 8 * j < D)
+          *reinterpret_cast<__nv_bfloat162*>(dst + c * kSub + 8 * j) =
+              __floats2bfloat162_rn(acc[c][4 * j + 2 * h] * inv,
+                                    acc[c][4 * j + 2 * h + 1] * inv);
   }
 }
 
@@ -308,7 +320,9 @@ EncodeTiled encode_fn() {
 }
 
 // Tensor map of k or v [B, Sk, Hkv, D] bf16: boxes of kBK rows x 64
-// columns of one (b, hk), 128-byte swizzle, zeros past Sk.
+// columns of one (b, hk), 128-byte swizzle, zeros past Sk and, at D = 80,
+// past column D in the second box (the extent is the true D, so the box
+// never reads the next KV head's columns).
 bool kv_map(CUtensorMap* map, EncodeTiled encode, const void* base, int B,
             int Sk, int Hkv, int D) {
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)Hkv,
@@ -348,7 +362,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // q/o [B, Sq, H, D], k/v [B, Sk, Hkv, D]; bfloat16, contiguous, 16-byte
-// aligned; D = 64 or 128.  window < 0 means no window.  Returns
+// aligned; D = 64, 80 or 128.  window < 0 means no window.  Returns
 // cudaGetLastError() of the launch.
 extern "C" int flash_attention_fwd_sm90(const void* q, const void* k,
                                         const void* v, void* o, int B, int Sq,
@@ -356,7 +370,7 @@ extern "C" int flash_attention_fwd_sm90(const void* q, const void* k,
                                         int causal, int window, float scale,
                                         int device, void* stream) {
   if (B < 1 || Sq < 1 || Sk < 1 || Hkv < 1 || H % Hkv != 0 || B > 65535 ||
-      Hkv > 65535 || (D != 64 && D != 128))
+      Hkv > 65535 || (D != 64 && D != 80 && D != 128))
     return cudaErrorInvalidValue;
   for (const void* p : {q, k, v, static_cast<const void*>(o)})
     if (reinterpret_cast<uintptr_t>(p) % 16) return cudaErrorInvalidValue;
@@ -365,6 +379,9 @@ extern "C" int flash_attention_fwd_sm90(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 64)
     return launch<64>(q, k, v, o, B, Sq, Sk, H, Hkv, causal, window, scale,
+                      s);
+  if (D == 80)
+    return launch<80>(q, k, v, o, B, Sq, Sk, H, Hkv, causal, window, scale,
                       s);
   return launch<128>(q, k, v, o, B, Sq, Sk, H, Hkv, causal, window, scale, s);
 }

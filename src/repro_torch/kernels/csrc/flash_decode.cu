@@ -18,9 +18,9 @@
 // V are read from HBM once per step for all G heads (NG = 1 for G <= 8;
 // above, each of the NG = ceil(G / 8) head groups reads them); the splits
 // merge in the
-// same launch (last-block ticket).  bf16 at D = 64 or 128 scores and sums
-// on the tensor cores (mma.sync, the heads as the rows of an m16 tile);
-// float32 and other D on the CUDA cores.  The TPU's sequential cache axis
+// same launch (last-block ticket).  bf16 at D = 64, 80 or 128 scores and
+// sums on the tensor cores (mma.sync, the heads as the rows of an m16
+// tile); float32 and other D on the CUDA cores.  The TPU's sequential cache axis
 // becomes the split's tile loop, and its VMEM (acc, m, l) carry becomes
 // registers.  A slot's position is read before its row, and a slot that
 // is not attended is never read.
@@ -67,7 +67,9 @@ struct DenseRows {
 // the slots it attended, -1e30 where none (a caller that attends one
 // row's cache in several launches, e.g. a context split over ranks,
 // merges their outputs by it).  dtype 0 = float32,
-// 1 = bfloat16.  window < 0 means no window.  With n_split > 1, over
+// 1 = bfloat16.  body 0 = the CUDA-core body, 1 = the tensor-core body
+// (bf16 at D 64 / 80 / 128 with 16-byte aligned k, v and 4-byte aligned
+// q; refused otherwise).  window < 0 means no window.  With n_split > 1, over
 // NG = ceil(G / 8) head groups of Gc = ceil(G / NG) heads: part_acc float32
 // [B, Hkv, NG, n_split, Gc, D], part_ml float32 [B, Hkv, NG, n_split, Gc, 2]
 // and counters int32 [B * Hkv * NG], all 0 before the first launch (each
@@ -79,8 +81,8 @@ extern "C" int flash_decode(const void* q, const void* k, const void* v,
                             void* lse, void* part_acc, void* part_ml,
                             void* counters,
                             int B, int C, int Hkv, int G, int D, int n_split,
-                            int window, float scale, int dtype, int device,
-                            void* stream) {
+                            int window, float scale, int dtype, int body,
+                            int device, void* stream) {
   const int n_tiles = (C + sd::kTile - 1) / sd::kTile;
   if (B < 1 || C < 1 || Hkv < 1 || G < 1 || D < 1 || D > sd::kMaxD ||
       n_split < 1 || n_split > n_tiles || B > 65535 ||
@@ -92,7 +94,8 @@ extern "C" int flash_decode(const void* q, const void* k, const void* v,
   const DenseRows rows{static_cast<const int*>(q_pos),
                        static_cast<const int*>(k_pos), C, Hkv, D, window};
   const sd::Launch a{q, k, v, o, part_acc, part_ml, counters, B, Hkv, G, D,
-                     n_split, scale, static_cast<cudaStream_t>(stream), lse};
+                     n_split, scale, static_cast<cudaStream_t>(stream), lse,
+                     body};
   return sd::dispatch_dtype(rows, a, dtype);
 }
 

@@ -11,9 +11,12 @@
 // heads, and above it each group's blocks read the KV head's tiles again
 // (K/V bytes times NG).  The run is the row's whole cache for the dense
 // layout and the slots the mask can reach for the paged one.  Two block
-// bodies:
+// bodies; the caller names the one it wants (Launch::body, chosen by
+// kernels/decode_attention/ops.py::_decode_body), and dispatch refuses
+// the tensor-core body where it cannot serve:
 //
-// decode_block_mma (bf16, D = 64 or 128): each of the 4 warps takes every
+// decode_block_mma (bf16, D = 64, 80 or 128, 16-byte aligned K/V and
+//   4-byte aligned q): each of the 4 warps takes every
 //   4th tile of the split, copies it with 16-byte cp.async into its own
 //   ring of kMmaStages shared-memory stages (slots that are not attended
 //   are zero-filled, never read), and runs both products on the tensor
@@ -21,7 +24,9 @@
 //   rows (rows G..15 zero) and O[16 x D] += P V with P straight from S's
 //   accumulator registers and V through ldmatrix.trans.  A tile of 16
 //   slots costs a warp 2 * D / 8 mma and D / 8 ldmatrix.x4, so the body
-//   keeps up with HBM.
+//   keeps up with HBM.  At D = 80 a staged row is 176 bytes, 11 pieces of
+//   16 (an odd count, as 9 at D 64 and 17 at D 128), QK^T takes 5 k16
+//   steps and P V 10 n8 tiles in pairs.
 // decode_block (float32, and bf16 at other D): a row group of W lanes (W a
 //   power of two, at most 32) owns one slot at a time; lane ch holds the
 //   pieces ch, ch + W, ... (16 bytes each where D allows, else 1 element)
@@ -527,8 +532,8 @@ __device__ __forceinline__ void cp_async_16_or_zero(void* dst,
                : "memory");
 }
 
-// bf16 body; D = 64 or 128, G = 1..8 (rows of the m16 tile).  Arguments as
-// decode_block.
+// bf16 body; D = 64, 80 or 128, G = 1..8 (rows of the m16 tile).
+// Arguments as decode_block.
 template <int D, typename Layout>
 __device__ __forceinline__ void decode_block_mma(
     const Layout& lay, const __nv_bfloat16* __restrict__ k,
@@ -545,6 +550,10 @@ __device__ __forceinline__ void decode_block_mma(
   constexpr int kPieces = D / 8;               // 16-byte pieces a row
   constexpr int kCopies = kTile * kPieces / 32;
   constexpr int kN = D / 8;                    // n8 tiles of O
+  static_assert(D % 16 == 0 && kTile * kPieces % 32 == 0 && kN % 2 == 0 &&
+                    kRow / 16 % 2 == 1,
+                "whole k16 steps, copies and n8 pairs; a staged row of an "
+                "odd count of 16-byte pieces");
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t4 = lane % 4;
   int t_lo, t_hi;
@@ -800,6 +809,9 @@ cudaError_t with_group(int G, F&& f) {
 // not null, float32 [B, Hkv * G]: each head's log-sum-exp of its scaled
 // scores over the slots it attended (-1e30 where none), so that launches
 // over disjoint runs of one row's cache can be merged by the caller.
+// body: kBodyCore (decode_block) or kBodyMma (decode_block_mma).
+constexpr int kBodyCore = 0, kBodyMma = 1;
+
 struct Launch {
   const void *q, *k, *v;
   void *o, *part_acc, *part_ml, *counters;
@@ -807,6 +819,7 @@ struct Launch {
   float scale;
   cudaStream_t stream;
   void* lse = nullptr;
+  int body = kBodyCore;
 };
 
 template <typename Rows, typename T, int VEC, int NC, bool WIDE = false>
@@ -844,21 +857,28 @@ cudaError_t launch_mma(const Rows& rows, const Launch& a) {
   return cudaGetLastError();
 }
 
-// bf16 at D = 64 or 128 on the tensor cores; otherwise the CUDA cores,
-// with 16-byte pieces where D and the cache's alignment allow them and a
-// row fits 32 lanes, one element a piece where not.
+// The body the launch names: the tensor cores for bf16 at D = 64, 80 or
+// 128 with 16-byte aligned K/V and 4-byte aligned q (anything else asking
+// for them is refused, never sent elsewhere); the CUDA cores at any D and
+// dtype, with 16-byte pieces where D and the cache's alignment allow them
+// and a row fits 32 lanes, one element a piece where not.
 template <typename T, typename Rows>
 cudaError_t dispatch(const Rows& rows, const Launch& a) {
   constexpr int kVec = 16 / sizeof(T);
   const int D = a.D;
   const bool aligned = reinterpret_cast<uintptr_t>(a.k) % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(a.v) % 16 == 0;
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    if (aligned && reinterpret_cast<uintptr_t>(a.q) % 4 == 0) {
-      if (D == 64) return launch_mma<Rows, 64>(rows, a);
-      if (D == 128) return launch_mma<Rows, 128>(rows, a);
+  if (a.body == kBodyMma) {
+    if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+      if (aligned && reinterpret_cast<uintptr_t>(a.q) % 4 == 0) {
+        if (D == 64) return launch_mma<Rows, 64>(rows, a);
+        if (D == 80) return launch_mma<Rows, 80>(rows, a);
+        if (D == 128) return launch_mma<Rows, 128>(rows, a);
+      }
     }
+    return cudaErrorInvalidValue;
   }
+  if (a.body != kBodyCore) return cudaErrorInvalidValue;
   if (aligned && D == 32 * kVec)
     return launch_core<Rows, T, kVec, 1, true>(rows, a, 32);
   if (aligned && D % kVec == 0 && D / kVec <= 32)

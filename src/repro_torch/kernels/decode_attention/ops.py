@@ -10,7 +10,11 @@ merge in the same launch (``csrc/split_decode.cuh``).
 ``decode_attention`` takes ``[B, H, D]`` and returns ``[B, H, D]`` as the
 JAX entry point does.  On a CPU tensor it runs ``decode_attention_ref``; on
 a CUDA tensor it launches the kernel (or raises) and counts the launch in
-``decode_attention.launches``.  The kernel needs no padding of D or C (the
+``decode_attention.launches`` and, per block body, in
+``decode_attention.launches_by_variant``: ``_decode_body`` names the body
+(``"mma"``, the tensor cores, for bfloat16 at D = 64, 80 or 128 on aligned
+tensors; ``"core"``, the CUDA cores, otherwise) and the C entry launches
+that one or refuses.  The kernel needs no padding of D or C (the
 TPU wrapper padded D to 128 and C to ``block_c``), and takes any group of
 ``G = H / Hkv`` query heads: above ``MAX_GROUP`` the launch adds head
 groups (``_head_groups``), still one launch.
@@ -49,6 +53,8 @@ TILE = 16              # cache slots per tile (split_decode.cuh kTile)
 MIN_SPLIT_TILES = 8    # tiles a split holds at least, by default
 N_SM = 132             # the H100's SMs
 MAX_D = 256            # K3's kernel (split_decode.cuh kMaxD)
+MMA_DIMS = (64, 80, 128)   # the tensor-core body's head dims
+BODIES = {"core": 0, "mma": 1}   # split_decode.cuh kBodyCore / kBodyMma
 PV_TILE = 32           # slots a tile of decode_softmax_pv (decode_hd.cu)
 PV_CHUNK = 64          # dims a block of decode_softmax_pv serves
 MIN_PV_TILES = 4       # tiles a split of decode_softmax_pv holds at least
@@ -97,12 +103,29 @@ def _num_splits(B: int, Hkv: int, C: int, n_sm: int = N_SM,
 _num_splits.force = None   # an override for every launch (tests, smoke)
 
 
+def _decode_body(dtype: torch.dtype, D: int, aligned: bool) -> str:
+    """The block body of ``csrc/split_decode.cuh`` that serves a launch
+    (K3's and K2's): ``"mma"`` (``decode_block_mma``, the tensor cores) for
+    bfloat16 at D = 64, 80 or 128 when ``aligned`` (k and v 16-byte
+    aligned, q 4-byte aligned, ``_aligned``), else ``"core"``
+    (``decode_block``, the CUDA cores).  The wrappers pass it to the C
+    entry, whose ``dispatch`` refuses ``"mma"`` where it cannot serve."""
+    return ("mma" if dtype == torch.bfloat16 and D in MMA_DIMS and aligned
+            else "core")
+
+
+def _aligned(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
+    return (k.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0
+            and q.data_ptr() % 4 == 0)
+
+
 def _waves(dtype: torch.dtype, D: int) -> float:
     """The waves ``_num_splits`` aims for with the body that serves
-    ``dtype`` at ``D``: the tensor-core body (bf16, D = 64 or 128) keeps 4
-    warps x 2 tiles in flight per block and fills HBM at half a wave; the
-    CUDA-core body needs two (measured: PERF.md §6)."""
-    return 0.5 if dtype == torch.bfloat16 and D in (64, 128) else 2.0
+    ``dtype`` at ``D`` on aligned tensors: the tensor-core body (bf16, D =
+    64, 80 or 128) keeps 4 warps x 2 tiles in flight per block and fills
+    HBM at half a wave; the CUDA-core body needs two (measured: PERF.md
+    §6)."""
+    return 0.5 if _decode_body(dtype, D, True) == "mma" else 2.0
 
 
 def _head_groups(G: int):
@@ -149,8 +172,8 @@ def _lib() -> ctypes.CDLL:
     fn = lib.flash_decode
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                          ctypes.c_void_p])
+                       + [ctypes.c_float] + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
 
@@ -222,12 +245,29 @@ def decode_attention(
                              f"{MAX_D}")
         return decode_softmax_pv(decode_scores(q, k, scale=scale), v, q_pos,
                                  k_pos, window=window)
+    n_split = _launch_splits(B, H, Hkv, D, C, q.dtype, _sm_count(q.device),
+                             min_split_tiles)
+    body = _decode_body(q.dtype, D, _aligned(q, k, v))
+    o, lse = _launch(q, k, v, q_pos, k_pos, window, scale, n_split, body,
+                     return_lse)
+    decode_attention.launches += 1
+    decode_attention.launches_by_variant[body] += 1
+    decode_attention.last_n_split = n_split
+    return (o, lse) if return_lse else o
+
+
+def _launch(q, k, v, q_pos, k_pos, window, scale, n_split, body,
+            return_lse=False):
+    """One launch of ``flash_decode.cu`` with the given split count and
+    body (``"mma"`` or ``"core"``) on inputs ``decode_attention`` has
+    checked; not counted (chip_smoke.py times the CUDA-core body through
+    it beside the tensor-core one).  Returns ``(o, lse or None)``."""
+    B, H, D = q.shape
+    C, Hkv = k.shape[1], k.shape[2]
     G = H // Hkv
     o = torch.empty_like(q)
     lse = (torch.empty((B, H), dtype=torch.float32, device=q.device)
            if return_lse else None)
-    n_split = _launch_splits(B, H, Hkv, D, C, q.dtype, _sm_count(q.device),
-                             min_split_tiles)
     scratch = _split_scratch(B, Hkv, G, D, n_split, q.device)
     lib = _lib()
     err = lib.flash_decode(
@@ -237,12 +277,10 @@ def decode_attention(
         *(0 if t is None else t.data_ptr() for t in scratch),
         B, C, Hkv, G, D, n_split,
         -1 if window is None else int(window), float(scale),
-        _DTYPES[q.dtype], q.device.index or 0,
+        _DTYPES[q.dtype], BODIES[body], q.device.index or 0,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, "flash_decode", err)
-    decode_attention.launches += 1
-    decode_attention.last_n_split = n_split
-    return (o, lse) if return_lse else o
+    return o, lse
 
 
 def _launch_splits(B: int, H: int, Hkv: int, D: int, C: int,
@@ -259,6 +297,7 @@ def _launch_splits(B: int, H: int, Hkv: int, D: int, C: int,
 
 
 decode_attention.launches = 0
+decode_attention.launches_by_variant = {"mma": 0, "core": 0}
 decode_attention.last_n_split = None
 
 

@@ -8,8 +8,11 @@ and what its design does about that.
 
 Two kernels, chosen by ``_variant(dtype, D)``: ``"wgmma"``
 (``csrc/flash_attention_fwd_sm90.cu``: tensor cores, GQA-packed rows, TMA)
-for bfloat16 at D = 64 or 128, and ``"simt"`` (``csrc/
+for bfloat16 at D = 64, 80 or 128, and ``"simt"`` (``csrc/
 flash_attention_fwd.cu``: fp32 CUDA cores) for float32 and every other D.
+At D = 80 (h2o-danube) the tensor-core kernel pads the head dim to 128 in
+shared memory, as the reference's wrapper pads it in HBM, and scales by
+the true D.
 
 ``flash_attention`` takes the model layout ``[B, S, H, D]`` as the JAX
 entry point does.  On a CPU tensor it runs ``flash_attention_ref``; on a
@@ -48,14 +51,16 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal=causal, window=window, scale=scale)
 
 
-# the packed tensor-core kernel's tiles (flash_attention_fwd_sm90.cu)
+# the packed tensor-core kernel's tiles and head dims
+# (flash_attention_fwd_sm90.cu)
 ROWS, KEYS = 128, 64
+WGMMA_DIMS = (64, 80, 128)
 _SOURCES = {"simt": "flash_attention_fwd", "wgmma": "flash_attention_fwd_sm90"}
 
 
 def _variant(dtype: torch.dtype, D: int) -> str:
     """The kernel that serves ``dtype`` at head dim ``D``."""
-    return "wgmma" if dtype == torch.bfloat16 and D in (64, 128) else "simt"
+    return "wgmma" if dtype == torch.bfloat16 and D in WGMMA_DIMS else "simt"
 
 
 def _tile_plan(Sq: int, Sk: int, G: int, causal: bool,

@@ -12,7 +12,9 @@ same launch.
 ``paged_decode_attention`` takes ``[B, H, D]`` and returns ``[B, H, D]`` as
 the JAX entry point does.  On a CPU tensor it runs
 ``paged_decode_attention_ref``; on a CUDA tensor it launches the kernel (or
-raises) and counts the launch in ``paged_decode_attention.launches``.  As
+raises) and counts the launch in ``paged_decode_attention.launches`` and,
+per block body (K3's ``_decode_body``: ``"mma"`` or ``"core"``), in
+``paged_decode_attention.launches_by_variant``.  As
 in the reference wrapper, table ids are clamped into ``[0, P-1]`` (the
 kernel clamps each id it reads), and the scale is that of the true D: the
 kernel needs no padding of D.  Its knob is the split rule's
@@ -29,7 +31,8 @@ from typing import Optional
 import torch
 
 from .. import _build, tuning
-from ..decode_attention.ops import (_head_groups, _num_splits, _sm_count,
+from ..decode_attention.ops import (BODIES, _aligned, _decode_body,
+                                    _head_groups, _num_splits, _sm_count,
                                     _split_scratch, _waves)
 from .ref import paged_decode_attention_ref
 
@@ -63,8 +66,8 @@ def _lib() -> ctypes.CDLL:
     fn = lib.paged_flash_decode
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                          ctypes.c_void_p])
+                       + [ctypes.c_float] + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
 
@@ -123,10 +126,27 @@ def paged_decode_attention(
     if not all(t.is_contiguous()
                for t in (q, k_pages, v_pages, block_tables, lengths)):
         raise ValueError("paged_decode_attention: inputs must be contiguous")
-    G = H // Hkv
-    o = torch.empty_like(q)
     n_split = _paged_splits(B, Hkv, maxp, page, window, q.dtype, D,
-                            _sm_count(q.device), G, min_split_tiles)
+                            _sm_count(q.device), H // Hkv, min_split_tiles)
+    body = _decode_body(q.dtype, D, _aligned(q, k_pages, v_pages))
+    o = _launch(q, k_pages, v_pages, block_tables, lengths, window, scale,
+                n_split, body)
+    paged_decode_attention.launches += 1
+    paged_decode_attention.launches_by_variant[body] += 1
+    paged_decode_attention.last_n_split = n_split
+    return o
+
+
+def _launch(q, k_pages, v_pages, block_tables, lengths, window, scale,
+            n_split, body):
+    """One launch of ``paged_flash_decode.cu`` with the given split count
+    and body (``"mma"`` or ``"core"``) on inputs ``paged_decode_attention``
+    has checked; not counted (chip_smoke.py times the CUDA-core body
+    through it beside the tensor-core one)."""
+    B, H, D = q.shape
+    P, page, Hkv, _ = k_pages.shape
+    maxp, G = block_tables.shape[1], H // Hkv
+    o = torch.empty_like(q)
     scratch = _split_scratch(B, Hkv, G, D, n_split, q.device)
     lib = _lib()
     err = lib.paged_flash_decode(
@@ -135,13 +155,12 @@ def paged_decode_attention(
         *(0 if t is None else t.data_ptr() for t in scratch),
         B, P, page, maxp, Hkv, G, D, n_split,
         -1 if window is None else int(window), float(scale),
-        _DTYPES[q.dtype], q.device.index or 0,
+        _DTYPES[q.dtype], BODIES[body], q.device.index or 0,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, "paged_flash_decode", err)
-    paged_decode_attention.launches += 1
-    paged_decode_attention.last_n_split = n_split
     return o
 
 
 paged_decode_attention.launches = 0
+paged_decode_attention.launches_by_variant = {"mma": 0, "core": 0}
 paged_decode_attention.last_n_split = None

@@ -2,7 +2,8 @@
 of the packed tensor-core kernel's tile walk against the JAX package.
 
 ``_variant(dtype, D)`` picks the tensor-core kernel ("wgmma") for bfloat16
-at D = 64 or 128 and the CUDA-core kernel ("simt") otherwise.  The packed
+at D = 64, 80 or 128 (80 padded to two 64-column chunks in shared memory)
+and the CUDA-core kernel ("simt") otherwise.  The packed
 kernel gives a block 128 rows of (position, head) pairs of one KV head and
 visits only the key tiles of ``_tile_plan``, masking only the tiles the
 plan marks; the model below attends over exactly those keys with exactly
@@ -27,6 +28,7 @@ from repro_torch.kernels.flash_attention.ops import KEYS, ROWS, _tile_plan, _var
     (torch.bfloat16, 24, "simt"), (torch.bfloat16, 256, "simt"),
     (torch.float32, 8, "simt"), (torch.float32, 16, "simt"),
     (torch.float32, 24, "simt"), (torch.float32, 256, "simt"),
+    (torch.bfloat16, 80, "wgmma"), (torch.float32, 80, "simt"),
 ])
 def test_variant(dtype, D, want):
     assert _variant(dtype, D) == want
