@@ -293,9 +293,26 @@ def setup():
     say(f"built {sorted(libs)} with {' '.join(_build.FLAGS)} in "
         f"{time.perf_counter() - t0:.1f} s")
     for name in sorted(libs):
+        entry = ""
         for line in _build.build_log(name).splitlines():
-            if ("ptxas info" in line and "Used" in line) or "spill" in line:
-                say(f"  {name}: {line.split('ptxas info    :')[-1].strip()}")
+            if "Compiling entry function" in line:
+                entry = _kernel_name(line.split("'")[1])
+            elif ("ptxas info" in line and "Used" in line) or "spill" in line:
+                say(f"  {name}: {line.split('ptxas info    :')[-1].strip()}"
+                    f" [{entry}]")
+
+
+def _kernel_name(mangled):
+    """A kernel's name and template arguments, demangled by c++filt where
+    the toolkit's host has it."""
+    try:
+        name = subprocess.run(["c++filt", mangled], capture_output=True,
+                              text=True, check=True).stdout.strip()
+    except (OSError, subprocess.CalledProcessError):
+        return mangled
+    name = name.removeprefix("void ")
+    cut = name.rfind(">(")    # where the parameters follow the template
+    return name[:cut + 1] if cut >= 0 else name.split("(", 1)[0]
 
 
 # ------------------------------------------------------------------ phase 2
@@ -597,30 +614,190 @@ def paged_kernel_phase(prompt_len, new_tokens):
         split_sweep=split_sweep)
 
 
+ONE_GROUP = [(36, 4), (48, 4), (64, 4)]   # (H, Hkv): G = 9, 12, 16
+
+
+def _launch_groups(wrapper, call):
+    """Run ``call`` (one launch of K3's or K2's wrapper); return the head
+    groups it launched with, as counted in ``wrapper.launches_by_groups``
+    from what its C entry was given."""
+    before = dict(wrapper.launches_by_groups)
+    call()
+    ran = [g for g, n in wrapper.launches_by_groups.items()
+           if n != before.get(g, 0)]
+    if len(ran) != 1 or wrapper.last_groups[0] != ran[0]:
+        fail(f"{wrapper.__name__}: launches by head groups {before} -> "
+             f"{wrapper.launches_by_groups} for one call (last groups "
+             f"{wrapper.last_groups})")
+    return ran[0]
+
+
+def _rule_groups(name, args, kw=None):
+    """The head groups ``_head_groups`` gives K3's (``name``
+    "flash_decode") or K2's launch on ``args`` (the wrapper's positional
+    arguments, ``kw`` its keywords) through the body ``_decode_body``
+    names, from the one-group launch's grid."""
+    from repro_torch.kernels import tuning
+    from repro_torch.kernels.decode_attention.ops import (
+        _aligned, _decode_body, _launch_groups, _sm_count)
+    from repro_torch.kernels.paged_attention.ops import _paged_groups
+    q, k, v = args[:3]
+    B, H, D = q.shape
+    Hkv = k.shape[2]
+    body = _decode_body(q.dtype, D, _aligned(q, k, v))
+    n_sm = _sm_count(q.device)
+    if name == "flash_decode":
+        return _launch_groups(B, H // Hkv, Hkv, k.shape[1], q.dtype, D, n_sm,
+                              tuning.resolve("decode_attention",
+                                             "min_split_tiles", None), body)
+    return _paged_groups(B, H // Hkv, Hkv, args[3].shape[1], k.shape[1],
+                         (kw or {}).get("window"), q.dtype, D, n_sm,
+                         body=body)
+
+
+def _one_group_checks(gen):
+    """bf16 K3 and K2 at G = 9, 12 and 16 (``ONE_GROUP``), D = 64, 80 and
+    128, without and with a window of 128, at one split and at splits of
+    3 and 4 (dense rows of 700 slots, paged rows in pages of 16, lengths
+    700 / 333 / 40 / 1): each case launched on the tensor-core body in one
+    head group through the uncounted ``_launch`` helpers, which return
+    the groups the C entry was given, held to the bf16 plain version
+    (5e-2) and, row by row, to the float32 one (``BF16_ROW_TOL``); at G =
+    16 each dense case is also launched with ``return_lse``, its lse held
+    to the float32 plain version's.  At G = 12 and 16 a planted fault,
+    q's heads 8..15 of every KV group zeroed in the kernel's input only,
+    must fail the row gate.  (At B 4 x Hkv 4 the wrappers themselves take
+    two groups of 8: ``_head_groups``.)  Returns {kernel: stats} and the
+    planted faults' row excess."""
+    import torch
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.decode_attention.ops import decode_attention_ref
+    from repro_torch.kernels.paged_attention import ops as pops
+    from repro_torch.kernels.paged_attention.ops import (
+        paged_decode_attention_ref)
+
+    B, C, page = 4, 700, 16
+    valid = [700, 333, 40, 1]
+    maxp = -(-C // page)
+    stats = {name: {"checks": 0, "max_abs_err": 0.0, "row_excess": 0.0}
+             for name in ("flash_decode", "paged_flash_decode")}
+    stats["flash_decode"]["lse_max_abs_err"] = 0.0
+    planted = {}
+
+    def launch(name, shape, what, args, kw, n_split, lse=False):
+        """One uncounted launch on "mma" in one head group; returns its
+        output (and lse)."""
+        D = args[0].shape[2]
+        G = args[0].shape[1] // args[1].shape[2]
+        scale = 1.0 / math.sqrt(D)
+        if name == "flash_decode":
+            o, lse_out, groups = dops._launch(*args, kw["window"], scale,
+                                              n_split, "mma", 1, lse)
+            got = (o, lse_out) if lse else o
+        else:
+            got, groups = pops._launch(*args, kw["window"], scale, n_split,
+                                       "mma", 1)
+        if tuple(groups) != (1, G):
+            fail(f"{name} {shape} {what}: the C entry was given head groups "
+                 f"{groups}, not one group of {G}")
+        return got
+
+    for H, Hkv in ONE_GROUP:
+        G = H // Hkv
+        for D in (64, 80, 128):
+            for window in (None, 128):
+                dshape = (B, H, Hkv, D, C)
+                pshape = (B, H, Hkv, D, page, maxp)
+                dargs = decode_case(*dshape, valid, "bfloat16", gen)
+                pargs = paged_case(*pshape, valid, "bfloat16", gen)
+                cases = [("flash_decode", decode_attention_ref, dshape,
+                          dargs),
+                         ("paged_flash_decode", paged_decode_attention_ref,
+                          pshape, pargs)]
+                for name, plain, shape, args in cases:
+                    kw = dict(window=window)
+                    want = plain(*args, **kw)
+                    want32 = plain(*_widened(args), **kw)
+                    for n_split in (1, 3, 4):
+                        what = f"G={G} window={window} n_split={n_split}"
+                        got = launch(name, shape, what, args, kw, n_split)
+                        st = stats[name]
+                        _check(name, got, want, "bfloat16", shape, st)
+                        excess = _bf16_excess(got, want32)
+                        st["row_excess"] = max(st["row_excess"], excess)
+                        if not excess <= BF16_ROW_TOL:
+                            fail(f"{name} {shape} {what}: row excess "
+                                 f"{excess:.3e} > {BF16_ROW_TOL}")
+                        if G == 16 and name == "flash_decode":
+                            o, lse = launch(name, shape, what + " lse", args,
+                                            kw, n_split, lse=True)
+                            o32, lse32 = plain(*_widened(args),
+                                               return_lse=True, **kw)
+                            _check(name, o, want, "bfloat16", shape, st)
+                            lst = {"checks": 0, "max_abs_err": 0.0}
+                            _check(f"{name} lse", lse, lse32, "bfloat16",
+                                   shape, lst)
+                            st["checks"] += 1
+                            st["lse_max_abs_err"] = max(
+                                st["lse_max_abs_err"], lst["max_abs_err"])
+                        if G > 8 and n_split == 3 and window is None:
+                            qz = args[0].clone().view(B, Hkv, G, D)
+                            qz[:, :, 8:] = 0
+                            bad = launch(name, shape, what + " planted",
+                                         (qz.view(B, H, D), *args[1:]), kw,
+                                         n_split)
+                            ex = _bf16_excess(bad, want32)
+                            planted[f"{name} {shape}"] = ex
+                            if ex <= BF16_ROW_TOL:
+                                fail(f"{name} {shape} {what}: the planted "
+                                     "fault 'q heads 8..15 zeroed' passes "
+                                     f"the row gate ({ex:.3e} <= "
+                                     f"{BF16_ROW_TOL})")
+                        del got
+                    del want, want32
+                del dargs, pargs
+                torch.cuda.synchronize()
+    for name, st in stats.items():
+        say(f"  {name} bf16 at G 9 / 12 / 16, D 64 / 80 / 128, windows, "
+            f"n_split 1 / 3 / 4: {st['checks']} checks on the tensor-core "
+            f"body in one head group, max err {st['max_abs_err']:.2e}, row "
+            f"excess {st['row_excess']:.2e} <= {BF16_ROW_TOL}"
+            + (f", lse max err {st['lse_max_abs_err']:.2e}"
+               if "lse_max_abs_err" in st else ""))
+    say("  planted 'q heads 8..15 zeroed' (row excess, must exceed "
+        f"{BF16_ROW_TOL}): " + ", ".join(f"{k} {v:.2e}"
+                                         for k, v in planted.items()))
+    return stats, planted
+
+
 def gqa_phase(prompt_len, new_tokens):
     """K3 and K2 at the GQA groups of the repo's configs, G = 7 (7B,
     28 / 4), 5 (14B, 40 / 8), 12 (starcoder2-15b, 48 / 4) and 16
     (qwen3-moe, 64 / 4), D = 128, in float32 and bfloat16 at one split and
-    at splits forced above 1 (above G = 8 the head groups must keep their
-    merge tickets apart), held to the plain versions; K1 prefill at the 7B
-    and 14B head counts; bf16 times at G = 12 and 16 at the main and long
-    shapes.  Returns {kernel: record part}."""
+    at splits forced above 1 (head groups must keep their merge tickets
+    apart: float32 runs G 12 / 16 in two groups on the CUDA cores), held
+    to the plain versions; bf16 at G = 9, 12 and 16 on the tensor cores
+    in one head group (``_one_group_checks``); K1 prefill at the 7B and
+    14B head counts; bf16 times at G = 12 and 16 at the serve, main and
+    two long shapes: the wrapper, in the groups ``_head_groups`` gives, beside
+    the same body launched in one group and in two.  Returns {kernel:
+    record part}."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.kernels.decode_attention.ops import (
-        _head_groups, _num_splits, _sm_count, _waves, decode_attention,
-        decode_attention_ref)
+        _cut, _num_splits, _sm_count, decode_attention, decode_attention_ref)
     from repro_torch.kernels.flash_attention.ops import (
         _variant, flash_attention, flash_attention_ref)
+    from repro_torch.kernels.paged_attention import ops as pops
     from repro_torch.kernels.paged_attention.ops import (
-        _paged_splits, paged_decode_attention, paged_decode_attention_ref)
+        paged_decode_attention, paged_decode_attention_ref)
 
     gen = torch.Generator(device="cuda").manual_seed(6)
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
     stats = {name: {"checks": 0, "max_abs_err": 0.0} for name in
              ("flash_attention_fwd", "flash_decode", "paged_flash_decode")}
     groups = [(28, 4), (40, 8), (48, 4), (64, 4)]
-
     def once(wrapper, name, call, want, dtype, shape, what):
         before = wrapper.launches
         got = call()
@@ -674,32 +851,80 @@ def gqa_phase(prompt_len, new_tokens):
     finally:
         _num_splits.force = None
 
-    # bf16 times at G = 12 and 16: the main path's shape and the long one
+    one_stats, planted = _one_group_checks(gen)
+
+    # bf16 times at G = 12 and 16 at the serve shape, the main path's and
+    # two long ones (B 32 x 2048: one group by the rows' length, B 64 x
+    # 8192: by the grid): the wrapper (the groups ``_head_groups`` gives)
+    # beside the same body launched in one group and in two (uncounted),
+    # each at the split count the wrappers' rule takes for those groups
     timings = {"flash_decode": {}, "paged_flash_decode": {}}
+    n_sm = _sm_count(torch.device("cuda"))
+
+    def timed(wrapper, name, call, args):
+        """(ms, n_split, head groups) of the wrapper's launch, which must
+        be on the tensor-core body in the groups of ``_rule_groups``."""
+        mma = wrapper.launches_by_variant["mma"]
+        ng = _launch_groups(wrapper, call)
+        if wrapper.launches_by_variant["mma"] != mma + 1:
+            fail(f"{name}: not on the tensor-core body")
+        if ng != _rule_groups(name, args)[0]:
+            fail(f"{name}: launched in {ng} head groups, the rule gives "
+                 f"{_rule_groups(name, args)}")
+        return _time_ms(call, flush), wrapper.last_n_split, ng
+
+    def both(wrapper, name, call, args):
+        ms, n, ng = timed(wrapper, name, call, args)
+        rec = dict(ms=ms, n_split=n, head_groups=ng)
+        q = args[0]
+        B, H, D = q.shape
+        Hkv = args[1].shape[2]
+        G = H // Hkv
+        for label, g in (("one_group", 1), ("two_group", 2)):
+            if name == "flash_decode":
+                n_g = dops._launch_splits(B, H, Hkv, D, args[1].shape[1],
+                                          q.dtype, n_sm, None, "mma",
+                                          _cut(G, g))
+
+                def launch():
+                    return dops._launch(*args, None, 1.0 / math.sqrt(D), n_g,
+                                        "mma", g)
+            else:
+                bt = args[3]
+                n_g = pops._paged_splits(B, Hkv, bt.shape[1],
+                                         args[1].shape[1], None, q.dtype, D,
+                                         n_sm, G, None, "mma", _cut(G, g))
+
+                def launch():
+                    return pops._launch(*args, None, 1.0 / math.sqrt(D), n_g,
+                                        "mma", g)
+            if tuple(launch()[-1]) != _cut(G, g):
+                fail(f"{name}: the C entry was not given {g} head groups")
+            rec[f"{label}_ms"] = _time_ms(launch, flush)
+            rec[f"{label}_n_split"] = n_g
+        return rec
+
     for H, Hkv in groups[2:]:
         G = H // Hkv
-        for B, C in [(32, prompt_len + new_tokens), (64, 8192)]:
+        for B, C in [(8, prompt_len + new_tokens),
+                     (32, prompt_len + new_tokens), (32, 2048), (64, 8192)]:
             shape = (B, H, Hkv, 128, C)
             valid = [C] * B
-            q, k, v, q_pos, k_pos = decode_case(*shape, valid, "bfloat16",
-                                                gen)
+            dargs = decode_case(*shape, valid, "bfloat16", gen)
+            q, k, v, q_pos, k_pos = dargs
             qt = q[:, :, None]
             kt, vt = (x.transpose(1, 2).contiguous() for x in (k, v))
             mask = ((k_pos >= 0) & (k_pos <= q_pos[:, None]))[:, None, None]
             bound, by = _bound_ms(*decode_work(*shape, valid, 2), "bfloat16")
             timings["flash_decode"][f"G={G} {shape}"] = dict(
-                ms=_time_ms(lambda: decode_attention(q, k, v, q_pos, k_pos),
-                            flush),
+                both(decode_attention, "flash_decode",
+                     lambda: decode_attention(q, k, v, q_pos, k_pos), dargs),
                 plain_ms=_time_ms(lambda: decode_attention_ref(
                     q, k, v, q_pos, k_pos), flush),
                 library_ms=_time_ms(lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, attn_mask=mask, enable_gqa=True), flush),
-                bound_ms=bound, bound_by=by,
-                n_split=_num_splits(B, Hkv * _head_groups(G)[0], C,
-                                    _sm_count(q.device),
-                                    waves=_waves(q.dtype, 128)),
-                head_groups=_head_groups(G)[0])
-            del q, k, v, kt, vt
+                bound_ms=bound, bound_by=by)
+            del q, k, v, kt, vt, dargs
             page = 128
             maxp = -(-C // page)
             pshape = (B, H, Hkv, 128, page, maxp)
@@ -712,31 +937,44 @@ def gqa_phase(prompt_len, new_tokens):
             pt = qp[:, :, None]
             bound, by = _bound_ms(*paged_work(*pshape, valid, 2), "bfloat16")
             timings["paged_flash_decode"][f"G={G} {pshape}"] = dict(
-                ms=_time_ms(lambda: paged_decode_attention(*args), flush),
+                both(paged_decode_attention, "paged_flash_decode",
+                     lambda: paged_decode_attention(*args), args),
                 plain_ms=_time_ms(lambda: paged_decode_attention_ref(*args),
                                   flush),
                 library_ms=_time_ms(lambda: F.scaled_dot_product_attention(
                     pt, kd, vd, attn_mask=pmask, enable_gqa=True), flush),
-                bound_ms=bound, bound_by=by,
-                n_split=_paged_splits(B, Hkv, maxp, page, None, qp.dtype,
-                                      128, _sm_count(qp.device), G),
-                head_groups=_head_groups(G)[0])
+                bound_ms=bound, bound_by=by)
             del args, qp, kp, vp, kd, vd
             torch.cuda.synchronize()
     for name, rows in timings.items():
         for key, t in rows.items():
-            say(f"  time {name} {key} bfloat16: kernel {t['ms']:.4f} ms, "
-                f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}), plain "
-                f"{t['plain_ms']:.4f} ms, sdpa {t['library_ms']:.4f} ms, "
-                f"n_split {t['n_split']}, head groups {t['head_groups']} "
-                f"({CARD['card']})")
+            say(f"  time {name} {key} bfloat16: kernel {t['ms']:.4f} ms "
+                f"(head groups {t['head_groups']}, n_split {t['n_split']}); "
+                f"one group {t['one_group_ms']:.4f} ms (n_split "
+                f"{t['one_group_n_split']}), two groups "
+                f"{t['two_group_ms']:.4f} ms (n_split "
+                f"{t['two_group_n_split']}); bound {t['bound_ms']:.4f} ms "
+                f"({t['bound_by']}), plain {t['plain_ms']:.4f} ms, sdpa "
+                f"{t['library_ms']:.4f} ms ({CARD['card']})")
+    out = {}
+    for name in stats:
+        rec = dict(stats[name])
+        if name in one_stats:
+            rec["checks"] += one_stats[name]["checks"]
+            rec["max_abs_err"] = max(rec["max_abs_err"],
+                                     one_stats[name]["max_abs_err"])
+            rec["one_group_bf16"] = dict(
+                one_stats[name],
+                planted={k: v for k, v in planted.items()
+                         if k.startswith(name + " ")})
+        if name in timings:
+            rec["times_bf16"] = timings[name]
+        out[name] = rec
     say("kernels: K1 at the 7B / 14B head counts, K3 and K2 at G = 5, 7, "
-        "12, 16 hold to their plain versions ("
-        + ", ".join(f"{k} {v['checks']} checks" for k, v in stats.items())
+        "9, 12, 16 hold to their plain versions ("
+        + ", ".join(f"{k} {v['checks']} checks" for k, v in out.items())
         + "), one launch a call")
-    return {name: dict(stats[name], **({"times_bf16": timings[name]}
-                                       if name in timings else {}))
-            for name in stats}
+    return out
 
 
 def mlstm_case(B, S, H, D, dtype, gen):
@@ -991,10 +1229,10 @@ def _core_decode(q, k, v, q_pos, k_pos, window=None):
     from repro_torch.kernels.decode_attention import ops
     B, H, D = q.shape
     C, Hkv = k.shape[1], k.shape[2]
-    n = ops._num_splits(B, Hkv * ops._head_groups(H // Hkv)[0], C,
-                        ops._sm_count(q.device), waves=2.0)
+    ng = ops._head_groups(H // Hkv, "core")[0]
+    n = ops._num_splits(B, Hkv * ng, C, ops._sm_count(q.device), waves=2.0)
     return ops._launch(q, k, v, q_pos, k_pos, window, 1.0 / math.sqrt(D), n,
-                       "core")[0]
+                       "core", ng)[0]
 
 
 def _core_paged(q, kp, vp, bt, lengths, window=None):
@@ -1007,10 +1245,10 @@ def _core_paged(q, kp, vp, bt, lengths, window=None):
     page, Hkv = kp.shape[1], kp.shape[2]
     maxp = bt.shape[1]
     reach = maxp * page if window is None else min(maxp * page, window)
-    n = _num_splits(B, Hkv * _head_groups(H // Hkv)[0], reach,
-                    _sm_count(q.device), waves=2.0)
+    ng = _head_groups(H // Hkv, "core")[0]
+    n = _num_splits(B, Hkv * ng, reach, _sm_count(q.device), waves=2.0)
     return ops._launch(q, kp, vp, bt, lengths, window, 1.0 / math.sqrt(D), n,
-                       "core")
+                       "core", ng)[0]
 
 
 def kernels_phase(prompt_len, new_tokens):
@@ -1291,6 +1529,7 @@ def _reset_counts():
         fn.launches = 0
         for variant in getattr(fn, "launches_by_variant", {}):
             fn.launches_by_variant[variant] = 0
+        getattr(fn, "launches_by_groups", {}).clear()
 
 
 def _scan_variants():
@@ -4663,11 +4902,17 @@ def families_kernel_phase(prompt_len):
     past the window.  At D = 80 K3 and K2 run the tensor-core body, their
     CUDA-core body held and timed beside it, and each D = 80 case must
     reject a planted fault that zeroes q's dims 64..79 (the second
-    chunk's real columns).  Returns {kernel: {shape: record}}."""
+    chunk's real columns).  K3 and K2 must launch in the head groups
+    ``_head_groups`` gives (``_rule_groups``; qwen3-moe's G 16 at B 8 in
+    bf16: two groups of 8 on the tensor cores, as the one-group grid does
+    not fill the SMs), and qwen3-moe's case must reject a planted fault
+    that zeroes q's heads 8..15 of every KV group.  Returns {kernel:
+    {shape: record}}."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention.ops import (
-        _decode_body, _num_splits, decode_attention, decode_attention_ref)
+        _decode_body, _num_splits, decode_attention,
+        decode_attention_ref)
     from repro_torch.kernels.flash_attention.ops import (
         _variant, flash_attention, flash_attention_ref)
     from repro_torch.kernels.paged_attention.ops import (
@@ -4694,6 +4939,7 @@ def families_kernel_phase(prompt_len):
             args = call(dtype)
             before = wrapper.launches
             by_before = dict(wrapper.launches_by_variant)
+            groups_before = dict(getattr(wrapper, "launches_by_groups", {}))
             got = wrapper(*args[0], **args[1])
             if wrapper.launches != before + 1:
                 fail(f"{name} {shape} {what} {dtype}: "
@@ -4704,6 +4950,17 @@ def families_kernel_phase(prompt_len):
             if expect is not None and ran != [expect(dtype)]:
                 fail(f"{name} {shape} {what} {dtype}: launched {ran}, "
                      f"expected {expect(dtype)}")
+            if hasattr(wrapper, "launches_by_groups"):
+                # K3 / K2: the groups the rule gives this launch
+                ng = _rule_groups(name, *args)[0]
+                if wrapper.launches_by_groups.get(ng, 0) != (
+                        groups_before.get(ng, 0) + 1
+                        ) or wrapper.last_groups[0] != ng:
+                    fail(f"{name} {shape} {what} {dtype}: launches by head "
+                         f"groups {groups_before} -> "
+                         f"{wrapper.launches_by_groups}, expected one in "
+                         f"{ng} on {ran[0]}")
+                rec[f"head_groups_{dtype}"] = ng
             stats = {"checks": 0, "max_abs_err": 0.0}
             _check(name, got, plain(*args[0], **args[1]), dtype, shape, stats)
             rec["max_abs_err"] = max(rec["max_abs_err"], stats["max_abs_err"])
@@ -4762,6 +5019,9 @@ def families_kernel_phase(prompt_len):
                           for k, v in rec["planted"].items())
         older = (f", old kernel {rec['old_ms']:.4f} ms (max err "
                  f"{rec['old_max_abs_err']:.2e})" if old is not None else "")
+        if "head_groups_bfloat16" in rec:
+            older += (f", head groups float32 {rec['head_groups_float32']} "
+                      f"bfloat16 {rec['head_groups_bfloat16']}")
         if sweep:
             older += "; by n_split " + ", ".join(
                 f"{r['n_split']}{' (default)' if k == 'default' else ''} "
@@ -4784,6 +5044,17 @@ def families_kernel_phase(prompt_len):
         return (q, *args[0][1:]), args[1]
 
     tail = ("q dims 64..79 zeroed", q_tail_zeroed)
+
+    def q_heads8_zeroed(args):
+        """q's heads 8..15 of every KV group zeroed: rows 8..15 of the
+        tensor-core body's m16 tile"""
+        q, k = args[0][:2]
+        B, H, D = q.shape
+        qz = q.clone().view(B, k.shape[2], H // k.shape[2], D)
+        qz[:, :, 8:] = 0
+        return (qz.view(B, H, D), *args[0][1:]), args[1]
+
+    heads8 = ("q heads 8..15 zeroed", q_heads8_zeroed)
 
     # -- K1
     P = prompt_len
@@ -4880,7 +5151,8 @@ def families_kernel_phase(prompt_len):
              lambda item, shape=shape, attended=attended:
              decode_work(*shape, attended, item),
              ([(f"window {window - 1}", dshort)] if window else [])
-             + ([tail] if D == 80 else []),
+             + ([tail] if D == 80 else [])
+             + ([heads8] if H // Hkv > 8 else []),
              expect=lambda dtype, D=D: _decode_body(getattr(torch, dtype), D,
                                                     True),
              old=(lambda args: _core_decode(*args[0], **args[1]))
@@ -5107,18 +5379,47 @@ def _whisper_generate(params, cfg, tokens, frames, max_new):
                                      decode_steps=max_new - 1)
 
 
-def _decode_bodies(what, arch, name, cfg, n):
+def _decode_bodies(what, arch, name, cfg, n, slots, batch=8):
     """K3's or K2's launches by block body since the last _reset_counts().
     h2o-danube (D = 80) must have run all ``n`` on the tensor-core body,
     as ``_decode_body`` names it for the config's dtype and head dim; the
-    other families' counts are reported."""
-    from repro_torch.kernels.decode_attention.ops import _decode_body
-    got = dict(_wrappers()[name].launches_by_variant)
+    other families' counts are reported.  Every family's launches must
+    have run in the head groups ``_head_groups`` gives the body that ran
+    them at 1 to ``batch`` rows over 1 to ``slots`` cache slots (rounded
+    up to a page of 128; ``_launch_groups`` at the extremes): starcoder2-
+    15b (G 12) and qwen3-moe (G 16) at B 8 over short rows in two groups
+    of 8 on the tensor cores, whose one-group launch would leave SMs
+    idle."""
+    import torch
+    from repro_torch.kernels import tuning
+    from repro_torch.kernels.decode_attention.ops import (
+        _decode_body, _launch_groups, _sm_count)
+    wrapper = _wrappers()[name]
+    got = dict(wrapper.launches_by_variant)
     body = _decode_body(cfg.tdtype, cfg.hd, True)
     want = {b: n * (b == body) for b in got}
     if arch == "h2o-danube-1.8b" and (got != want or body != "mma"):
         fail(f"{what}: {name} launches by body {got}, expected {want} on "
              "the tensor-core body")
+    ran = [b for b, k in got.items() if k]
+    groups = dict(wrapper.launches_by_groups)
+    knob = "decode_attention" if name == "flash_decode" else \
+        "paged_attention"
+    min_tiles = tuning.resolve(knob, "min_split_tiles", None)
+    ngs = sorted({_launch_groups(b, cfg.n_heads // cfg.n_kv_heads,
+                                 cfg.n_kv_heads, c, cfg.tdtype, cfg.hd,
+                                 _sm_count(torch.device(DEV)), min_tiles,
+                                 ran[0])[0]
+                  for b in (1, batch)
+                  for c in (1, slots, -(-slots // 128) * 128)}) \
+        if len(ran) == 1 else []
+    if (len(ran) != 1 or sum(groups.values()) != n
+            or not set(groups) <= set(ngs)
+            or (len(ngs) == 1 and groups != {ngs[0]: n})):
+        fail(f"{what}: {name} launches by head groups {groups}, expected "
+             f"{n} in {ngs} (bodies {got})")
+    say(f"{what}: {name} launches by head groups {groups} "
+        f"(G {cfg.n_heads // cfg.n_kv_heads}, body {ran})")
     return got
 
 
@@ -5282,9 +5583,12 @@ def family_serve_phase(arch, paged=False):
     _expect_variants(what, {"simt": k1 * (variant == "simt"),
                             "wgmma": k1 * (variant == "wgmma")})
     bodies = _decode_bodies(what, arch, "flash_decode", cfg,
-                            k3 * m["decode_steps"])
+                            k3 * m["decode_steps"],
+                            max(len(t.prompt_ids) for t in tasks) + 32)
     out["static"] = dict(_timed(m, n_tok, dt), launches=counts,
-                         k1_variant=variant, k3_by_body=bodies)
+                         k1_variant=variant, k3_by_body=bodies,
+                         k3_by_groups=dict(
+                             _wrappers()["flash_decode"].launches_by_groups))
     s = out["static"]
     say(f"{what} max_new=32: {n_tok} tokens in {dt:.3f} s = "
         f"{s['tok_per_s']:.1f} tok/s ({s['gen_tok_per_s']:.1f} without the "
@@ -5330,7 +5634,7 @@ def _family_paged(arch, cfg, store, tasks):
     counts = _read_counts()
     _expect_paged_counts(what, cfg.n_layers, m["decode_steps"], counts)
     bodies = _decode_bodies(what, arch, "paged_flash_decode", cfg,
-                            cfg.n_layers * m["decode_steps"])
+                            cfg.n_layers * m["decode_steps"], plen + 32)
     _check_rollouts(what, rollouts, cfg.vocab, 32)
     n_tok = sum(len(r.completion_ids) for r in rollouts)
     steps = clock.count["decode_step"]
@@ -5338,7 +5642,9 @@ def _family_paged(arch, cfg, store, tasks):
                decode_steps=m["decode_steps"],
                decode_ms_per_step=clock.total["decode_step"] * 1e3 / steps,
                prefill_ms=clock.total.get("prefill_chunk", 0.0) * 1e3,
-               forks=m["forks"], launches=counts, k2_by_body=bodies)
+               forks=m["forks"], launches=counts, k2_by_body=bodies,
+               k2_by_groups=dict(
+                   _wrappers()["paged_flash_decode"].launches_by_groups))
     say(f"{what} max_new=32: {n_tok} tokens in {dt:.3f} s = "
         f"{out['tok_per_s']:.1f} tok/s; decode {out['decode_ms_per_step']:.3f}"
         f" ms/step over {steps} steps, prefill {out['prefill_ms']:.2f} ms "
@@ -5515,12 +5821,17 @@ def families(records, prompt_len):
                 out["static"]["launches"][name])
         records["flash_decode"].setdefault("serve_launches_by_body", {})[
             arch] = out["static"]["k3_by_body"]
+        records["flash_decode"].setdefault("serve_launches_by_groups", {})[
+            arch] = out["static"]["k3_by_groups"]
         if "paged" in out:
             records["paged_flash_decode"].setdefault("serve_launches", {})[
                 arch] = out["paged"]["launches"]["paged_flash_decode"]
             records["paged_flash_decode"].setdefault(
                 "serve_launches_by_body", {})[arch] = out["paged"][
                     "k2_by_body"]
+            records["paged_flash_decode"].setdefault(
+                "serve_launches_by_groups", {})[arch] = out["paged"][
+                    "k2_by_groups"]
     say("families launcher summary " + json.dumps(
         dict(families_launcher_phase(), **CARD)))
     for arch, n_layers in (("qwen2.5-3b", None), ("qwen3-moe-235b-a22b", 1)):

@@ -185,9 +185,9 @@ class _SplitDecodeSpace(KernelSpace):
     def launch_key(self, shape, cfg):
         return (self.n_split(shape, cfg), cfg.get("page_size"))
 
-    def _groups(self, shape):
-        d = shape.d
-        return decode_ops._head_groups(d["H"] // d["Hkv"])
+    def _groups(self, shape, cfg):
+        """(NG, Gc): the head groups the wrapper launches the shape in."""
+        raise NotImplementedError
 
     def _slots(self, shape):
         """Slots a row's splits walk: its tiles, the last one padded."""
@@ -195,7 +195,7 @@ class _SplitDecodeSpace(KernelSpace):
 
     def flops(self, shape, cfg):
         d = shape.d
-        ng, gc = self._groups(shape)
+        ng, gc = self._groups(shape, cfg)
         return 4.0 * d["B"] * d["Hkv"] * ng * gc * d["D"] * self._slots(shape)
 
     def useful_flops(self, shape):
@@ -204,7 +204,7 @@ class _SplitDecodeSpace(KernelSpace):
 
     def bytes_moved(self, shape, cfg):
         d = shape.d
-        ng, gc = self._groups(shape)
+        ng, gc = self._groups(shape, cfg)
         blocks = d["B"] * d["Hkv"] * ng
         n = self.n_split(shape, cfg)
         kv = 2.0 * BF16 * blocks * self._slots(shape) * d["D"]
@@ -220,14 +220,14 @@ class _SplitDecodeSpace(KernelSpace):
         # split_decode.cuh::mma_smem_bytes: 4 warps x 3 stages of K and V
         # tiles, or the merge's partials, whichever is larger
         d = shape.d
-        _, gc = self._groups(shape)
+        _, gc = self._groups(shape, cfg)
         stages = 4 * 3 * 2 * decode_ops.TILE * (2 * d["D"] + 16)
         merge = F32 * 4 * gc * (d["D"] + 2) + 16
         return max(stages, merge)
 
     def grid_steps(self, shape, cfg):
         d = shape.d
-        ng, _ = self._groups(shape)
+        ng, _ = self._groups(shape, cfg)
         return d["B"] * d["Hkv"] * ng * self.n_split(shape, cfg)
 
     def fits_wrapper(self, shape, cfg):
@@ -244,9 +244,15 @@ class DecodeAttentionSpace(_SplitDecodeSpace):
             d["B"], d["H"], d["Hkv"], d["D"], d["C"], torch.bfloat16, N_SM,
             cfg["min_split_tiles"])
 
+    def _groups(self, shape, cfg):
+        d = shape.d
+        return decode_ops._launch_groups(
+            d["B"], d["H"] // d["Hkv"], d["Hkv"], d["C"], torch.bfloat16,
+            d["D"], N_SM, cfg["min_split_tiles"], "mma")
+
     def _index_bytes(self, shape, cfg):
         d = shape.d
-        ng, _ = self._groups(shape)
+        ng, _ = self._groups(shape, cfg)
         # k_pos of every walked slot, per block; q_pos
         return F32 * (d["B"] * d["Hkv"] * ng * self._slots(shape) + d["B"])
 
@@ -267,6 +273,13 @@ class PagedAttentionSpace(_SplitDecodeSpace):
             d["B"], d["Hkv"], self._maxp(shape, cfg), cfg["page_size"], None,
             torch.bfloat16, d["D"], N_SM, d["H"] // d["Hkv"],
             cfg["min_split_tiles"])
+
+    def _groups(self, shape, cfg):
+        d = shape.d
+        return paged_ops._paged_groups(
+            d["B"], d["H"] // d["Hkv"], d["Hkv"], self._maxp(shape, cfg),
+            cfg["page_size"], None, torch.bfloat16, d["D"], N_SM,
+            cfg["min_split_tiles"], "mma")
 
     def _index_bytes(self, shape, cfg):
         d = shape.d

@@ -480,9 +480,9 @@ bool aligned16(const void* p) {
 template <typename T>
 cudaError_t launch_scores(const void* q, const void* k, void* s,
                           const Strides& st, int B, int C, int Hkv, int G,
-                          int Dl, float scale, cudaStream_t stream) {
+                          int NG, int Dl, float scale, cudaStream_t stream) {
   constexpr int E = 16 / sizeof(T);
-  const int NG = sd::head_groups(G), Gc = sd::group_heads(G);
+  const int Gc = (G + NG - 1) / NG;
   const bool vec = aligned16(k) && Dl % E == 0 && st.kb % E == 0 &&
                    st.kc % E == 0 && st.kh % E == 0;
   const dim3 grid((C + kScoreTile - 1) / kScoreTile, Hkv * NG, B);
@@ -501,10 +501,10 @@ cudaError_t launch_softmax_pv(const void* s, const void* v, const void* q_pos,
                               const void* k_pos, void* o, void* part_acc,
                               void* part_ml, void* counters, long long vb,
                               long long vc, long long vh, int B, int C,
-                              int Hkv, int G, int Dl, int n_split, int window,
-                              cudaStream_t stream) {
+                              int Hkv, int G, int NG, int Dl, int n_split,
+                              int window, cudaStream_t stream) {
   constexpr int E = 16 / sizeof(T);
-  const int NG = sd::head_groups(G), Gc = sd::group_heads(G);
+  const int Gc = (G + NG - 1) / NG;
   const int ND = (Dl + kChunk - 1) / kChunk;
   const bool vec = aligned16(v) && Dl % E == 0 && vb % E == 0 &&
                    vc % E == 0 && vh % E == 0;
@@ -1215,40 +1215,53 @@ cudaError_t launch_softmax_pv_ring(
   return run(softmax_pv_ring_kernel<T, 2>);
 }
 
-bool bad_sizes(int B, int C, int Hkv, int G, int Dl, int ND) {
-  return B < 1 || C < 1 || Hkv < 1 || G < 1 || Dl < 1 || B > 65535 ||
-         (long long)Hkv * sd::head_groups(G) * ND > 65535;
+bool bad_sizes(int B, int C, int Hkv, int G, int Dl) {
+  return B < 1 || C < 1 || Hkv < 1 || G < 1 || Dl < 1 || B > 65535;
+}
+
+// The simt passes' head groups: NG groups of Gc = ceil(G / NG) heads, as
+// the caller chose them (ops.py::_head_groups(G, "core"), which also sizes
+// pass 2's merge scratch), a partition the CUDA-core body serves (Gc <=
+// kMaxG, no group empty), with the grid's y of Hkv * NG * ND in range.
+bool bad_groups(int Hkv, int G, int NG, int ND) {
+  return !sd::groups_served(G, NG, sd::kBodyCore) ||
+         (long long)Hkv * NG * ND > 65535;
 }
 
 }  // namespace
 
 // q [B, Hkv*G, Dl] at strides (q_sb, q_sh, 1), k [B, C, Hkv, Dl] at strides
 // (k_sb, k_sc, k_sh, 1), both of one dtype (0 = float32, 1 = bfloat16);
-// s float32 [B, Hkv*G, C], contiguous.  Returns cudaGetLastError() of the
-// launch.
+// s float32 [B, Hkv*G, C], contiguous.  NG: the head groups, Gc =
+// ceil(G / NG) heads each (ops.py::_head_groups(G, "core")); a partition
+// the CUDA-core body cannot serve is refused.  Returns cudaGetLastError()
+// of the launch.
 extern "C" int decode_scores(const void* q, const void* k, void* s,
                              long long q_sb, long long q_sh, long long k_sb,
                              long long k_sc, long long k_sh, int B, int C,
-                             int Hkv, int G, int Dl, float scale, int dtype,
-                             int device, void* stream) {
-  if (bad_sizes(B, C, Hkv, G, Dl, 1)) return cudaErrorInvalidValue;
+                             int Hkv, int G, int Dl, int NG, float scale,
+                             int dtype, int device, void* stream) {
+  if (bad_sizes(B, C, Hkv, G, Dl) || bad_groups(Hkv, G, NG, 1))
+    return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const Strides st{q_sb, q_sh, k_sb, k_sc, k_sh};
   auto cs = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_scores<float>(q, k, s, st, B, C, Hkv, G, Dl, scale, cs);
+    return launch_scores<float>(q, k, s, st, B, C, Hkv, G, NG, Dl, scale,
+                                cs);
   if (dtype == 1)
-    return launch_scores<__nv_bfloat16>(q, k, s, st, B, C, Hkv, G, Dl, scale,
-                                        cs);
+    return launch_scores<__nv_bfloat16>(q, k, s, st, B, C, Hkv, G, NG, Dl,
+                                        scale, cs);
   return cudaErrorInvalidValue;
 }
 
 // s float32 [B, Hkv*G, C] (the scores summed over the ranks), v
 // [B, C, Hkv, Dl] at strides (v_sb, v_sc, v_sh, 1), q_pos [B] and k_pos
 // [B, C] int32, o [B, Hkv*G, Dl] in v's dtype (0 = float32, 1 = bfloat16);
-// s, q_pos, k_pos and o contiguous.  window < 0 means no window.  With
-// n_split > 1, over NG = ceil(G / 8) head groups of Gc = ceil(G / NG) heads
+// s, q_pos, k_pos and o contiguous.  window < 0 means no window.  NG as
+// decode_scores'.  With
+// n_split > 1, over NG head groups (bad_groups) of Gc = ceil(G / NG) heads
 // and ND = ceil(Dl / 64) chunks of dims: part_acc float32
 // [B, Hkv, NG, ND, n_split, Gc, 64], part_ml float32
 // [B, Hkv, NG, ND, n_split, Gc, 2] and counters int32 [B * Hkv * NG * ND],
@@ -1261,11 +1274,12 @@ extern "C" int decode_softmax_pv(const void* s, const void* v,
                                  void* counters, long long v_sb,
                                  long long v_sc, long long v_sh, int B, int C,
                                  int Hkv, int G, int Dl, int n_split,
-                                 int window, int dtype, int device,
+                                 int window, int NG, int dtype, int device,
                                  void* stream) {
   const int ND = (Dl + kChunk - 1) / kChunk;
   const int n_tiles = (C + kPvTile - 1) / kPvTile;
-  if (bad_sizes(B, C, Hkv, G, Dl, ND) || n_split < 1 || n_split > n_tiles ||
+  if (bad_sizes(B, C, Hkv, G, Dl) || bad_groups(Hkv, G, NG, ND) ||
+      n_split < 1 || n_split > n_tiles ||
       (n_split > 1 && (!part_acc || !part_ml || !counters)))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
@@ -1274,11 +1288,11 @@ extern "C" int decode_softmax_pv(const void* s, const void* v,
   if (dtype == 0)
     return launch_softmax_pv<float>(s, v, q_pos, k_pos, o, part_acc, part_ml,
                                     counters, v_sb, v_sc, v_sh, B, C, Hkv, G,
-                                    Dl, n_split, window, cs);
+                                    NG, Dl, n_split, window, cs);
   if (dtype == 1)
     return launch_softmax_pv<__nv_bfloat16>(
         s, v, q_pos, k_pos, o, part_acc, part_ml, counters, v_sb, v_sc, v_sh,
-        B, C, Hkv, G, Dl, n_split, window, cs);
+        B, C, Hkv, G, NG, Dl, n_split, window, cs);
   return cudaErrorInvalidValue;
 }
 
@@ -1290,11 +1304,12 @@ extern "C" const char* decode_softmax_pv_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// The ring bodies (see the header).  decode_scores_ring: the arguments of
-// decode_scores (bfloat16 only: dtype 1), then tile (TS slots, a multiple
-// of 16) and blocks (the persistent grid).
-// decode_softmax_pv_ring: those of decode_softmax_pv, then tile (TW, 16 or
-// 32 slots a warp's tile); with
+// The ring bodies (see the header), which cut the heads into units of
+// their own.  decode_scores_ring: the arguments of decode_scores
+// (bfloat16 only: dtype 1) with tile (TS slots, a multiple of 16) and
+// blocks (the persistent grid) in NG's place.
+// decode_softmax_pv_ring: those of decode_softmax_pv with tile (TW, 16 or
+// 32 slots a warp's tile) in NG's place; with
 // n_split > 1, over gy = Hkv * ceil(G / 16) * ceil(Dl / 64) units (a block
 // each) a row: part_acc float32 [B, gy, n_split, 16, 64], part_ml float32
 // [B, gy, n_split, 16, 2] and counters int32 [B * gy], all 0
@@ -1308,7 +1323,7 @@ extern "C" int decode_scores_ring(const void* q, const void* k, void* s,
                                   int G, int Dl, int tile, int blocks,
                                   float scale, int dtype, int device,
                                   void* stream) {
-  if (bad_sizes(B, C, Hkv, G, Dl, 1)) return cudaErrorInvalidValue;
+  if (bad_sizes(B, C, Hkv, G, Dl)) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const Strides st{q_sb, q_sh, k_sb, k_sc, k_sh};
@@ -1325,7 +1340,7 @@ extern "C" int decode_softmax_pv_ring(
     long long v_sc, long long v_sh, int B, int C, int Hkv, int G, int Dl,
     int n_split, int window, int tile, int dtype, int device,
     void* stream) {
-  if (bad_sizes(B, C, Hkv, G, Dl, 1) || n_split < 1 ||
+  if (bad_sizes(B, C, Hkv, G, Dl) || n_split < 1 ||
       (n_split > 1 && (!part_acc || !part_ml || !counters)))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);

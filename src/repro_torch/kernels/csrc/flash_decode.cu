@@ -15,14 +15,13 @@
 // fills the 132 SMs even at small B * Hkv (ops._num_splits picks n_split);
 // each block streams its run of the cache in 16-byte cp.async pieces,
 // several tiles deep, with the G query heads of the group on chip, so K and
-// V are read from HBM once per step for all G heads (NG = 1 for G <= 8;
-// above, each of the NG = ceil(G / 8) head groups reads them); the splits
-// merge in the
-// same launch (last-block ticket).  bf16 at D = 64, 80 or 128 scores and
-// sums on the tensor cores (mma.sync, the heads as the rows of an m16
-// tile); float32 and other D on the CUDA cores.  The TPU's sequential cache axis
-// becomes the split's tile loop, and its VMEM (acc, m, l) carry becomes
-// registers.  A slot's position is read before its row, and a slot that
+// V are read from HBM once per step for all G heads of a group, and the
+// splits merge in the same launch (last-block ticket).  bf16 at D = 64, 80
+// or 128 scores and sums on the tensor cores (mma.sync, up to 16 heads as
+// the rows of an m16 tile: one group, one read of the cache, for G <= 16);
+// float32 and other D on the CUDA cores, in groups of up to 8 heads.  The
+// TPU's sequential cache axis becomes the split's tile loop, and its VMEM
+// (acc, m, l) carry becomes registers.  A slot's position is read before its row, and a slot that
 // is not attended is never read.
 #include "split_decode.cuh"
 
@@ -69,8 +68,11 @@ struct DenseRows {
 // merges their outputs by it).  dtype 0 = float32,
 // 1 = bfloat16.  body 0 = the CUDA-core body, 1 = the tensor-core body
 // (bf16 at D 64 / 80 / 128 with 16-byte aligned k, v and 4-byte aligned
-// q; refused otherwise).  window < 0 means no window.  With n_split > 1, over
-// NG = ceil(G / 8) head groups of Gc = ceil(G / NG) heads: part_acc float32
+// q; refused otherwise).  NG: the head groups, Gc = ceil(G / NG) heads
+// each, chosen by the caller (decode_attention/ops.py::_head_groups; at
+// most 16 heads a group on the tensor-core body, 8 on the CUDA-core one,
+// refused otherwise).  window < 0 means no window.  With n_split > 1:
+// part_acc float32
 // [B, Hkv, NG, n_split, Gc, D], part_ml float32 [B, Hkv, NG, n_split, Gc, 2]
 // and counters int32 [B * Hkv * NG], all 0 before the first launch (each
 // launch leaves them 0); launches sharing counters must run in stream
@@ -80,21 +82,22 @@ extern "C" int flash_decode(const void* q, const void* k, const void* v,
                             const void* q_pos, const void* k_pos, void* o,
                             void* lse, void* part_acc, void* part_ml,
                             void* counters,
-                            int B, int C, int Hkv, int G, int D, int n_split,
+                            int B, int C, int Hkv, int G, int NG, int D,
+                            int n_split,
                             int window, float scale, int dtype, int body,
                             int device, void* stream) {
   const int n_tiles = (C + sd::kTile - 1) / sd::kTile;
   if (B < 1 || C < 1 || Hkv < 1 || G < 1 || D < 1 || D > sd::kMaxD ||
       n_split < 1 || n_split > n_tiles || B > 65535 ||
-      (long long)Hkv * sd::head_groups(G) > 65535 ||
+      NG < 1 || (long long)Hkv * NG > 65535 ||
       (n_split > 1 && (!part_acc || !part_ml || !counters)))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const DenseRows rows{static_cast<const int*>(q_pos),
                        static_cast<const int*>(k_pos), C, Hkv, D, window};
-  const sd::Launch a{q, k, v, o, part_acc, part_ml, counters, B, Hkv, G, D,
-                     n_split, scale, static_cast<cudaStream_t>(stream), lse,
+  const sd::Launch a{q, k, v, o, part_acc, part_ml, counters, B, Hkv, G, NG,
+                     D, n_split, scale, static_cast<cudaStream_t>(stream), lse,
                      body};
   return sd::dispatch_dtype(rows, a, dtype);
 }

@@ -28,10 +28,12 @@
 // a short row's work is spread over all its splits.  A slot's page id is
 // its layout's fetch, read a tile ahead of the copy, so a tile of 16 slots
 // may span pages of any size.  bf16 at D = 64, 80 or 128 scores and sums
-// on the tensor cores (mma.sync), other cases on the CUDA cores; both stream
-// the pool with cp.async several tiles deep and merge the splits in the
-// same launch.  The host picks n_split from B, Hkv and the table width
-// (never from the lengths, which stay on the card).
+// on the tensor cores (mma.sync, one group of up to 16 heads, so a page's
+// K/V rows are read once for G <= 16), other cases on the CUDA cores
+// (groups of up to 8); both stream the pool with cp.async several tiles
+// deep and merge the splits in the same launch.  The host picks n_split
+// from B, Hkv, the head groups and the table width (never from the
+// lengths, which stay on the card).
 #include "split_decode.cuh"
 
 namespace {
@@ -72,8 +74,9 @@ struct PagedRows {
 
 // q [B, Hkv*G, D], k_pages/v_pages [P, page, Hkv, D], tables [B, maxp] and
 // lengths [B] (int32), o [B, Hkv*G, D]; all contiguous; any G >= 1.
-// dtype 0 = float32, 1 = bfloat16; body as flash_decode's (0 = CUDA
-// cores, 1 = tensor cores).  window < 0 means no window.  n_split
+// dtype 0 = float32, 1 = bfloat16; body and NG (the head groups) as
+// flash_decode's (0 = CUDA cores, groups of up to 8 heads; 1 = tensor
+// cores, up to 16).  window < 0 means no window.  n_split
 // is at most the tiles of maxp * page slots; with n_split > 1, the merge
 // scratch of flash_decode.cu (per head group: part_acc float32
 // [B, Hkv, NG, n_split, Gc, D], part_ml float32 [B, Hkv, NG, n_split, Gc, 2]
@@ -85,13 +88,13 @@ extern "C" int paged_flash_decode(const void* q, const void* k_pages,
                                   const void* lengths, void* o,
                                   void* part_acc, void* part_ml,
                                   void* counters, int B, int P, int page,
-                                  int maxp, int Hkv, int G, int D,
+                                  int maxp, int Hkv, int G, int NG, int D,
                                   int n_split, int window, float scale,
                                   int dtype, int body, int device,
                                   void* stream) {
   if (B < 1 || P < 1 || page < 1 || maxp < 1 || Hkv < 1 || G < 1 ||
       D < 1 || D > sd::kMaxD || B > 65535 ||
-      (long long)Hkv * sd::head_groups(G) > 65535 ||
+      NG < 1 || (long long)Hkv * NG > 65535 ||
       (long long)maxp * page > (1 << 30) || n_split < 1 ||
       n_split > ((long long)maxp * page + sd::kTile - 1) / sd::kTile ||
       (n_split > 1 && (!part_acc || !part_ml || !counters)))
@@ -102,7 +105,7 @@ extern "C" int paged_flash_decode(const void* q, const void* k_pages,
                        static_cast<const int*>(lengths), P, page, maxp, Hkv,
                        D, window};
   const sd::Launch a{q, k_pages, v_pages, o, part_acc, part_ml, counters, B,
-                     Hkv, G, D, n_split, scale,
+                     Hkv, G, NG, D, n_split, scale,
                      static_cast<cudaStream_t>(stream), nullptr, body};
   return sd::dispatch_dtype(rows, a, dtype);
 }

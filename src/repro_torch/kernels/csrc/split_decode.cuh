@@ -5,35 +5,51 @@
 // A launch has grid (n_split, Hkv * NG, B).  Block (s, hk * NG + hg, b)
 // takes a contiguous run of whole tiles of kTile slots of row b's run of
 // slots (split s of n_split; splits differ by at most one tile) and serves
-// head group hg of KV head hk's G query heads.  A group holds at most
-// kMaxG heads: NG = ceil(G / kMaxG) groups of Gc = ceil(G / NG) heads (the
-// last may hold fewer), so for G <= kMaxG there is one group of all G
-// heads, and above it each group's blocks read the KV head's tiles again
-// (K/V bytes times NG).  The run is the row's whole cache for the dense
-// layout and the slots the mask can reach for the paged one.  Two block
-// bodies; the caller names the one it wants (Launch::body, chosen by
-// kernels/decode_attention/ops.py::_decode_body), and dispatch refuses
-// the tensor-core body where it cannot serve:
+// head group hg of KV head hk's G query heads: NG groups of Gc = ceil(G /
+// NG) heads (the last may hold fewer).  The caller chooses NG by one rule
+// (kernels/decode_attention/ops.py::_head_groups): NG = ceil(G / limit),
+// the limit being at most the body's, kMmaMaxG = 16 heads on the tensor
+// cores (the m16 tile's rows) and kMaxG = 8 on the CUDA cores; the
+// tensor-core body takes 16 where its one-group grid fills the SMs and 8
+// where it does not (a 16-row block walks a tile more slowly, and idle
+// SMs make a second group's reread cheaper than that).  dispatch refuses
+// a group the body cannot serve.  With one group every K/V tile of a (row,
+// KV head, split) is read from HBM once for all G heads, as the TPU kernel
+// reads a KV block once for its (1, 1, G, D) q block; with NG groups each
+// group's blocks read it again (K/V bytes times NG).  The run is the row's
+// whole cache for the dense layout and the slots the mask can reach for
+// the paged one.  Two block bodies; the caller names the one it wants
+// (Launch::body, chosen by kernels/decode_attention/ops.py::_decode_body),
+// and dispatch refuses the tensor-core body where it cannot serve:
 //
 // decode_block_mma (bf16, D = 64, 80 or 128, 16-byte aligned K/V and
 //   4-byte aligned q): each of the 4 warps takes every
 //   4th tile of the split, copies it with 16-byte cp.async into its own
 //   ring of kMmaStages shared-memory stages (slots that are not attended
 //   are zero-filled, never read), and runs both products on the tensor
-//   cores with mma.sync m16n8k16: S[16 x 16] = Q K^T with the G heads as
-//   rows (rows G..15 zero) and O[16 x D] += P V with P straight from S's
-//   accumulator registers and V through ldmatrix.trans.  A tile of 16
-//   slots costs a warp 2 * D / 8 mma and D / 8 ldmatrix.x4, so the body
-//   keeps up with HBM.  At D = 80 a staged row is 176 bytes, 11 pieces of
-//   16 (an odd count, as 9 at D 64 and 17 at D 128), QK^T takes 5 k16
-//   steps and P V 10 n8 tiles in pairs.
+//   cores with mma.sync m16n8k16: S[16 x 16] = Q K^T with the group's
+//   heads as rows and O[16 x D] += P V with P straight from S's
+//   accumulator registers and V through ldmatrix.trans.  A group of up to
+//   8 heads fills rows 0..7 (the A fragment's a1 = a3 = 0, rows 8..15 of
+//   S and O are not read); a group of 9..16 (the kRows16 instance) puts
+//   head g + 8 in rows 8..15 (a1 / a3), so each lane runs two online
+//   softmax rows, heads g and g + 8, and P V uses all four registers of
+//   P's fragment: the same mma count serves twice the heads.  A tile of
+//   16 slots costs a warp 2 * D / 8 mma and D / 8 ldmatrix.x4, so the
+//   body keeps up with HBM.  At D = 80 a staged row is 176 bytes, 11
+//   pieces of 16 (an odd count, as 9 at D 64 and 17 at D 128), QK^T takes
+//   5 k16 steps and P V 10 n8 tiles in pairs.
 // decode_block (float32, and bf16 at other D): a row group of W lanes (W a
 //   power of two, at most 32) owns one slot at a time; lane ch holds the
 //   pieces ch, ch + W, ... (16 bytes each where D allows, else 1 element)
 //   of the G query rows and of its accumulators, and a score is W partial
 //   dots reduced with xor shuffles.  Each thread copies with cp.async
 //   exactly the pieces it will read, kCoreStages - 1 tiles ahead, so the
-//   tile loop needs no barrier.
+//   tile loop needs no barrier.  Its groups stay at 8 heads: a lane keeps
+//   every head's query piece and float32 accumulators in registers, so
+//   16 heads would double them, and it is not the speed path (float32,
+//   held to the plain version at 2e-5, and bf16 at head dims or
+//   alignments the tensor cores do not take).
 //
 // In both, a slot's position (or whatever the layout reads first) is
 // fetched a tile ahead of its copy, only attended slots are copied, and a
@@ -75,8 +91,9 @@ constexpr int kTile = 16;          // cache slots per tile
 constexpr int kCoreStages = 4;     // decode_block: tiles staged per thread
 constexpr int kMmaStages = 3;      // decode_block_mma: tiles staged per warp
 constexpr int kMaxSlots = kTile / (kThreads / 32);  // per row group (W = 32)
-constexpr int kMaxG = 8;           // heads of a group (the m16 tile's rows
-                                   // 0..7 on the tensor cores)
+constexpr int kMaxG = 8;           // heads of a group, CUDA-core body
+constexpr int kMmaMaxG = 16;       // heads of a group, tensor-core body (the
+                                   // m16 tile's rows)
 constexpr int kMaxD = 256;
 constexpr int kMmaPad = 16;        // bytes after each staged row (no bank
                                    // conflicts for ldmatrix)
@@ -120,25 +137,36 @@ __device__ __forceinline__ float log_sum_exp(float m, float l) {
 // synced) into o (one split) or into this split's scratch, and let the last
 // split of the (b, hk, hg) merge the splits.  Heads 0..Gw-1 (Gw <= G) are
 // the block's; the rest pad the template's G and are never written.  All
-// threads call it.
+// threads call it.  Thread g < Gw first turns head g's column of m_s into
+// the owners' weights exp2(m_r - M) and leaves M and L = sum_r l_r w_r in
+// l_s rows 1 and 0 (RG >= 2), so each element of o costs RG loads and
+// FMAs, not RG exponentials.
 template <typename T>
 __device__ __forceinline__ void finish(
-    const float* a_s, const float* m_s, const float* l_s, int* last, int RG,
-    int G, int Gw, int D, T* __restrict__ o_head,
-    float* __restrict__ lse_head, float* __restrict__ part_acc,
-    float* __restrict__ part_ml, int* __restrict__ counter, int split,
-    int n_split) {
+    const float* a_s, float* m_s, float* l_s, int* last, int RG, int G,
+    int Gw, int D, T* __restrict__ o_head, float* __restrict__ lse_head,
+    float* __restrict__ part_acc, float* __restrict__ part_ml,
+    int* __restrict__ counter, int split, int n_split) {
   const int tid = threadIdx.x;
+  if (tid < Gw) {
+    float mx = kNegInf;
+    for (int r = 0; r < RG; ++r) mx = fmaxf(mx, m_s[r * G + tid]);
+    float L = 0.f;
+    for (int r = 0; r < RG; ++r) {
+      const float w = exp2f(m_s[r * G + tid] - mx);
+      m_s[r * G + tid] = w;
+      L = fmaf(l_s[r * G + tid], w, L);
+    }
+    l_s[tid] = L;
+    l_s[G + tid] = mx;
+  }
+  __syncthreads();
   for (int i = tid; i < Gw * D; i += kThreads) {
     const int g = i / D, d = i - g * D;
-    float mx = kNegInf;
-    for (int r = 0; r < RG; ++r) mx = fmaxf(mx, m_s[r * G + g]);
-    float L = 0.f, A = 0.f;
-    for (int r = 0; r < RG; ++r) {
-      const float w = exp2f(m_s[r * G + g] - mx);
-      L = fmaf(l_s[r * G + g], w, L);
-      A = fmaf(a_s[((size_t)r * G + g) * D + d], w, A);
-    }
+    float A = 0.f;
+    for (int r = 0; r < RG; ++r)
+      A = fmaf(a_s[((size_t)r * G + g) * D + d], m_s[r * G + g], A);
+    const float L = l_s[g], mx = l_s[G + g];
     if (n_split == 1) {
       o_head[i] = from_f32<T>(A / fmaxf(L, 1e-30f));
       if (lse_head && d == 0) lse_head[g] = log_sum_exp(mx, L);
@@ -510,16 +538,19 @@ __device__ __forceinline__ void decode_block(
 }
 
 // ---------------------------------------------------- tensor-core body
-// c[16 x 8] += a[16 x 16] * b[16 x 8], bf16 in, fp32 accumulate; rows
-// 8..15 of a are zero here (at most 8 heads), so a1 = a3 = 0.
+// c[16 x 8] += a[16 x 16] * b[16 x 8], bf16 in, fp32 accumulate.  Lane
+// (g, t4) gives a's row g in a0 (columns 2 t4, 2 t4 + 1) and a2 (the same
+// + 8), and row g + 8 in a1 and a3; it gets c's row g in c[0..1] and row
+// g + 8 in c[2..3] (columns 2 t4, 2 t4 + 1).
 __device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0,
-                                         uint32_t a2, uint32_t b0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0,
                                          uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3},"
       " {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(0u), "r"(a2), "r"(0u), "r"(b0), "r"(b1));
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
 // 16 bytes from global to shared memory, or 16 zero bytes (nothing read)
@@ -532,9 +563,11 @@ __device__ __forceinline__ void cp_async_16_or_zero(void* dst,
                : "memory");
 }
 
-// bf16 body; D = 64, 80 or 128, G = 1..8 (rows of the m16 tile).
-// Arguments as decode_block.
-template <int D, typename Layout>
+// bf16 body; D = 64, 80 or 128.  kRows16 = false serves G = 1..8 heads
+// on rows 0..7 of the m16 tile; kRows16 = true serves G = 9..16, head g
+// on row g and head g + 8 on row g + 8, so a lane keeps R = 2 softmax
+// rows (r = 0: head g, r = 1: head g + 8).  Arguments as decode_block.
+template <int D, bool kRows16, typename Layout>
 __device__ __forceinline__ void decode_block_mma(
     const Layout& lay, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v,
@@ -545,6 +578,7 @@ __device__ __forceinline__ void decode_block_mma(
     int n_split, unsigned char* smem) {
   using bf16 = __nv_bfloat16;
   constexpr int S = kMmaStages;
+  constexpr int R = kRows16 ? 2 : 1;           // softmax rows a lane keeps
   constexpr int kRow = D * 2 + kMmaPad;        // staged row, bytes
   constexpr int kStage = 2 * kTile * kRow;     // K then V
   constexpr int kPieces = D / 8;               // 16-byte pieces a row
@@ -561,22 +595,40 @@ __device__ __forceinline__ void decode_block_mma(
   t_lo += warp;                                // this warp: every 4th tile
   unsigned char* ring = smem + (size_t)warp * S * kStage;
 
-  // Q as the A fragment of S = Q K^T (row g = head g, zero past G)
-  uint32_t qa[D / 16][2];
+  // Q as the A fragment of S = Q K^T: qa[kk][2 r + h] is head g + 8 r's
+  // columns 16 kk + 8 h + 2 t4, + 1 (zero past G); r = 1 is read only by
+  // the 16-row instance (a1 = a3 = 0 in the 8-row one)
+  uint32_t qa[D / 16][2 * R];
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk)
 #pragma unroll
-    for (int h = 0; h < 2; ++h)
-      qa[kk][h] = g < G ? *reinterpret_cast<const uint32_t*>(
-                              q_head + (size_t)g * D + 16 * kk + 8 * h +
-                              2 * t4)
-                        : 0u;
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        qa[kk][2 * r + h] =
+            g + 8 * r < G ? *reinterpret_cast<const uint32_t*>(
+                                q_head + (size_t)(g + 8 * r) * D + 16 * kk +
+                                8 * h + 2 * t4)
+                          : 0u;
+  // A registers (a0, a1, a2, a3) of Q for k16 step kk
+  auto a_of = [&](int kk, int i) -> uint32_t {
+    if constexpr (kRows16) {
+      return qa[kk][i % 2 == 0 ? i / 2 : 2 + i / 2];
+    } else {
+      return i % 2 == 0 ? qa[kk][i / 2] : 0u;
+    }
+  };
   float acc[kN][4];
 #pragma unroll
   for (int j = 0; j < kN; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-  float m = kNegInf, l = 0.f;      // head g
+  float m[R], l[R];                // head g + 8 r
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    m[r] = kNegInf;
+    l[r] = 0.f;
+  }
 
   // lane l < kTile fetches slot l of a tile, one tile ahead of its copy
   int fetched = kEmptyPos;
@@ -631,6 +683,7 @@ __device__ __forceinline__ void decode_block_mma(
     const unsigned char* vs = ks + kTile * kRow;
 
     // S = Q K^T: n8 tile nt holds slots 8nt + 2 t4 + {0, 1} of head g
+    // (sc[nt][0..1]) and of head g + 8 (sc[nt][2..3])
     float sc[2][4] = {};
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
@@ -639,38 +692,55 @@ __device__ __forceinline__ void decode_block_mma(
       sm90::ldmatrix_x4(
           b, ks + (r + 8 * (mi / 2)) * kRow + (16 * kk + 8 * (mi % 2)) * 2,
           false);
-      mma_bf16(sc[0], qa[kk][0], qa[kk][1], b[0], b[1]);
-      mma_bf16(sc[1], qa[kk][0], qa[kk][1], b[2], b[3]);
+      mma_bf16(sc[0], a_of(kk, 0), a_of(kk, 1), a_of(kk, 2), a_of(kk, 3),
+               b[0], b[1]);
+      mma_bf16(sc[1], a_of(kk, 0), a_of(kk, 1), a_of(kk, 2), a_of(kk, 3),
+               b[2], b[3]);
     }
-    float mx = m;
+    // online softmax of each row r, elements sc[nt][2 r + e]
+    float p[2][4] = {}, corr[R];
 #pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
+    for (int r = 0; r < R; ++r) {
+      float mx = m[r];
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int c = 8 * nt + 2 * t4 + e;
-        sc[nt][e] = (ok_t >> c) & 1 ? sc[nt][e] * scale_log2 : kNegInf;
-        mx = fmaxf(mx, sc[nt][e]);
-      }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    const float corr = exp2f(m - mx);
-    float p[2][2], sum = 0.f;
+      for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
+        for (int e = 0; e < 2; ++e) {
+          const int c = 8 * nt + 2 * t4 + e;
+          float& x = sc[nt][2 * r + e];
+          x = (ok_t >> c) & 1 ? x * scale_log2 : kNegInf;
+          mx = fmaxf(mx, x);
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      corr[r] = exp2f(m[r] - mx);
+      float sum = 0.f;
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        // everything masked so far: exp(NEG - NEG) = 1 must not count
-        p[nt][e] = mx == kNegInf ? 0.f : exp2f(sc[nt][e] - mx);
-        sum += p[nt][e];
-      }
-    l = l * corr + sum;
-    m = mx;
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          // everything masked so far: exp(NEG - NEG) = 1 must not count
+          p[nt][2 * r + e] =
+              mx == kNegInf ? 0.f : exp2f(sc[nt][2 * r + e] - mx);
+          sum += p[nt][2 * r + e];
+        }
+      l[r] = l[r] * corr[r] + sum;
+      m[r] = mx;
+    }
+    // P as the A fragment of O = P V: row g in pa0 / pa2 (slots 0..7 /
+    // 8..15), row g + 8 in pa1 / pa3
     const uint32_t pa0 = sm90::pack_bf16(p[0][0], p[0][1]);
     const uint32_t pa2 = sm90::pack_bf16(p[1][0], p[1][1]);
+    const uint32_t pa1 = kRows16 ? sm90::pack_bf16(p[0][2], p[0][3]) : 0u;
+    const uint32_t pa3 = kRows16 ? sm90::pack_bf16(p[1][2], p[1][3]) : 0u;
 #pragma unroll
     for (int j = 0; j < kN; ++j) {
-      acc[j][0] *= corr;
-      acc[j][1] *= corr;
+      acc[j][0] *= corr[0];
+      acc[j][1] *= corr[0];
+      if constexpr (kRows16) {
+        acc[j][2] *= corr[R - 1];
+        acc[j][3] *= corr[R - 1];
+      }
     }
     // O += P V: V rows are slots (k), columns d (n), through ldmatrix.trans
 #pragma unroll
@@ -680,8 +750,8 @@ __device__ __forceinline__ void decode_block_mma(
       sm90::ldmatrix_x4(
           b, vs + (r + 8 * (mi % 2)) * kRow + (8 * j + 8 * (mi / 2)) * 2,
           true);
-      mma_bf16(acc[j], pa0, pa2, b[0], b[1]);
-      mma_bf16(acc[j + 1], pa0, pa2, b[2], b[3]);
+      mma_bf16(acc[j], pa0, pa1, pa2, pa3, b[0], b[1]);
+      mma_bf16(acc[j + 1], pa0, pa1, pa2, pa3, b[2], b[3]);
     }
   }
   sm90::cp_async_wait<0>();
@@ -690,18 +760,22 @@ __device__ __forceinline__ void decode_block_mma(
   float* a_s = reinterpret_cast<float*>(smem);        // [4][G][D]
   float* m_s = a_s + (size_t)kWarps * G * D;          // [4][G]
   float* l_s = m_s + kWarps * G;                      // [4][G]
-  l += __shfl_xor_sync(0xffffffffu, l, 1);
-  l += __shfl_xor_sync(0xffffffffu, l, 2);
-  if (g < G) {
 #pragma unroll
-    for (int j = 0; j < kN; ++j) {
-      float* dst = a_s + ((size_t)warp * G + g) * D + 8 * j + 2 * t4;
-      dst[0] = acc[j][0];
-      dst[1] = acc[j][1];
-    }
-    if (t4 == 0) {
-      m_s[warp * G + g] = m;
-      l_s[warp * G + g] = l;
+  for (int r = 0; r < R; ++r) {
+    const int head = g + 8 * r;
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    if (head < G) {
+#pragma unroll
+      for (int j = 0; j < kN; ++j) {
+        float* dst = a_s + ((size_t)warp * G + head) * D + 8 * j + 2 * t4;
+        dst[0] = acc[j][2 * r];
+        dst[1] = acc[j][2 * r + 1];
+      }
+      if (t4 == 0) {
+        m_s[warp * G + head] = m[r];
+        l_s[warp * G + head] = l[r];
+      }
     }
   }
   __syncthreads();
@@ -734,7 +808,7 @@ __device__ __forceinline__ Group head_group(int G, int NG, int Gc, int D) {
                (((size_t)blockIdx.z * Hkv + hk) * G + g0) * D};
 }
 
-template <typename Rows, int D>
+template <typename Rows, int D, bool kRows16>
 __global__ void __launch_bounds__(kThreads)
 decode_mma_kernel(const Rows rows, const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k,
@@ -748,12 +822,12 @@ decode_mma_kernel(const Rows rows, const __nv_bfloat16* __restrict__ q,
   const Group grp = head_group(G, NG, Gc, D);
   int C;
   const auto lay = rows.at(blockIdx.z, grp.hk, C);
-  decode_block_mma<D>(lay, k, v, q + grp.head0, o + grp.head0,
-                      lse ? lse + grp.head0 / D : nullptr,
-                      part_acc + grp.blk * n_split * Gc * D,
-                      part_ml + grp.blk * n_split * Gc * 2,
-                      counters + grp.blk, C, grp.Gw, scale_log2, split,
-                      n_split, smem);
+  decode_block_mma<D, kRows16>(lay, k, v, q + grp.head0, o + grp.head0,
+                               lse ? lse + grp.head0 / D : nullptr,
+                               part_acc + grp.blk * n_split * Gc * D,
+                               part_ml + grp.blk * n_split * Gc * 2,
+                               counters + grp.blk, C, grp.Gw, scale_log2,
+                               split, n_split, smem);
 }
 
 // Gc, the heads of a full group, is the template's G.
@@ -778,15 +852,6 @@ decode_kernel(const Rows rows, const T* __restrict__ q,
       W, scale_log2, split, n_split, smem);
 }
 
-// Head groups of G query heads: NG = ceil(G / kMaxG) groups of
-// Gc = ceil(G / NG) heads (kernels/decode_attention/ops.py::_head_groups
-// sizes the scratch by the same rule).
-inline int head_groups(int G) { return (G + kMaxG - 1) / kMaxG; }
-inline int group_heads(int G) {
-  const int NG = head_groups(G);
-  return (G + NG - 1) / NG;
-}
-
 // Call f(std::integral_constant<int, G>{}) for a run-time G in 1..kMaxG.
 template <typename F>
 cudaError_t with_group(int G, F&& f) {
@@ -803,9 +868,11 @@ cudaError_t with_group(int G, F&& f) {
   }
 }
 
-// Pointers and sizes of one launch: q/o [B, Hkv * G, D] (any G >= 1); k/v
-// the cache (the layout addresses it); part_acc / part_ml / counters the
-// merge scratch when n_split > 1, sized for the head groups; lse, when
+// Pointers and sizes of one launch: q/o [B, Hkv * G, D] (any G >= 1) in
+// NG head groups of Gc = ceil(G / NG) heads (the caller's choice; NG must
+// be ceil(G / Gc), so no group is empty); k/v the cache (the layout
+// addresses it); part_acc / part_ml / counters the merge scratch when
+// n_split > 1, sized for the head groups; lse, when
 // not null, float32 [B, Hkv * G]: each head's log-sum-exp of its scaled
 // scores over the slots it attended (-1e30 where none), so that launches
 // over disjoint runs of one row's cache can be merged by the caller.
@@ -815,7 +882,7 @@ constexpr int kBodyCore = 0, kBodyMma = 1;
 struct Launch {
   const void *q, *k, *v;
   void *o, *part_acc, *part_ml, *counters;
-  int B, Hkv, G, D, n_split;
+  int B, Hkv, G, NG, D, n_split;
   float scale;
   cudaStream_t stream;
   void* lse = nullptr;
@@ -824,7 +891,7 @@ struct Launch {
 
 template <typename Rows, typename T, int VEC, int NC, bool WIDE = false>
 cudaError_t launch_core(const Rows& rows, const Launch& a, int W) {
-  const int NG = head_groups(a.G), Gc = group_heads(a.G);
+  const int NG = a.NG, Gc = (a.G + NG - 1) / NG;
   const size_t smem = core_smem_bytes(sizeof(T), Gc, a.D, W);
   return with_group(Gc, [&](auto g) {
     auto kernel = decode_kernel<Rows, T, decltype(g)::value, VEC, NC, WIDE>;
@@ -843,9 +910,11 @@ cudaError_t launch_core(const Rows& rows, const Launch& a, int W) {
 template <typename Rows, int D>
 cudaError_t launch_mma(const Rows& rows, const Launch& a) {
   using bf16 = __nv_bfloat16;
-  const int NG = head_groups(a.G), Gc = group_heads(a.G);
+  const int NG = a.NG, Gc = (a.G + NG - 1) / NG;
   const size_t smem = mma_smem_bytes(Gc, D);
-  auto kernel = decode_mma_kernel<Rows, D>;
+  // rows 8..15 of the m16 tile only for a group of more than 8 heads
+  auto kernel = Gc > 8 ? decode_mma_kernel<Rows, D, true>
+                       : decode_mma_kernel<Rows, D, false>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<dim3(a.n_split, a.Hkv * NG, a.B), kThreads, smem, a.stream>>>(
@@ -857,17 +926,30 @@ cudaError_t launch_mma(const Rows& rows, const Launch& a) {
   return cudaGetLastError();
 }
 
+// Whether NG groups of G heads are a partition the body serves: Gc =
+// ceil(G / NG) heads at most the body's limit (kMmaMaxG on the tensor
+// cores, kMaxG on the CUDA cores), and no group empty.
+inline bool groups_served(int G, int NG, int body) {
+  if (G < 1 || NG < 1 || NG > G) return false;
+  const int Gc = (G + NG - 1) / NG;
+  return (G + Gc - 1) / Gc == NG &&
+         Gc <= (body == kBodyMma ? kMmaMaxG : kMaxG);
+}
+
 // The body the launch names: the tensor cores for bf16 at D = 64, 80 or
-// 128 with 16-byte aligned K/V and 4-byte aligned q (anything else asking
-// for them is refused, never sent elsewhere); the CUDA cores at any D and
-// dtype, with 16-byte pieces where D and the cache's alignment allow them
-// and a row fits 32 lanes, one element a piece where not.
+// 128 with 16-byte aligned K/V and 4-byte aligned q, in groups of up to
+// 16 heads; the CUDA cores at any D and dtype, in groups of up to 8, with
+// 16-byte pieces where D and the cache's alignment allow them and a row
+// fits 32 lanes, one element a piece where not.  A launch a body cannot
+// serve (its dtype, D, alignment or head groups) is refused, never sent
+// elsewhere.
 template <typename T, typename Rows>
 cudaError_t dispatch(const Rows& rows, const Launch& a) {
   constexpr int kVec = 16 / sizeof(T);
   const int D = a.D;
   const bool aligned = reinterpret_cast<uintptr_t>(a.k) % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(a.v) % 16 == 0;
+  if (!groups_served(a.G, a.NG, a.body)) return cudaErrorInvalidValue;
   if (a.body == kBodyMma) {
     if constexpr (std::is_same<T, __nv_bfloat16>::value) {
       if (aligned && reinterpret_cast<uintptr_t>(a.q) % 4 == 0) {

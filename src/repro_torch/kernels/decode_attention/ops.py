@@ -16,8 +16,17 @@ a CUDA tensor it launches the kernel (or raises) and counts the launch in
 tensors; ``"core"``, the CUDA cores, otherwise) and the C entry launches
 that one or refuses.  The kernel needs no padding of D or C (the
 TPU wrapper padded D to 128 and C to ``block_c``), and takes any group of
-``G = H / Hkv`` query heads: above ``MAX_GROUP`` the launch adds head
-groups (``_head_groups``), still one launch.
+``G = H / Hkv`` query heads in one launch, as ``_head_groups`` cuts
+them: groups of up to ``GROUP_LIMIT[body]`` heads, 8 on the CUDA-core
+body (each head's float32 accumulators in a lane's registers; float32 is
+held to 2e-5 there, and bf16 at D 64 / 80 / 128 never takes it) and 16
+on the tensor-core body (all 16 rows of its m16 tile, so each K/V tile
+is read from HBM once for G <= 16, as the TPU kernel reads it once for
+its G heads) where the one-group launch fills the card or its K/V read
+dominates; elsewhere (short rows on idle SMs) the tensor-core body keeps
+groups of 8, which measured faster there.
+Launches are also counted by the head groups the C entry was given, in
+``decode_attention.launches_by_groups``.
 
 A cache split on its head dim (each rank holds ``Dl = D / m`` of every
 head's dims) runs as two passes, ``csrc/decode_hd.cu``: ``decode_scores``
@@ -48,9 +57,12 @@ from .ref import (decode_attention_ref, decode_scores_ref,
                   decode_softmax_pv_ref)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_GROUP = 8          # query heads a block serves (split_decode.cuh kMaxG)
+# query heads a block serves, by body (split_decode.cuh kMaxG, kMmaMaxG)
+GROUP_LIMIT = {"core": 8, "mma": 16}
 TILE = 16              # cache slots per tile (split_decode.cuh kTile)
 MIN_SPLIT_TILES = 8    # tiles a split holds at least, by default
+LONG_TILES = 64        # tiles a SM walks from which one head group of 16
+                       # pays on the tensor cores (_head_groups)
 N_SM = 132             # the H100's SMs
 MAX_D = 256            # K3's kernel (split_decode.cuh kMaxD)
 MMA_DIMS = (64, 80, 128)   # the tensor-core body's head dims
@@ -128,14 +140,48 @@ def _waves(dtype: torch.dtype, D: int) -> float:
     return 0.5 if _decode_body(dtype, D, True) == "mma" else 2.0
 
 
-def _head_groups(G: int):
-    """(NG, Gc): the kernel serves G query heads per KV head as NG =
-    ceil(G / MAX_GROUP) groups of Gc = ceil(G / NG) heads (the last group
-    may hold fewer), one block per group and split; NG = 1 for G <=
-    MAX_GROUP.  ``split_decode.cuh::head_groups`` / ``group_heads`` apply
-    the same rule."""
-    ng = -(-G // MAX_GROUP)
-    return ng, -(-G // ng)
+def _cut(G: int, ng: int):
+    """(NG, Gc): G heads cut into ``ng`` groups of Gc = ceil(G / ng)
+    heads, NG rounded so that no group is empty (the last may hold
+    fewer)."""
+    gc = -(-G // max(1, min(int(ng), G)))
+    return -(-G // gc), gc
+
+
+def _head_groups(G: int, body: str, blocks: Optional[int] = None,
+                 n_sm: int = N_SM, tiles: int = 0):
+    """(NG, Gc): the head groups a launch on ``body`` cuts G query heads
+    per KV head into, one block per group and split (``_cut``).  The one
+    rule: K3's and K2's wrappers pass NG to the C entry, which refuses a
+    group its body cannot serve, and size their scratch, tickets and
+    splits by it; ``decode_hd.cu``'s CUDA-core passes take ``"core"``'s.
+
+    Groups hold up to ``GROUP_LIMIT[body]`` heads: 8 on the CUDA-core
+    body; on the tensor-core body 16 (both halves of the m16 tile, so one
+    group for G <= 16 reads each K/V tile once) where the one-group
+    launch fills the card, its grid ``blocks`` (B * Hkv * n_split) at
+    least ``n_sm``, or where the K/V read dominates, its ``tiles`` (B *
+    Hkv * the tiles a row walks) at least LONG_TILES a SM; elsewhere 8
+    (the 8-row instance): a 16-row block walks each tile more slowly, and
+    with SMs idle and short rows the second group's reread costs less
+    than that (PERF.md §6, G > 8).  Without ``blocks``, the body's widest
+    groups."""
+    limit = GROUP_LIMIT[body]
+    if (blocks is not None and blocks < n_sm
+            and tiles < LONG_TILES * n_sm):
+        limit = min(limit, GROUP_LIMIT["core"])
+    return _cut(G, -(-G // limit))
+
+
+def _launch_groups(B: int, G: int, Hkv: int, C: int, dtype: torch.dtype,
+                   D: int, n_sm: int, min_tiles: int, body: str):
+    """The head groups ``_head_groups`` gives a launch on ``body`` over C
+    slots, from its grid at one group (``_num_splits`` over the (row, KV
+    head) pairs with the body's waves) and the tiles its rows walk."""
+    one = _num_splits(B, Hkv, C, n_sm, waves=_waves(dtype, D),
+                      force=_num_splits.force, min_tiles=min_tiles)
+    return _head_groups(G, body, B * Hkv * one, n_sm,
+                        B * Hkv * -(-C // TILE))
 
 
 # per device: the merge tickets, one int32 per (row, KV head, head group),
@@ -151,14 +197,15 @@ def _counters(device: torch.device, n: int) -> torch.Tensor:
     return buf
 
 
-def _split_scratch(B: int, Hkv: int, G: int, D: int, n_split: int,
+def _split_scratch(B: int, Hkv: int, groups, D: int, n_split: int,
                    device: torch.device):
     """The merge scratch of a launch with ``n_split`` splits, per (row, KV
-    head, head group): the fp32 partials ``(acc, m, l)`` and the tickets;
+    head, head group) of ``groups = (NG, Gc)`` (``_head_groups`` for the
+    body launched): the fp32 partials ``(acc, m, l)`` and the tickets;
     ``(None,) * 3`` for one split."""
     if n_split == 1:
         return None, None, None
-    ng, gc = _head_groups(G)
+    ng, gc = groups
     blocks = B * Hkv * ng
     return (torch.empty(blocks * n_split * gc * D, dtype=torch.float32,
                         device=device),
@@ -171,7 +218,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_decode")
     fn = lib.flash_decode
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
                        + [ctypes.c_float] + [ctypes.c_int] * 3
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -245,60 +292,86 @@ def decode_attention(
                              f"{MAX_D}")
         return decode_softmax_pv(decode_scores(q, k, scale=scale), v, q_pos,
                                  k_pos, window=window)
-    n_split = _launch_splits(B, H, Hkv, D, C, q.dtype, _sm_count(q.device),
-                             min_split_tiles)
     body = _decode_body(q.dtype, D, _aligned(q, k, v))
-    o, lse = _launch(q, k, v, q_pos, k_pos, window, scale, n_split, body,
-                     return_lse)
-    decode_attention.launches += 1
-    decode_attention.launches_by_variant[body] += 1
-    decode_attention.last_n_split = n_split
+    n_sm = _sm_count(q.device)
+    min_tiles = tuning.resolve("decode_attention", "min_split_tiles",
+                               min_split_tiles)
+    groups = _launch_groups(B, H // Hkv, Hkv, C, q.dtype, D, n_sm,
+                            min_tiles, body)
+    n_split = _launch_splits(B, H, Hkv, D, C, q.dtype, n_sm, min_tiles,
+                             body, groups)
+    o, lse, groups = _launch(q, k, v, q_pos, k_pos, window, scale, n_split,
+                             body, groups[0], return_lse)
+    _count(decode_attention, body, groups, n_split)
     return (o, lse) if return_lse else o
 
 
-def _launch(q, k, v, q_pos, k_pos, window, scale, n_split, body,
+def _count(wrapper, body: str, groups, n_split: int) -> None:
+    """Count one launch of K3's or K2's ``wrapper`` on ``body`` in the
+    head groups ``(NG, Gc)`` its C entry was given: in all, by body and by
+    NG; leave its split count and groups on it."""
+    ng = groups[0]
+    wrapper.launches += 1
+    wrapper.launches_by_variant[body] += 1
+    wrapper.launches_by_groups[ng] = wrapper.launches_by_groups.get(ng, 0) + 1
+    wrapper.last_n_split = n_split
+    wrapper.last_groups = tuple(groups)
+
+
+def _launch(q, k, v, q_pos, k_pos, window, scale, n_split, body, ng,
             return_lse=False):
-    """One launch of ``flash_decode.cu`` with the given split count and
-    body (``"mma"`` or ``"core"``) on inputs ``decode_attention`` has
-    checked; not counted (chip_smoke.py times the CUDA-core body through
-    it beside the tensor-core one).  Returns ``(o, lse or None)``."""
+    """One launch of ``flash_decode.cu`` with the given split count, body
+    (``"mma"`` or ``"core"``) and ``ng`` head groups (``_cut``), on inputs
+    ``decode_attention`` has checked; not counted (chip_smoke.py times the
+    CUDA-core body and other groups through it).  Returns ``(o, lse or
+    None, (NG, Gc))``, the groups as the C entry was given them."""
     B, H, D = q.shape
     C, Hkv = k.shape[1], k.shape[2]
     G = H // Hkv
+    groups = _cut(G, ng)
     o = torch.empty_like(q)
     lse = (torch.empty((B, H), dtype=torch.float32, device=q.device)
            if return_lse else None)
-    scratch = _split_scratch(B, Hkv, G, D, n_split, q.device)
+    scratch = _split_scratch(B, Hkv, groups, D, n_split, q.device)
     lib = _lib()
     err = lib.flash_decode(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
         k_pos.data_ptr(), o.data_ptr(),
         0 if lse is None else lse.data_ptr(),
         *(0 if t is None else t.data_ptr() for t in scratch),
-        B, C, Hkv, G, D, n_split,
+        B, C, Hkv, G, groups[0], D, n_split,
         -1 if window is None else int(window), float(scale),
         _DTYPES[q.dtype], BODIES[body], q.device.index or 0,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, "flash_decode", err)
-    return o, lse
+    return o, lse, groups
 
 
 def _launch_splits(B: int, H: int, Hkv: int, D: int, C: int,
                    dtype: torch.dtype, n_sm: int,
-                   min_split_tiles: Optional[int] = None) -> int:
+                   min_split_tiles: Optional[int] = None,
+                   body: Optional[str] = None, groups=None) -> int:
     """The split count ``decode_attention`` launches with: ``_num_splits``
-    over the head groups, the body's waves and the resolved
+    over the head groups ``groups`` (by default ``_launch_groups``'s for
+    ``body``, itself by default the one ``_decode_body`` names for
+    ``dtype`` and ``D`` on aligned tensors), the waves and the resolved
     ``min_split_tiles`` knob."""
     min_tiles = tuning.resolve("decode_attention", "min_split_tiles",
                                min_split_tiles)
-    return _num_splits(B, Hkv * _head_groups(H // Hkv)[0], C, n_sm,
+    body = body or _decode_body(dtype, D, True)
+    if groups is None:
+        groups = _launch_groups(B, H // Hkv, Hkv, C, dtype, D, n_sm,
+                                min_tiles, body)
+    return _num_splits(B, Hkv * groups[0], C, n_sm,
                        waves=_waves(dtype, D), force=_num_splits.force,
                        min_tiles=min_tiles)
 
 
 decode_attention.launches = 0
 decode_attention.launches_by_variant = {"mma": 0, "core": 0}
+decode_attention.launches_by_groups = {}     # head groups NG -> launches
 decode_attention.last_n_split = None
+decode_attention.last_groups = None          # (NG, Gc) of the last launch
 
 
 # ------------------------------------------------- a head-dim-split cache
@@ -381,15 +454,15 @@ def _hd_lib() -> ctypes.CDLL:
     fn = lib.decode_scores
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 5
-                       + [ctypes.c_int] * 5
+                       + [ctypes.c_int] * 6
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                           ctypes.c_void_p])
         fn.restype = ctypes.c_int
         fn = lib.decode_softmax_pv
         fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 3
-                       + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 10 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        # the ring bodies: the same, plus their geometry
+        # the ring bodies: the same, with their geometry in NG's place
         fn = lib.decode_scores_ring
         fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 5
                        + [ctypes.c_int] * 7
@@ -490,7 +563,8 @@ def _launch_scores(q: torch.Tensor, k: torch.Tensor, scale: float,
                                      *tail)
     else:
         name = "decode_scores"
-        err = lib.decode_scores(*head, *tail)
+        err = lib.decode_scores(*head, _head_groups(H // Hkv, "core")[0],
+                                *tail)
     _build.check(lib, name, err)
     return s
 
@@ -562,11 +636,13 @@ def _launch_softmax_pv(s: torch.Tensor, v: torch.Tensor,
         # a block walks its tiles one at a time, so an SM needs several
         # (PV_WAVES) to keep HBM busy; about 4 fit an SM at once, so the
         # count is rounded down to whole waves
-        n_split = _num_splits(B, Hkv * ND * _head_groups(G)[0], C, n_sm,
+        groups = _head_groups(G, "core")    # the CUDA-core body's
+        n_split = _num_splits(B, Hkv * ND * groups[0], C, n_sm,
                               waves=PV_WAVES, force=_num_splits.force,
                               min_tiles=MIN_PV_TILES, tile=PV_TILE,
                               round_down=True)
-        scratch = _split_scratch(B, Hkv * ND, G, PV_CHUNK, n_split, v.device)
+        scratch = _split_scratch(B, Hkv * ND, groups, PV_CHUNK, n_split,
+                                 v.device)
     head = (s.data_ptr(), v.data_ptr(), q_pos.data_ptr(), k_pos.data_ptr(),
             o.data_ptr(), *(0 if t is None else t.data_ptr() for t in scratch),
             v.stride(0), v.stride(1), v.stride(2), B, C, Hkv, G, Dl, n_split,
@@ -579,7 +655,7 @@ def _launch_softmax_pv(s: torch.Tensor, v: torch.Tensor,
         err = lib.decode_softmax_pv_ring(*head, geo["tile"], *tail)
     else:
         name = "decode_softmax_pv"
-        err = lib.decode_softmax_pv(*head, *tail)
+        err = lib.decode_softmax_pv(*head, groups[0], *tail)
     _build.check(lib, name, err)
     return o, n_split
 

@@ -14,8 +14,11 @@ the JAX entry point does.  On a CPU tensor it runs
 ``paged_decode_attention_ref``; on a CUDA tensor it launches the kernel (or
 raises) and counts the launch in ``paged_decode_attention.launches`` and,
 per block body (K3's ``_decode_body``: ``"mma"`` or ``"core"``), in
-``paged_decode_attention.launches_by_variant``.  As
-in the reference wrapper, table ids are clamped into ``[0, P-1]`` (the
+``paged_decode_attention.launches_by_variant``, and by head groups (K3's
+``_head_groups``: one group of up to 16 heads on the tensor-core body
+where that launch fills the card or its K/V read dominates, so a page's
+K/V rows are read once for G <= 16; groups of up to 8 elsewhere), in
+``paged_decode_attention.launches_by_groups``.  As in the reference wrapper, table ids are clamped into ``[0, P-1]`` (the
 kernel clamps each id it reads), and the scale is that of the true D: the
 kernel needs no padding of D.  Its knob is the split rule's
 ``min_split_tiles``, resolved through ``kernels.tuning`` as K3's; the page
@@ -31,9 +34,10 @@ from typing import Optional
 import torch
 
 from .. import _build, tuning
-from ..decode_attention.ops import (BODIES, _aligned, _decode_body,
-                                    _head_groups, _num_splits, _sm_count,
-                                    _split_scratch, _waves)
+from ..decode_attention.ops import (BODIES, _aligned, _count, _cut,
+                                    _decode_body, _launch_groups,
+                                    _num_splits, _sm_count, _split_scratch,
+                                    _waves)
 from .ref import paged_decode_attention_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -45,27 +49,52 @@ __all__ = ["paged_decode_attention", "paged_decode_attention_ref"]
 def _paged_splits(B: int, Hkv: int, maxp: int, page: int,
                   window: Optional[int], dtype: torch.dtype, D: int,
                   n_sm: int, G: int = 1,
-                  min_split_tiles: Optional[int] = None) -> int:
+                  min_split_tiles: Optional[int] = None,
+                  body: Optional[str] = None, groups=None) -> int:
     """Blocks per (row, KV head, head group): ``decode_attention.ops
-    ._num_splits`` over the most slots a row can reach, the table's
-    ``maxp * page`` (or the window, if shorter), never over the lengths,
-    which stay on the card; the head groups of ``G`` query heads
-    (``_head_groups``) count as more KV heads.  ``_num_splits.force``
-    applies here too; ``min_split_tiles=None`` resolves through
-    ``kernels.tuning``."""
-    reach = maxp * page if window is None else min(maxp * page, window)
+    ._num_splits`` over the most slots a row can reach (``_reach``), never
+    over the lengths, which stay on the card; the head groups ``groups``
+    (by default ``_paged_groups``'s, on ``body``, itself by default the
+    body ``_decode_body`` names for ``dtype`` and ``D`` on aligned
+    tensors) count as more KV heads.  ``_num_splits.force`` applies here
+    too; ``min_split_tiles=None`` resolves through ``kernels.tuning``."""
     min_tiles = tuning.resolve("paged_attention", "min_split_tiles",
                                min_split_tiles)
-    return _num_splits(B, Hkv * _head_groups(G)[0], max(1, reach), n_sm,
+    body = body or _decode_body(dtype, D, True)
+    reach = _reach(maxp, page, window)
+    if groups is None:
+        groups = _launch_groups(B, G, Hkv, reach, dtype, D, n_sm, min_tiles,
+                                body)
+    return _num_splits(B, Hkv * groups[0], reach, n_sm,
                        waves=_waves(dtype, D), force=_num_splits.force,
                        min_tiles=min_tiles)
+
+
+def _reach(maxp: int, page: int, window: Optional[int]) -> int:
+    """The most slots a row can reach: the table's ``maxp * page``, or
+    the window if shorter."""
+    reach = maxp * page if window is None else min(maxp * page, window)
+    return max(1, reach)
+
+
+def _paged_groups(B: int, G: int, Hkv: int, maxp: int, page: int,
+                  window: Optional[int], dtype: torch.dtype, D: int,
+                  n_sm: int, min_split_tiles: Optional[int] = None,
+                  body: Optional[str] = None):
+    """The head groups of a launch on ``body``: ``_launch_groups`` over the
+    slots a row can reach."""
+    min_tiles = tuning.resolve("paged_attention", "min_split_tiles",
+                               min_split_tiles)
+    return _launch_groups(B, G, Hkv, _reach(maxp, page, window), dtype, D,
+                          n_sm, min_tiles, body or _decode_body(dtype, D,
+                                                                True))
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("paged_flash_decode")
     fn = lib.paged_flash_decode
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 10
                        + [ctypes.c_float] + [ctypes.c_int] * 3
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -126,41 +155,46 @@ def paged_decode_attention(
     if not all(t.is_contiguous()
                for t in (q, k_pages, v_pages, block_tables, lengths)):
         raise ValueError("paged_decode_attention: inputs must be contiguous")
-    n_split = _paged_splits(B, Hkv, maxp, page, window, q.dtype, D,
-                            _sm_count(q.device), H // Hkv, min_split_tiles)
     body = _decode_body(q.dtype, D, _aligned(q, k_pages, v_pages))
-    o = _launch(q, k_pages, v_pages, block_tables, lengths, window, scale,
-                n_split, body)
-    paged_decode_attention.launches += 1
-    paged_decode_attention.launches_by_variant[body] += 1
-    paged_decode_attention.last_n_split = n_split
+    n_sm = _sm_count(q.device)
+    groups = _paged_groups(B, H // Hkv, Hkv, maxp, page, window, q.dtype, D,
+                           n_sm, min_split_tiles, body)
+    n_split = _paged_splits(B, Hkv, maxp, page, window, q.dtype, D, n_sm,
+                            H // Hkv, min_split_tiles, body, groups)
+    o, groups = _launch(q, k_pages, v_pages, block_tables, lengths, window,
+                        scale, n_split, body, groups[0])
+    _count(paged_decode_attention, body, groups, n_split)
     return o
 
 
 def _launch(q, k_pages, v_pages, block_tables, lengths, window, scale,
-            n_split, body):
-    """One launch of ``paged_flash_decode.cu`` with the given split count
-    and body (``"mma"`` or ``"core"``) on inputs ``paged_decode_attention``
-    has checked; not counted (chip_smoke.py times the CUDA-core body
-    through it beside the tensor-core one)."""
+            n_split, body, ng):
+    """One launch of ``paged_flash_decode.cu`` with the given split count,
+    body (``"mma"`` or ``"core"``) and ``ng`` head groups (``_cut``), on
+    inputs ``paged_decode_attention`` has checked; not counted
+    (chip_smoke.py times the CUDA-core body and other groups through it).
+    Returns ``(o, (NG, Gc))``, the groups as the C entry was given them."""
     B, H, D = q.shape
     P, page, Hkv, _ = k_pages.shape
     maxp, G = block_tables.shape[1], H // Hkv
+    groups = _cut(G, ng)
     o = torch.empty_like(q)
-    scratch = _split_scratch(B, Hkv, G, D, n_split, q.device)
+    scratch = _split_scratch(B, Hkv, groups, D, n_split, q.device)
     lib = _lib()
     err = lib.paged_flash_decode(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         block_tables.data_ptr(), lengths.data_ptr(), o.data_ptr(),
         *(0 if t is None else t.data_ptr() for t in scratch),
-        B, P, page, maxp, Hkv, G, D, n_split,
+        B, P, page, maxp, Hkv, G, groups[0], D, n_split,
         -1 if window is None else int(window), float(scale),
         _DTYPES[q.dtype], BODIES[body], q.device.index or 0,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, "paged_flash_decode", err)
-    return o
+    return o, groups
 
 
 paged_decode_attention.launches = 0
 paged_decode_attention.launches_by_variant = {"mma": 0, "core": 0}
+paged_decode_attention.launches_by_groups = {}   # head groups -> launches
 paged_decode_attention.last_n_split = None
+paged_decode_attention.last_groups = None   # (NG, Gc) of the last launch

@@ -377,9 +377,17 @@ def test_empty_table_launches_as_before(clean_tuning):
     with tuning.override_device_type("H100"):
         for B, H, Hkv, D, C in SPLIT_SHAPES:
             for dtype in (torch.float32, torch.bfloat16):
-                ng = decode_ops._head_groups(H // Hkv)[0]
+                # the head groups of the body the wrappers launch, from
+                # the grid of the launch at one group
+                body = decode_ops._decode_body(dtype, D, True)
                 waves = decode_ops._waves(dtype, D)
-                want = _parent_splits(B, Hkv * ng, C, 132, waves)
+
+                def groups(slots):
+                    one = _parent_splits(B, Hkv, slots, 132, waves)
+                    return decode_ops._head_groups(
+                        H // Hkv, body, B * Hkv * one, 132,
+                        B * Hkv * -(-slots // 16))[0]
+                want = _parent_splits(B, Hkv * groups(C), C, 132, waves)
                 assert decode_ops._launch_splits(B, H, Hkv, D, C, dtype,
                                                  132) == want
                 for page in (16, 128):
@@ -387,7 +395,8 @@ def test_empty_table_launches_as_before(clean_tuning):
                     assert paged_ops._paged_splits(
                         B, Hkv, maxp, page, None, dtype, D, 132,
                         H // Hkv) == _parent_splits(
-                            B, Hkv * ng, maxp * page, 132, waves)
+                            B, Hkv * groups(maxp * page), maxp * page, 132,
+                            waves)
         assert tuning.resolve("ssm_scan", "chunk", None) == 64
         assert tuning.resolve("paged_attention", "page_size", None) == 128
 

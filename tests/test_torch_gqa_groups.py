@@ -1,16 +1,19 @@
 """Decode at GQA groups above 8 query heads per KV head, on the CPU.
 
 The reference's Pallas decode kernels take any group G = H / Hkv (they
-block q as ``[1, 1, G, D]``); the port's CUDA kernels serve G above 8 as
-``ceil(G / 8)`` head groups of one launch (``_head_groups``).  Here the
+block q as ``[1, 1, G, D]``); the port's CUDA kernels serve G as
+``ceil(G / limit)`` head groups of one launch (``_head_groups``), the
+limit being the block body's: 8 on the CUDA cores, and on the tensor
+cores 16 where the one-group launch fills the SMs or its rows are long,
+else 8.  Here the
 port's plain versions, which the card holds those kernels to, are held
 to the reference's Pallas kernels in interpret mode and to its oracles at
 G = 12 (H = 12, Hkv = 1) and G = 12 (H = 48, Hkv = 4, starcoder2-15b) and
 G = 16 (H = 64, Hkv = 4, qwen3-moe): dense decode (also split, as the
 kernel merges) and paged decode.  Tolerance: 2e-5 in float32, 5e-2 in
-bfloat16.  The grouping rule and the merge scratch it sizes are checked
-here too; ``tests/test_torch_gpu_decode.py`` holds the kernels themselves
-on a card.
+bfloat16.  The grouping rule per body, the merge scratch and the split
+counts it sizes are checked here too; ``tests/test_torch_gpu_decode.py``
+holds the kernels themselves on a card.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -24,9 +27,12 @@ from repro.kernels.paged_attention.ops import \
 from repro.kernels.paged_attention.ref import \
     paged_decode_attention_ref as jax_paged_ref
 from repro_torch.kernels.decode_attention.ops import (
-    MAX_GROUP, _head_groups, _split_scratch, decode_attention)
+    GROUP_LIMIT, LONG_TILES, _cut, _head_groups, _launch_groups,
+    _launch_splits, _num_splits, _split_scratch, decode_attention)
 from repro_torch.kernels.decode_attention.ref import decode_attention_split_ref
-from repro_torch.kernels.paged_attention.ops import paged_decode_attention
+from repro_torch.kernels.paged_attention.ops import (_paged_groups,
+                                                     _paged_splits,
+                                                     paged_decode_attention)
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -103,25 +109,157 @@ def test_paged_decode_at_large_groups_matches_jax(H, Hkv, dtype, window):
     np.testing.assert_allclose(_f32(out), _f32(ref), **_tol(dtype))
 
 
-def test_head_groups_cover_every_head_once():
+# (G, body) -> (NG, Gc): one group of all G heads up to the body's limit
+GROUP_CASES = {("mma", 6): (1, 6), ("mma", 9): (1, 9), ("mma", 12): (1, 12),
+               ("mma", 16): (1, 16), ("mma", 17): (2, 9),
+               ("mma", 32): (2, 16), ("core", 6): (1, 6), ("core", 9): (2, 5),
+               ("core", 12): (2, 6), ("core", 16): (2, 8),
+               ("core", 17): (3, 6)}
+
+
+@pytest.mark.parametrize("body", ["core", "mma"])
+def test_head_groups_cover_every_head_once(body):
+    limit = GROUP_LIMIT[body]
+    assert limit == {"core": 8, "mma": 16}[body]
     for G in range(1, 129):
-        ng, gc = _head_groups(G)
-        assert gc <= MAX_GROUP and ng * gc >= G
+        ng, gc = _head_groups(G, body)
+        assert gc <= limit and ng * gc >= G
         assert (ng - 1) * gc < G                 # the last group has heads
-        assert (ng == 1) == (G <= MAX_GROUP)
-        if G <= MAX_GROUP:
+        assert ng == -(-G // limit)
+        assert (ng == 1) == (G <= limit)
+        if G <= limit:
             assert gc == G
-    assert _head_groups(12) == (2, 6) and _head_groups(16) == (2, 8)
-    assert _head_groups(6) == (1, 6) and _head_groups(9) == (2, 5)
+    for (b, G), want in GROUP_CASES.items():
+        if b == body:
+            assert _head_groups(G, body) == want
 
 
+def test_cut_never_leaves_a_group_empty():
+    # the launchers' explicit groups (the smoke's two-group launch)
+    assert not hasattr(_head_groups, "force") and _num_splits.force is None
+    assert _cut(12, 2) == (2, 6) and _cut(16, 2) == (2, 8)
+    assert _cut(16, 1) == (1, 16) and _cut(12, 5) == (4, 3)
+    assert _cut(3, 8) == (3, 1)
+    for G in range(1, 40):
+        for ng in range(1, 20):
+            n, gc = _cut(G, ng)
+            assert (n - 1) * gc < G <= n * gc and n <= min(ng, G)
+
+
+# (G, body, blocks of the one-group launch) -> (NG, Gc) on 132 SMs
+FILL_CASES = {(12, "mma", 256): (1, 12), (12, "mma", 132): (1, 12),
+              (12, "mma", 131): (2, 6), (12, "mma", 32): (2, 6),
+              (16, "mma", 256): (1, 16), (16, "mma", 128): (2, 8),
+              (17, "mma", 256): (2, 9), (17, "mma", 128): (3, 6),
+              (8, "mma", 4): (1, 8), (5, "mma", 4): (1, 5),
+              (12, "core", 256): (2, 6), (16, "core", 4): (2, 8)}
+
+
+@pytest.mark.parametrize("key", list(FILL_CASES), ids=str)
+def test_head_groups_follow_the_one_group_grid(key):
+    """The tensor-core body takes groups of 16 where the one-group
+    launch's grid fills the SMs or its rows are long (LONG_TILES tiles a
+    SM), and of 8 where neither holds; the CUDA-core body and G <= 8 do
+    not depend on the launch."""
+    G, body, blocks = key
+    assert _head_groups(G, body, blocks, 132) == FILL_CASES[key]
+    assert _head_groups(G, body, blocks, 132) == _head_groups(
+        G, body, blocks * 2, 2 * 132)
+    short = LONG_TILES * 132 - 1
+    assert _head_groups(G, body, blocks, 132, short) == FILL_CASES[key]
+    # rows long enough: the widest groups whatever the grid
+    assert _head_groups(G, body, blocks, 132, short + 1) == \
+        _head_groups(G, body) == _head_groups(G, body, 132, 132)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("H,Hkv", [(48, 4), (64, 4), (12, 1), (48, 8)])
+def test_launch_groups_one_group_where_the_rows_fill_the_card(H, Hkv,
+                                                              dtype):
+    """With the tensor-core body's half wave, a one-group launch fills
+    132 SMs only where its (row, KV head) pairs do, whatever C; its K/V
+    read dominates where the SMs walk LONG_TILES tiles each.  K3 and K2
+    then read each K/V tile once at G 12 / 16 (B 64 x Hkv 4 at any C, B
+    32 x 2048), and keep two groups at the serve shapes (B 8 or 32 x Hkv
+    4 at 161 slots); G <= 8 is one group everywhere."""
+    G = H // Hkv
+    body = "mma" if dtype == torch.bfloat16 else "core"
+    for B in (1, 4, 8, 16, 32, 33, 64, 128):
+        for C in (1, 65, 161, 512, 2048, 8192, 32768):
+            ng = _launch_groups(B, G, Hkv, C, dtype, 128, 132, 8, body)
+            long = B * Hkv * -(-C // 16) >= LONG_TILES * 132
+            want = 1 if G <= 8 or (body == "mma" and (B * Hkv >= 132
+                                                      or long)) else 2
+            assert ng == _cut(G, want)
+            page = 128
+            assert _paged_groups(B, G, Hkv, -(-C // page), page, None,
+                                 dtype, 128, 132) == ng
+    assert _launch_groups(64, 12, 4, 8192, torch.bfloat16, 128, 132, 8,
+                          "mma") == (1, 12)
+    assert _launch_groups(32, 12, 4, 161, torch.bfloat16, 128, 132, 8,
+                          "mma") == (2, 6)
+    assert _launch_groups(32, 12, 4, 2048, torch.bfloat16, 128, 132, 8,
+                          "mma") == (1, 12)
+    assert _launch_groups(8, 16, 4, 65, torch.bfloat16, 128, 132, 8,
+                          "mma") == (2, 8)
+
+
+@pytest.mark.parametrize("body", ["core", "mma"])
 @pytest.mark.parametrize("G", [6, 9, 12, 16])
-def test_split_scratch_is_per_head_group(G):
+def test_split_scratch_is_per_head_group(G, body):
     B, Hkv, D, n = 3, 4, 16, 5
-    acc, ml, counters = _split_scratch(B, Hkv, G, D, n, torch.device("cpu"))
-    ng, gc = _head_groups(G)
+    ng, gc = _head_groups(G, body)
+    assert (ng, gc) == GROUP_CASES[body, G]
+    acc, ml, counters = _split_scratch(B, Hkv, (ng, gc), D, n,
+                                       torch.device("cpu"))
     assert acc.numel() == B * Hkv * ng * n * gc * D >= B * Hkv * n * G * D
     assert ml.numel() == B * Hkv * ng * n * gc * 2
     assert counters.numel() >= B * Hkv * ng and not counters.any()
-    assert _split_scratch(B, Hkv, G, D, 1, torch.device("cpu")) == \
+    assert _split_scratch(B, Hkv, (ng, gc), D, 1, torch.device("cpu")) == \
         (None, None, None)
+
+
+@pytest.mark.parametrize("body", ["core", "mma"])
+@pytest.mark.parametrize("H,Hkv", [(12, 2), (48, 4), (64, 4), (36, 2)])
+def test_launch_splits_count_the_body_groups(H, Hkv, body):
+    """K3's and K2's split counts treat each head group they launch as one
+    more KV head: the groups given, or by default those ``_head_groups``
+    gives the body for the one-group launch's grid; the default body is
+    the one ``_decode_body`` names (bfloat16 at D 128 on the tensor cores,
+    float32 on the CUDA cores)."""
+    G, n_sm = H // Hkv, 132
+    dtype = torch.bfloat16 if body == "mma" else torch.float32
+    for B, C in [(1, 8192), (4, 8192), (32, 161), (64, 8192), (64, 161)]:
+        for dt in (torch.bfloat16, torch.float32):
+            waves = 0.5 if dt == torch.bfloat16 else 2.0
+            page = 128
+            maxp = -(-C // page)
+            one = _num_splits(B, Hkv, C, n_sm, waves=waves)
+            ng = _head_groups(G, body, B * Hkv * one, n_sm,
+                              B * Hkv * -(-C // 16))[0]
+            assert _launch_splits(B, H, Hkv, 128, C, dt, n_sm,
+                                  body=body) == _num_splits(
+                B, Hkv * ng, C, n_sm, waves=waves)
+            one = _num_splits(B, Hkv, maxp * page, n_sm, waves=waves)
+            ng = _head_groups(G, body, B * Hkv * one, n_sm,
+                              B * Hkv * maxp * page // 16)[0]
+            assert _paged_splits(B, Hkv, maxp, page, None, dt, 128, n_sm, G,
+                                 body=body) == _num_splits(
+                B, Hkv * ng, maxp * page, n_sm, waves=waves)
+            for groups in ((1, G), _cut(G, 2)):
+                want = _num_splits(B, Hkv * groups[0], C, n_sm, waves=waves)
+                assert _launch_splits(B, H, Hkv, 128, C, dt, n_sm, body=body,
+                                      groups=groups) == want
+        assert _launch_splits(B, H, Hkv, 128, C, dtype, n_sm) == \
+            _launch_splits(B, H, Hkv, 128, C, dtype, n_sm, body=body)
+    # one group of 12 / 16 on the tensor cores takes half the blocks a
+    # split, so at B 1 the long cache would take more splits than two
+    # groups; the grid rule keeps two there, and one at B 64
+    if body == "mma" and G in (12, 16):
+        assert _launch_splits(1, H, Hkv, 128, 8192, torch.bfloat16,
+                              n_sm) == _num_splits(1, Hkv * 2, 8192, n_sm,
+                                                   waves=0.5) == 9
+        assert _launch_splits(1, H, Hkv, 128, 8192, torch.bfloat16, n_sm,
+                              groups=(1, G)) == 17
+        assert _launch_splits(64, H, Hkv, 128, 8192, torch.bfloat16,
+                              n_sm) == 1
