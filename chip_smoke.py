@@ -417,15 +417,72 @@ def paged_work(B, H, Hkv, D, page, maxp, lens, itemsize):
     return n_bytes, 4.0 * D * H * attended
 
 
+def _rule(name, args, kw=None):
+    """(body, resident(Gc), groups, n_split) of K3's (``name``
+    "flash_decode") or K2's launch on ``args`` (the wrapper's positional
+    arguments, ``kw`` its keywords): the body ``_decode_body`` names, the
+    blocks an SM holds of it (the card's query), the head groups and the
+    split count of the one rule."""
+    from repro_torch.kernels import tuning
+    from repro_torch.kernels.decode_attention.ops import (
+        _aligned, _decode_body, _launch_groups, _launch_splits, _resident,
+        _sm_count)
+    from repro_torch.kernels.paged_attention.ops import (_paged_groups,
+                                                         _paged_splits)
+    kw = kw or {}
+    q, k, v = args[:3]
+    B, H, D = q.shape
+    Hkv = k.shape[2]
+    aligned = _aligned(q, k, v)
+    body = _decode_body(q.dtype, D, aligned)
+    n_sm = _sm_count(q.device)
+    res = _resident(name, q.device, q.dtype, D, body, aligned)
+    if name == "flash_decode":
+        C = k.shape[1]
+        groups = _launch_groups(B, H // Hkv, Hkv, D, C, n_sm, res,
+                                tuning.resolve("decode_attention",
+                                               "min_split_tiles", None),
+                                body)
+        return body, res, groups, _launch_splits(B, H, Hkv, D, C, n_sm, res,
+                                                 None, body, groups)
+    maxp, page = args[3].shape[1], k.shape[1]
+    window, max_len = kw.get("window"), kw.get("max_len")
+    groups = _paged_groups(B, H // Hkv, Hkv, D, maxp, page, window, n_sm,
+                           res, None, body, max_len)
+    return body, res, groups, _paged_splits(B, Hkv, D, maxp, page, window,
+                                            n_sm, res, H // Hkv, None, body,
+                                            groups, max_len)
+
+
+def _forced(name, args, kw, n_split):
+    """One uncounted launch of K3's (``name`` "flash_decode") or K2's C
+    entry at ``n_split`` splits (at most the tiles a row can reach), on the
+    body and head groups the rule gives the wrapper's call; returns (o,
+    the split count launched)."""
+    from repro_torch.kernels.decode_attention import ops
+    from repro_torch.kernels.paged_attention import ops as pops
+    kw = kw or {}
+    q, k = args[:2]
+    D = q.shape[2]
+    body, _, groups, _ = _rule(name, args, kw)
+    window = kw.get("window")
+    scale = kw.get("scale") or D ** -0.5
+    if name == "flash_decode":
+        n = max(1, min(int(n_split), -(-k.shape[1] // ops.TILE)))
+        return ops._launch(*args, window, scale, n, body, groups[0])[0], n
+    reach = pops._reach(args[3].shape[1], k.shape[1], window)
+    n = max(1, min(int(n_split), -(-reach // ops.TILE)))
+    return pops._launch(*args, window, scale, n, body, groups[0])[0], n
+
+
 def paged_kernel_phase(prompt_len, new_tokens):
     """Hold the paged flash-decode kernel to its plain version; time the
     main-path and long shapes.  Returns its record of the result line."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.decode_attention.ops import (
-        _decode_body, _num_splits, _sm_count)
+    from repro_torch.kernels.decode_attention.ops import _decode_body
     from repro_torch.kernels.paged_attention.ops import (
-        _paged_splits, paged_decode_attention, paged_decode_attention_ref)
+        paged_decode_attention, paged_decode_attention_ref)
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
@@ -491,11 +548,11 @@ def paged_kernel_phase(prompt_len, new_tokens):
         if bool(got[0].any()):
             fail("paged_flash_decode: a row of length 0 is not 0")
 
-    # K3's split cases over the paged layout, n_split forced through
-    # _num_splits.force (shared by both kernels): most splits empty (one
-    # valid slot of 8192), a window that empties the early splits, pages of
-    # 4 / 16 / 128 (tiles spanning pages), groups of 5..8 heads at D 64 /
-    # 80 / 128 with and without a window
+    # K3's split cases over the paged layout, n_split forced through the
+    # uncounted launcher (_forced), or the wrapper's own count (None): most
+    # splits empty (one valid slot of 8192), a window that empties the
+    # early splits, pages of 4 / 16 / 128 (tiles spanning pages), groups of
+    # 5..8 heads at D 64 / 80 / 128 with and without a window
     pcases = [((2, 12, 2, 128, 16, 512), None, n, "one") for n in (1, 2, 7)]
     pcases += [((4, 12, 2, 128, 16, 63), 100, n, "full") for n in (None, 5)]
     pcases += [((3, 12, 2, 128, page, -(-1000 // page)), None, None,
@@ -503,32 +560,30 @@ def paged_kernel_phase(prompt_len, new_tokens):
     pcases += [((3, 2 * G, 2, D, 8, 10), w, n, "ragged")
                for G in (5, 6, 7, 8) for D in (64, 80, 128)
                for w, n in [(None, None), (30, 3)]]
-    try:
-        for shape, window, force, kind in pcases:
-            B, H, Hkv, D, page, maxp = shape
-            C = maxp * page
-            lens = ([C] * B if kind == "full" else [1] * B if kind == "one"
-                    else [max(1, C * (b + 1) // (B + 1)) for b in range(B)])
-            _num_splits.force = force
-            for dtype in ("float32", "bfloat16"):
-                args = paged_case(*shape, lens, dtype, gen)
-                n_split = _paged_splits(B, Hkv, maxp, page, window,
-                                        args[0].dtype, D, _sm_count(
-                                            args[0].device))
-                body = _decode_body(args[0].dtype, D, True)
+    for shape, window, force, kind in pcases:
+        B, H, Hkv, D, page, maxp = shape
+        C = maxp * page
+        lens = ([C] * B if kind == "full" else [1] * B if kind == "one"
+                else [max(1, C * (b + 1) // (B + 1)) for b in range(B)])
+        for dtype in ("float32", "bfloat16"):
+            args = paged_case(*shape, lens, dtype, gen)
+            body = _decode_body(args[0].dtype, D, True)
+            if force is not None:
+                got, n_split = _forced("paged_flash_decode", args,
+                                       dict(window=window), force)
+            else:
                 before = dict(paged_decode_attention.launches_by_variant)
                 got = paged_decode_attention(*args, window=window)
+                n_split = paged_decode_attention.last_n_split
                 if (paged_decode_attention.launches_by_variant[body]
                         != before[body] + 1):
                     fail(f"paged_flash_decode {shape} {dtype}: bodies "
                          f"{before} -> "
                          f"{paged_decode_attention.launches_by_variant}, "
                          f"expected one {body} launch")
-                check(f"window={window} n_split={n_split} {kind} ({body})",
-                      got, paged_decode_attention_ref(*args, window=window),
-                      dtype, shape)
-    finally:
-        _num_splits.force = None
+            check(f"window={window} n_split={n_split} {kind} ({body})",
+                  got, paged_decode_attention_ref(*args, window=window),
+                  dtype, shape)
 
     # the main path (32 slots, pages of 128, lengths up to prompt + 128)
     # and the long shape
@@ -556,15 +611,22 @@ def paged_kernel_phase(prompt_len, new_tokens):
             qt = q[:, :, None]
             n_bytes, flops = paged_work(*shape, lens, q.element_size())
             bound, by = _bound_ms(n_bytes, flops, dtype)
+            # the engine's call: the longest length as the host knows it
+            kw = dict(max_len=max(lens))
             timings[shape] = dict(
-                ms=_time_ms(lambda: paged_decode_attention(*args), flush),
+                ms=_time_ms(lambda: paged_decode_attention(*args, **kw),
+                            flush),
                 plain_ms=_time_ms(lambda: paged_decode_attention_ref(*args),
                                   flush),
                 library_ms=_time_ms(lambda: F.scaled_dot_product_attention(
                     qt, kd, vd, attn_mask=mask, enable_gqa=True), flush),
                 bound_ms=bound, bound_by=by,
-                n_split=_paged_splits(B, Hkv, maxp, page, None, q.dtype, D,
-                                      _sm_count(q.device)))
+                n_split=_rule("paged_flash_decode", args, kw)[3])
+            if paged_decode_attention.last_n_split != timings[shape][
+                    "n_split"]:
+                fail(f"paged_flash_decode {shape}: launched "
+                     f"{paged_decode_attention.last_n_split} splits, the "
+                     f"rule gives {timings[shape]['n_split']}")
             del kd, vd
             torch.cuda.synchronize()
     for shape, t in timings.items():
@@ -576,31 +638,34 @@ def paged_kernel_phase(prompt_len, new_tokens):
 
     # the split count against time: n_split forced, and the default
     split_sweep = {}
-    try:
-        for shape in (main, (8, 12, 2, 128, 128, 64), long):
-            B, H, Hkv, D, page, maxp = shape
-            lens = main_lens if shape == main else [8192] * B
-            for dtype in ("float32", "bfloat16"):
-                args = paged_case(*shape, lens, dtype, gen)
-                row = {}
-                for force in (1, 2, 4, 8, None):
-                    _num_splits.force = force
-                    n = _paged_splits(B, Hkv, maxp, page, None,
-                                      args[0].dtype, D,
-                                      _sm_count(args[0].device))
-                    key = "default" if force is None else str(n)
-                    row[key] = dict(n_split=n, ms=_time_ms(
-                        lambda: paged_decode_attention(*args), flush))
-                split_sweep[f"{dtype} {shape}"] = row
-                say(f"  time paged {shape} {dtype} by n_split: "
-                    + ", ".join(f"{key} {r['ms']:.4f} ms" if key != "default"
-                                else f"default ({r['n_split']}) "
-                                     f"{r['ms']:.4f} ms"
-                                for key, r in row.items()))
-                del args
-                torch.cuda.synchronize()
-    finally:
-        _num_splits.force = None
+    for shape in (main, (8, 12, 2, 128, 128, 64), long):
+        B, H, Hkv, D, page, maxp = shape
+        lens = main_lens if shape == main else [8192] * B
+        for dtype in ("float32", "bfloat16"):
+            args = paged_case(*shape, lens, dtype, gen)
+            kw = dict(max_len=max(lens))
+            row = {}
+            for force in (1, 2, 4, 8, None):
+                if force is None:
+                    row["default"] = dict(
+                        n_split=_rule("paged_flash_decode", args, kw)[3],
+                        ms=_time_ms(lambda: paged_decode_attention(
+                            *args, **kw), flush))
+                    _hold_core_pin("paged_flash_decode", shape, dtype,
+                                   row["default"]["n_split"])
+                    continue
+                n = _forced("paged_flash_decode", args, kw, force)[1]
+                row[str(n)] = dict(n_split=n, ms=_time_ms(
+                    lambda n=n: _forced("paged_flash_decode", args, kw, n),
+                    flush))
+            split_sweep[f"{dtype} {shape}"] = row
+            say(f"  time paged {shape} {dtype} by n_split: "
+                + ", ".join(f"{key} {r['ms']:.4f} ms" if key != "default"
+                            else f"default ({r['n_split']}) "
+                                 f"{r['ms']:.4f} ms"
+                            for key, r in row.items()))
+            del args
+            torch.cuda.synchronize()
     say(f"kernels: paged_flash_decode holds to its plain version at every "
         f"shape ({stats['checks']} checks)")
     return dict(
@@ -612,6 +677,38 @@ def paged_kernel_phase(prompt_len, new_tokens):
                 "cache (gather not timed)",
         **timings[main], long=dict(shape=long, **timings[long]),
         split_sweep=split_sweep)
+
+
+def resident_check():
+    """The blocks an SM holds of K3's and K2's tensor-core body (the
+    card's occupancy query through ``ops._resident``, which the split
+    rule counts a launch against) at D 64 / 80 / 128, in a group of 8
+    rows and of 16, and of the CUDA-core body in bf16 and float32 at D
+    128; the tensor-core body's must be ``ops.H100_RESIDENT``, the
+    numbers the CPU models of the card count with.  Returns {kernel:
+    {instantiation: blocks}}."""
+    import torch
+    from repro_torch.kernels.decode_attention.ops import (H100_RESIDENT,
+                                                          _resident)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    out = {}
+    for name in ("flash_decode", "paged_flash_decode"):
+        rec = out[name] = {}
+        for D in (64, 80, 128):
+            res = _resident(name, dev, torch.bfloat16, D, "mma", True)
+            for gc in (6, 12):
+                rec[f"mma D={D} Gc={gc}"] = got = res(gc)
+                if got != H100_RESIDENT[D]:
+                    fail(f"{name}: {got} blocks an SM of the tensor-core "
+                         f"body at D {D}, Gc {gc}; H100_RESIDENT says "
+                         f"{H100_RESIDENT[D]}")
+        for dtype in (torch.bfloat16, torch.float32):
+            res = _resident(name, dev, dtype, 128, "core", True)
+            for gc in (1, 6, 8):
+                rec[f"core {dtype} D=128 Gc={gc}"] = res(gc)
+        say(f"  {name}: blocks an SM holds " + ", ".join(
+            f"{k} {v}" for k, v in rec.items()) + f" ({CARD['card']})")
+    return out
 
 
 ONE_GROUP = [(36, 4), (48, 4), (64, 4)]   # (H, Hkv): G = 9, 12, 16
@@ -636,23 +733,8 @@ def _rule_groups(name, args, kw=None):
     """The head groups ``_head_groups`` gives K3's (``name``
     "flash_decode") or K2's launch on ``args`` (the wrapper's positional
     arguments, ``kw`` its keywords) through the body ``_decode_body``
-    names, from the one-group launch's grid."""
-    from repro_torch.kernels import tuning
-    from repro_torch.kernels.decode_attention.ops import (
-        _aligned, _decode_body, _launch_groups, _sm_count)
-    from repro_torch.kernels.paged_attention.ops import _paged_groups
-    q, k, v = args[:3]
-    B, H, D = q.shape
-    Hkv = k.shape[2]
-    body = _decode_body(q.dtype, D, _aligned(q, k, v))
-    n_sm = _sm_count(q.device)
-    if name == "flash_decode":
-        return _launch_groups(B, H // Hkv, Hkv, k.shape[1], q.dtype, D, n_sm,
-                              tuning.resolve("decode_attention",
-                                             "min_split_tiles", None), body)
-    return _paged_groups(B, H // Hkv, Hkv, args[3].shape[1], k.shape[1],
-                         (kw or {}).get("window"), q.dtype, D, n_sm,
-                         body=body)
+    names, from the one-group launch's grid (``_rule``)."""
+    return _rule(name, args, kw)[2]
 
 
 def _one_group_checks(gen):
@@ -786,7 +868,7 @@ def gqa_phase(prompt_len, new_tokens):
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.kernels.decode_attention.ops import (
-        _cut, _num_splits, _sm_count, decode_attention, decode_attention_ref)
+        _cut, _resident, _sm_count, decode_attention, decode_attention_ref)
     from repro_torch.kernels.flash_attention.ops import (
         _variant, flash_attention, flash_attention_ref)
     from repro_torch.kernels.paged_attention import ops as pops
@@ -820,36 +902,39 @@ def gqa_phase(prompt_len, new_tokens):
                  f"({variant})")
             if flash_attention.launches_by_variant[variant] != n + 1:
                 fail(f"flash_attention {shape} {dtype}: not on {variant}")
-    try:
-        for H, Hkv in groups:
-            G = H // Hkv
-            for B, C, forces in [(8, prompt_len + 32, (1, 3)),
-                                 (4, 8192, (1, 4))]:
-                valid = [max(1, C * (b + 1) // B) for b in range(B)]
-                for force in forces:
-                    _num_splits.force = force
-                    for dtype in ("float32", "bfloat16"):
-                        shape = (B, H, Hkv, 128, C)
-                        q, k, v, q_pos, k_pos = decode_case(*shape, valid,
-                                                            dtype, gen)
-                        once(decode_attention, "flash_decode",
-                             lambda: decode_attention(q, k, v, q_pos, k_pos),
-                             lambda: decode_attention_ref(q, k, v, q_pos,
-                                                          k_pos),
-                             dtype, shape, f"G={G} n_split={force}")
-                        del q, k, v
-                        page = 128
-                        maxp = -(-C // page)
-                        pshape = (B, H, Hkv, 128, page, maxp)
-                        args = paged_case(*pshape, valid, dtype, gen)
-                        once(paged_decode_attention, "paged_flash_decode",
-                             lambda: paged_decode_attention(*args),
-                             lambda: paged_decode_attention_ref(*args),
-                             dtype, pshape, f"G={G} n_split={force}")
-                        del args
-                        torch.cuda.synchronize()
-    finally:
-        _num_splits.force = None
+    for H, Hkv in groups:
+        G = H // Hkv
+        for B, C, forces in [(8, prompt_len + 32, (1, 3)),
+                             (4, 8192, (1, 4))]:
+            valid = [max(1, C * (b + 1) // B) for b in range(B)]
+            # the wrapper at its own count (one counted launch), then the
+            # counts forced through the uncounted launcher (_forced)
+            for force in (None, *forces):
+                for dtype in ("float32", "bfloat16"):
+                    shape = (B, H, Hkv, 128, C)
+                    dargs = decode_case(*shape, valid, dtype, gen)
+                    page = 128
+                    maxp = -(-C // page)
+                    pshape = (B, H, Hkv, 128, page, maxp)
+                    pargs = paged_case(*pshape, valid, dtype, gen)
+                    for wrapper, name, plain, sh, args in [
+                            (decode_attention, "flash_decode",
+                             decode_attention_ref, shape, dargs),
+                            (paged_decode_attention, "paged_flash_decode",
+                             paged_decode_attention_ref, pshape, pargs)]:
+                        if force is None:
+                            once(wrapper, name, lambda: wrapper(*args),
+                                 lambda: plain(*args), dtype, sh,
+                                 f"G={G} (the rule's count)")
+                            continue
+                        got, n = _forced(name, args, {}, force)
+                        _check(name, got, plain(*args), dtype, sh,
+                               stats[name])
+                        say(f"  {name} {sh} G={G} n_split={n} (forced) "
+                            f"{dtype}: ok, max err "
+                            f"{stats[name]['max_abs_err']:.2e}")
+                    del dargs, pargs
+                    torch.cuda.synchronize()
 
     one_stats, planted = _one_group_checks(gen)
 
@@ -880,20 +965,20 @@ def gqa_phase(prompt_len, new_tokens):
         B, H, D = q.shape
         Hkv = args[1].shape[2]
         G = H // Hkv
+        res = _resident(name, q.device, q.dtype, D, "mma", True)
         for label, g in (("one_group", 1), ("two_group", 2)):
             if name == "flash_decode":
                 n_g = dops._launch_splits(B, H, Hkv, D, args[1].shape[1],
-                                          q.dtype, n_sm, None, "mma",
-                                          _cut(G, g))
+                                          n_sm, res, None, "mma", _cut(G, g))
 
                 def launch():
                     return dops._launch(*args, None, 1.0 / math.sqrt(D), n_g,
                                         "mma", g)
             else:
                 bt = args[3]
-                n_g = pops._paged_splits(B, Hkv, bt.shape[1],
-                                         args[1].shape[1], None, q.dtype, D,
-                                         n_sm, G, None, "mma", _cut(G, g))
+                n_g = pops._paged_splits(B, Hkv, D, bt.shape[1],
+                                         args[1].shape[1], None, n_sm, res,
+                                         G, None, "mma", _cut(G, g))
 
                 def launch():
                     return pops._launch(*args, None, 1.0 / math.sqrt(D), n_g,
@@ -1230,23 +1315,30 @@ def _core_decode(q, k, v, q_pos, k_pos, window=None):
     B, H, D = q.shape
     C, Hkv = k.shape[1], k.shape[2]
     ng = ops._head_groups(H // Hkv, "core")[0]
-    n = ops._num_splits(B, Hkv * ng, C, ops._sm_count(q.device), waves=2.0)
+    n = _two_waves(B * Hkv * ng, C, ops._sm_count(q.device))
     return ops._launch(q, k, v, q_pos, k_pos, window, 1.0 / math.sqrt(D), n,
                        "core", ng)[0]
+
+
+def _two_waves(pairs, C, n_sm):
+    """The split count the CUDA-core body took before the tensor-core
+    body served D = 80: two waves of blocks over the SMs, every split at
+    least 8 tiles of 16 slots."""
+    return max(1, min(-(-2 * n_sm // pairs), -(-C // 16) // 8))
 
 
 def _core_paged(q, kp, vp, bt, lengths, window=None):
     """K2's CUDA-core body through ``paged_attention.ops._launch``, as
     ``_core_decode``.  Not counted as a launch."""
-    from repro_torch.kernels.decode_attention.ops import (
-        _head_groups, _num_splits, _sm_count)
+    from repro_torch.kernels.decode_attention.ops import (_head_groups,
+                                                          _sm_count)
     from repro_torch.kernels.paged_attention import ops
     B, H, D = q.shape
     page, Hkv = kp.shape[1], kp.shape[2]
     maxp = bt.shape[1]
     reach = maxp * page if window is None else min(maxp * page, window)
     ng = _head_groups(H // Hkv, "core")[0]
-    n = _num_splits(B, Hkv * ng, reach, _sm_count(q.device), waves=2.0)
+    n = _two_waves(B * Hkv * ng, reach, _sm_count(q.device))
     return ops._launch(q, kp, vp, bt, lengths, window, 1.0 / math.sqrt(D), n,
                        "core", ng)[0]
 
@@ -1258,8 +1350,7 @@ def kernels_phase(prompt_len, new_tokens):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention.ops import (
-        _decode_body, _num_splits, _sm_count, _waves, decode_attention,
-        decode_attention_ref)
+        _decode_body, decode_attention, decode_attention_ref)
     from repro_torch.kernels.flash_attention.ops import (
         _variant, flash_attention, flash_attention_ref)
 
@@ -1370,99 +1461,98 @@ def kernels_phase(prompt_len, new_tokens):
     dcases += [((3, 2 * G, 2, D, 77), w, n, "ragged")
                for G in (5, 6, 7, 8) for D in (64, 80, 128)
                for w, n in [(None, None), (30, 3)]]
-    try:
-        for shape, window, force, lens in dcases:
-            B, H, Hkv, D, C = shape
-            valid = ([C] * B if lens == "full" else [1] * B if lens == "one"
-                     else [max(1, (C * (b + 1)) // (B + 1))
-                           for b in range(B)])
-            _num_splits.force = force
-            for dtype in ("float32", "bfloat16"):
-                q, k, v, q_pos, k_pos = decode_case(*shape, valid, dtype,
-                                                    gen)
-                n_split = _num_splits(B, Hkv, C, _sm_count(q.device),
-                                      waves=_waves(q.dtype, D), force=force)
-                body = _decode_body(q.dtype, D, True)
+    for shape, window, force, lens in dcases:
+        B, H, Hkv, D, C = shape
+        valid = ([C] * B if lens == "full" else [1] * B if lens == "one"
+                 else [max(1, (C * (b + 1)) // (B + 1)) for b in range(B)])
+        for dtype in ("float32", "bfloat16"):
+            q, k, v, q_pos, k_pos = decode_case(*shape, valid, dtype, gen)
+            args, kw = (q, k, v, q_pos, k_pos), dict(window=window)
+            body = _decode_body(q.dtype, D, True)
+            if force is not None:
+                # forced through the uncounted launcher
+                got, n_split = _forced("flash_decode", args, kw, force)
+            else:
                 before = dict(decode_attention.launches_by_variant)
-                got = decode_attention(q, k, v, q_pos, k_pos, window=window)
+                got = decode_attention(*args, **kw)
+                n_split = decode_attention.last_n_split
                 if (decode_attention.launches_by_variant[body]
                         != before[body] + 1):
                     fail(f"flash_decode {shape} {dtype}: bodies {before} -> "
                          f"{decode_attention.launches_by_variant}, expected "
                          f"one {body} launch")
-                want = decode_attention_ref(q, k, v, q_pos, k_pos,
-                                            window=window)
-                _check("flash_decode", got, want, dtype, shape, dstats)
-                say(f"  flash_decode {shape} window={window} n_split="
-                    f"{n_split} {lens} {dtype} ({body}): ok, max err "
-                    f"{_max_err(got, want):.2e}")
-                if shape in (main_d, long_d):
-                    qt = q[:, :, None]                   # [B, H, 1, D]
-                    kt, vt = (x.transpose(1, 2).contiguous() for x in (k, v))
-                    mask = ((k_pos >= 0) & (k_pos <= q_pos[:, None]))[
-                        :, None, None]
-                    n_bytes, flops = decode_work(*shape, valid,
-                                                 q.element_size())
-                    bound, by = _bound_ms(n_bytes, flops, dtype)
-                    timings[("decode", shape, dtype)] = dict(
-                        ms=_time_ms(lambda: decode_attention(
-                            q, k, v, q_pos, k_pos, window=window), flush),
-                        plain_ms=_time_ms(lambda: decode_attention_ref(
-                            q, k, v, q_pos, k_pos, window=window), flush),
-                        library_ms=_time_ms(
-                            lambda: F.scaled_dot_product_attention(
-                                qt, kt, vt, attn_mask=mask, enable_gqa=True),
-                            flush),
-                        bound_ms=bound, bound_by=by, n_split=n_split)
-                del q, k, v, got, want
-                torch.cuda.synchronize()
-        # SWA ring layouts: valid slots wrap around the ring (row 0) or
-        # are a prefix (row 1); C = 16 (one tile) and C = 64 over 4 splits
-        for C, qp, window, force, D in [(16, 20, 10, None, 16),
-                                        (64, 100, 40, 4, 128)]:
-            ring_pos = [[qp - ((qp - s) % C) for s in range(C)],
-                        [s if s < 5 else EMPTY for s in range(C)]]
-            _num_splits.force = force
-            for dtype in ("float32", "bfloat16"):
-                q, k, v, _, _ = decode_case(2, 12, 2, D, C, [C, C], dtype,
-                                            gen)
-                q_pos = torch.tensor([qp, 4], dtype=torch.int32,
-                                     device="cuda")
-                k_pos = torch.tensor(ring_pos, dtype=torch.int32,
-                                     device="cuda")
-                got = decode_attention(q, k, v, q_pos, k_pos, window=window)
-                want = decode_attention_ref(q, k, v, q_pos, k_pos,
-                                            window=window)
-                _check("flash_decode", got, want, dtype, "ring", dstats)
-                say(f"  flash_decode ring C={C} D={D} window={window} n_split="
-                    f"{force or 1} {dtype}: ok, max err "
-                    f"{_max_err(got, want):.2e}")
-        # the split count against time: n_split forced, and the default
-        split_sweep = {}
-        for shape in (main_d, (8, 12, 2, 128, 8192), long_d):
-            B, H, Hkv, D, C = shape
-            for dtype in ("float32", "bfloat16"):
-                q, k, v, q_pos, k_pos = decode_case(*shape, [C] * B, dtype,
-                                                    gen)
-                row = {}
-                for force in (1, 2, 4, 8, None):
-                    _num_splits.force = force
-                    n = _num_splits(B, Hkv, C, _sm_count(q.device),
-                                    waves=_waves(q.dtype, D), force=force)
-                    key = "default" if force is None else str(n)
-                    row[key] = dict(n_split=n, ms=_time_ms(
-                        lambda: decode_attention(q, k, v, q_pos, k_pos),
-                        flush))
-                split_sweep[f"{dtype} {shape}"] = row
-                say(f"  time flash_decode {shape} {dtype} by n_split: "
-                    + ", ".join(f"{key} {r['ms']:.4f} ms" if key != "default"
-                                else f"default ({r['n_split']}) "
-                                     f"{r['ms']:.4f} ms"
-                                for key, r in row.items()))
-                del q, k, v
-                torch.cuda.synchronize()
-    finally:
-        _num_splits.force = None
+            want = decode_attention_ref(*args, **kw)
+            _check("flash_decode", got, want, dtype, shape, dstats)
+            say(f"  flash_decode {shape} window={window} n_split="
+                f"{n_split} {lens} {dtype} ({body}): ok, max err "
+                f"{_max_err(got, want):.2e}")
+            if shape in (main_d, long_d):
+                qt = q[:, :, None]                   # [B, H, 1, D]
+                kt, vt = (x.transpose(1, 2).contiguous() for x in (k, v))
+                mask = ((k_pos >= 0) & (k_pos <= q_pos[:, None]))[
+                    :, None, None]
+                n_bytes, flops = decode_work(*shape, valid,
+                                             q.element_size())
+                bound, by = _bound_ms(n_bytes, flops, dtype)
+                timings[("decode", shape, dtype)] = dict(
+                    ms=_time_ms(lambda: decode_attention(*args, **kw),
+                                flush),
+                    plain_ms=_time_ms(lambda: decode_attention_ref(
+                        *args, **kw), flush),
+                    library_ms=_time_ms(
+                        lambda: F.scaled_dot_product_attention(
+                            qt, kt, vt, attn_mask=mask, enable_gqa=True),
+                        flush),
+                    bound_ms=bound, bound_by=by, n_split=n_split)
+            del q, k, v, got, want, args
+            torch.cuda.synchronize()
+    # SWA ring layouts: valid slots wrap around the ring (row 0) or are a
+    # prefix (row 1); C = 16 (one tile) through the wrapper and C = 64 over
+    # 4 splits forced
+    for C, qp, window, force, D in [(16, 20, 10, None, 16),
+                                    (64, 100, 40, 4, 128)]:
+        ring_pos = [[qp - ((qp - s) % C) for s in range(C)],
+                    [s if s < 5 else EMPTY for s in range(C)]]
+        for dtype in ("float32", "bfloat16"):
+            q, k, v, _, _ = decode_case(2, 12, 2, D, C, [C, C], dtype, gen)
+            q_pos = torch.tensor([qp, 4], dtype=torch.int32, device="cuda")
+            k_pos = torch.tensor(ring_pos, dtype=torch.int32, device="cuda")
+            args, kw = (q, k, v, q_pos, k_pos), dict(window=window)
+            if force is None:
+                got = decode_attention(*args, **kw)
+                n_split = decode_attention.last_n_split
+            else:
+                got, n_split = _forced("flash_decode", args, kw, force)
+            want = decode_attention_ref(*args, **kw)
+            _check("flash_decode", got, want, dtype, "ring", dstats)
+            say(f"  flash_decode ring C={C} D={D} window={window} n_split="
+                f"{n_split} {dtype}: ok, max err {_max_err(got, want):.2e}")
+    # the split count against time: n_split forced, and the default
+    split_sweep = {}
+    for shape in (main_d, (8, 12, 2, 128, 8192), long_d):
+        B, H, Hkv, D, C = shape
+        for dtype in ("float32", "bfloat16"):
+            args = decode_case(*shape, [C] * B, dtype, gen)
+            row = {}
+            for force in (1, 2, 4, 8, None):
+                if force is None:
+                    row["default"] = dict(
+                        n_split=_rule("flash_decode", args)[3],
+                        ms=_time_ms(lambda: decode_attention(*args), flush))
+                    _hold_core_pin("flash_decode", shape, dtype,
+                                   row["default"]["n_split"])
+                    continue
+                n = _forced("flash_decode", args, {}, force)[1]
+                row[str(n)] = dict(n_split=n, ms=_time_ms(
+                    lambda n=n: _forced("flash_decode", args, {}, n), flush))
+            split_sweep[f"{dtype} {shape}"] = row
+            say(f"  time flash_decode {shape} {dtype} by n_split: "
+                + ", ".join(f"{key} {r['ms']:.4f} ms" if key != "default"
+                            else f"default ({r['n_split']}) "
+                                 f"{r['ms']:.4f} ms"
+                            for key, r in row.items()))
+            del args
+            torch.cuda.synchronize()
 
     for (kind, shape, dtype), t in sorted(timings.items(), key=str):
         extra = "".join(f", {key} {t[key]}" for key in ("variant", "n_split")
@@ -1530,6 +1620,7 @@ def _reset_counts():
         for variant in getattr(fn, "launches_by_variant", {}):
             fn.launches_by_variant[variant] = 0
         getattr(fn, "launches_by_groups", {}).clear()
+        getattr(fn, "launches_by_splits", {}).clear()
 
 
 def _scan_variants():
@@ -1993,6 +2084,15 @@ def paged_serve_phase():
                     / len(tasks))
     what = "generate_groups bf16 8 tasks x 8 slots=32"
     _expect_paged_counts(what, cfg.n_layers, m["decode_steps"], counts)
+    # the engine hands K2 the longest row (at most prompt + 128 slots, two
+    # pages): every launch at the pinned count
+    by_splits = dict(_wrappers()["paged_flash_decode"].launches_by_splits)
+    pinned = PINNED_SPLITS["1.5B paged step"]
+    if by_splits != {pinned: counts["paged_flash_decode"]}:
+        fail(f"{what}: paged launches by split count {by_splits}, expected "
+             f"all {counts['paged_flash_decode']} at {pinned}")
+    say(f"{what}: paged launches by split count {by_splits} (pinned "
+        f"{pinned})")
     _check_rollouts(what, rollouts, cfg.vocab, 128)
     if len(rollouts) != 64 or m["forks"] < 1 or m["cow_copies"] < 1:
         fail(f"{what}: {len(rollouts)} rollouts, forks {m['forks']}, "
@@ -3848,7 +3948,8 @@ def _hd_timings(B, C, flush, sweep=False):
     ``torch.einsum`` of q . k^T for pass 1 (pass 2 has no single PyTorch
     call), the bound and each body's achieved GB/s (the bound's bytes over
     its time); all rows attend all C slots.  ``sweep`` also times the ring
-    pass 2 with its split count forced (``_num_splits.force``).  The
+    pass 2 with its split count forced (``_launch_softmax_pv``'s
+    ``n_split``).  The
     records hold only what this run measured and the bounds; the scores'
     size is read from the tensor, and the all-reduce's wire bytes
     (modelled: no all-reduce runs here) are only printed."""
@@ -3906,15 +4007,17 @@ def _hd_timings(B, C, flush, sweep=False):
                 r["simt_gbps"] = nb / r["simt_ms"] / 1e6
             row[f"m{m}"] = dict(Dl=Dl, decode_scores=r1, decode_softmax_pv=r2)
             if sweep:
+                # pass 2's body at each count, through its launcher (at
+                # most the tiles of its rows)
+                tile = (ops._pv_geometry(B, C, H, Hkv, Dl, es, ops._sm_count(
+                    vs.device))["tile"] if r2["variant"] == "ring"
+                        else ops.PV_TILE)
                 split_ms = {}
-                try:
-                    for force in (1, 2, 3, 4, 6, 8, 12, 16):
-                        ops._num_splits.force = force
-                        split_ms[force] = _time_ms(
-                            lambda: ops.decode_softmax_pv(s, vs, qp, kp),
-                            flush)
-                finally:
-                    ops._num_splits.force = None
+                for force in (1, 2, 3, 4, 6, 8, 12, 16):
+                    n = min(force, -(-C // tile))
+                    split_ms[n] = _time_ms(
+                        lambda n=n: ops._launch_softmax_pv(
+                            s, vs, qp, kp, None, r2["variant"], n), flush)
                 r2["split_sweep"] = split_ms
                 say(f"  time decode_softmax_pv ({r2['variant']}) B={B} C={C} "
                     f"{dtype} m={m} by n_split: " + ", ".join(
@@ -4837,6 +4940,31 @@ SERVE_BYTES = 16 * 2 ** 30
 SERVE_LAYERS = {"starcoder2-15b": 20, "yi-34b": 13,
                 "qwen3-moe-235b-a22b": 2, "grok-1-314b": 1}
 DEV = "cuda"       # the families' phases run on this device
+# the split counts K3's and K2's rule gives in bfloat16 at the serve shapes
+# (the H100's 132 SMs and resident blocks), pinned beside the CPU tests'
+# (tests/test_torch_split_rule.py): whisper-small's cross-attention decode,
+# h2o-danube's ring and paged rows, the 1.5B paged step (every launch of
+# the timed generate_groups)
+PINNED_SPLITS = {"whisper-small cross": 4, "h2o-danube-1.8b ring": 8,
+                 "h2o-danube-1.8b window=4096": 8, "1.5B paged step": 1}
+# and the counts it gives the CUDA-core body in float32 at the kernel
+# phases' sweep shapes (K3's (B, H, Hkv, D, C), K2's (B, H, Hkv, D, page,
+# pages) with the host's longest length), pinned beside the CPU tests'
+CORE_PINNED_SPLITS = {
+    ("flash_decode", (32, 12, 2, 128, 161)): 1,
+    ("flash_decode", (8, 12, 2, 128, 8192)): 24,
+    ("flash_decode", (64, 12, 2, 128, 8192)): 3,
+    ("paged_flash_decode", (32, 12, 2, 128, 128, 2)): 2,
+    ("paged_flash_decode", (8, 12, 2, 128, 128, 64)): 24,
+    ("paged_flash_decode", (64, 12, 2, 128, 128, 64)): 3}
+
+
+def _hold_core_pin(name, shape, dtype, n_split):
+    """Fail unless the float32 count at a pinned sweep shape is the pin."""
+    want = CORE_PINNED_SPLITS.get((name, tuple(shape)))
+    if dtype == "float32" and want is not None and n_split != want:
+        fail(f"{name} {shape} float32: the rule gives {n_split} splits, "
+             f"pinned {want}")
 
 
 # bfloat16 kernel output against the float32 plain version of the same
@@ -4911,8 +5039,7 @@ def families_kernel_phase(prompt_len):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention.ops import (
-        _decode_body, _num_splits, decode_attention,
-        decode_attention_ref)
+        _decode_body, decode_attention, decode_attention_ref)
     from repro_torch.kernels.flash_attention.ops import (
         _variant, flash_attention, flash_attention_ref)
     from repro_torch.kernels.paged_attention.ops import (
@@ -4951,7 +5078,14 @@ def families_kernel_phase(prompt_len):
                 fail(f"{name} {shape} {what} {dtype}: launched {ran}, "
                      f"expected {expect(dtype)}")
             if hasattr(wrapper, "launches_by_groups"):
-                # K3 / K2: the groups the rule gives this launch
+                # K3 / K2: the split count the wrapper chose, which in
+                # bfloat16 at the serve shapes must be the pinned one
+                rec[f"n_split_{dtype}"] = wrapper.last_n_split
+                if (dtype == "bfloat16" and what in PINNED_SPLITS
+                        and wrapper.last_n_split != PINNED_SPLITS[what]):
+                    fail(f"{name} {shape} {what}: {wrapper.last_n_split} "
+                         f"splits, pinned {PINNED_SPLITS[what]}")
+                # the groups the rule gives this launch
                 ng = _rule_groups(name, *args)[0]
                 if wrapper.launches_by_groups.get(ng, 0) != (
                         groups_before.get(ng, 0) + 1
@@ -4987,6 +5121,7 @@ def families_kernel_phase(prompt_len):
                 bound, by = _bound_ms(n_bytes, flops, dtype)
                 rec.update(
                     variant=rec["variant_bfloat16"],
+                    n_split=rec.get("n_split_bfloat16"),
                     ms=_time_ms(lambda: wrapper(*args[0], **args[1]), flush),
                     plain_ms=_time_ms(lambda: plain(*args[0], **args[1]),
                                       flush),
@@ -5002,16 +5137,17 @@ def families_kernel_phase(prompt_len):
                     rec["old_ms"] = _time_ms(lambda: old(args), flush)
                     del got_old
                 if sweep:
+                    # forced counts through the uncounted launcher, and
+                    # the wrapper's own
                     rec["split_sweep"] = {}
-                    try:
-                        for force in (1, 2, 3, 4, 6, 8, None):
-                            _num_splits.force = force
-                            t = _time_ms(lambda: wrapper(*args[0], **args[1]),
-                                         flush)
-                            rec["split_sweep"][str(force or "default")] = (
-                                dict(n_split=wrapper.last_n_split, ms=t))
-                    finally:
-                        _num_splits.force = None
+                    for force in (1, 2, 3, 4, 6, 8):
+                        n = _forced(name, args[0], args[1], force)[1]
+                        rec["split_sweep"][str(n)] = dict(
+                            n_split=n, ms=_time_ms(
+                                lambda n=n: _forced(name, args[0], args[1],
+                                                    n), flush))
+                    rec["split_sweep"]["default"] = dict(
+                        n_split=rec["n_split"], ms=rec["ms"])
             del args, got
             torch.cuda.synchronize()
         out[name][f"{what} {shape}"] = rec
@@ -5021,7 +5157,9 @@ def families_kernel_phase(prompt_len):
                  f"{rec['old_max_abs_err']:.2e})" if old is not None else "")
         if "head_groups_bfloat16" in rec:
             older += (f", head groups float32 {rec['head_groups_float32']} "
-                      f"bfloat16 {rec['head_groups_bfloat16']}")
+                      f"bfloat16 {rec['head_groups_bfloat16']}, n_split "
+                      f"float32 {rec['n_split_float32']} bfloat16 "
+                      f"{rec['n_split_bfloat16']}")
         if sweep:
             older += "; by n_split " + ", ".join(
                 f"{r['n_split']}{' (default)' if k == 'default' else ''} "
@@ -5393,7 +5531,7 @@ def _decode_bodies(what, arch, name, cfg, n, slots, batch=8):
     import torch
     from repro_torch.kernels import tuning
     from repro_torch.kernels.decode_attention.ops import (
-        _decode_body, _launch_groups, _sm_count)
+        _decode_body, _launch_groups, _resident, _sm_count)
     wrapper = _wrappers()[name]
     got = dict(wrapper.launches_by_variant)
     body = _decode_body(cfg.tdtype, cfg.hd, True)
@@ -5406,10 +5544,12 @@ def _decode_bodies(what, arch, name, cfg, n, slots, batch=8):
     knob = "decode_attention" if name == "flash_decode" else \
         "paged_attention"
     min_tiles = tuning.resolve(knob, "min_split_tiles", None)
+    dev = torch.device(DEV)
     ngs = sorted({_launch_groups(b, cfg.n_heads // cfg.n_kv_heads,
-                                 cfg.n_kv_heads, c, cfg.tdtype, cfg.hd,
-                                 _sm_count(torch.device(DEV)), min_tiles,
-                                 ran[0])[0]
+                                 cfg.n_kv_heads, cfg.hd, c, _sm_count(dev),
+                                 _resident(name, dev, cfg.tdtype, cfg.hd,
+                                           ran[0], True),
+                                 min_tiles, ran[0])[0]
                   for b in (1, batch)
                   for c in (1, slots, -(-slots // 128) * 128)}) \
         if len(ran) == 1 else []
@@ -5418,8 +5558,9 @@ def _decode_bodies(what, arch, name, cfg, n, slots, batch=8):
             or (len(ngs) == 1 and groups != {ngs[0]: n})):
         fail(f"{what}: {name} launches by head groups {groups}, expected "
              f"{n} in {ngs} (bodies {got})")
-    say(f"{what}: {name} launches by head groups {groups} "
-        f"(G {cfg.n_heads // cfg.n_kv_heads}, body {ran})")
+    say(f"{what}: {name} launches by head groups {groups}, by split count "
+        f"{dict(wrapper.launches_by_splits)} (G "
+        f"{cfg.n_heads // cfg.n_kv_heads}, body {ran})")
     return got
 
 
@@ -5585,6 +5726,15 @@ def family_serve_phase(arch, paged=False):
     bodies = _decode_bodies(what, arch, "flash_decode", cfg,
                             k3 * m["decode_steps"],
                             max(len(t.prompt_ids) for t in tasks) + 32)
+    if cfg.family == "encdec":
+        # the cross-attention launches, one a layer a step over the 1500
+        # frames, at the pinned split count
+        by_splits = dict(_wrappers()["flash_decode"].launches_by_splits)
+        pinned = PINNED_SPLITS["whisper-small cross"]
+        if by_splits.get(pinned, 0) < cfg.n_layers * m["decode_steps"]:
+            fail(f"{what}: K3 launches by split count {by_splits}, expected "
+                 f"at least {cfg.n_layers * m['decode_steps']} (the "
+                 f"cross-attention's) at the pinned {pinned}")
     out["static"] = dict(_timed(m, n_tok, dt), launches=counts,
                          k1_variant=variant, k3_by_body=bodies,
                          k3_by_groups=dict(
@@ -5855,6 +6005,9 @@ def main() -> None:
         max(len(t.prompt_ids) for t in MathTaskGenerator(seed=0).batch(8)),
         128)
     records["mlstm_scan"] = ssm_kernel_phase(160)
+    resident = resident_check()
+    for name in ("flash_decode", "paged_flash_decode"):
+        records[name]["resident"] = resident[name]
     for name, part in gqa_phase(prompt_len, 128).items():
         records[name]["gqa_groups"] = part
     flash_grad_phase()

@@ -39,7 +39,7 @@ from ..kernels.ssm_scan import ops as scan_ops
 BF16 = 2
 F32 = 4
 SMEM_PER_BLOCK = 227 * 1024      # Hopper's opt-in shared memory per block
-N_SM = decode_ops.N_SM           # the H100's SMs: the split rule's waves
+N_SM = decode_ops.N_SM           # the H100's SMs, which the split rule fills
 
 
 @dataclass(frozen=True)
@@ -241,14 +241,14 @@ class DecodeAttentionSpace(_SplitDecodeSpace):
     def n_split(self, shape, cfg):
         d = shape.d
         return decode_ops._launch_splits(
-            d["B"], d["H"], d["Hkv"], d["D"], d["C"], torch.bfloat16, N_SM,
-            cfg["min_split_tiles"])
+            d["B"], d["H"], d["Hkv"], d["D"], d["C"], N_SM,
+            decode_ops._h100_resident(d["D"]), cfg["min_split_tiles"])
 
     def _groups(self, shape, cfg):
         d = shape.d
         return decode_ops._launch_groups(
-            d["B"], d["H"] // d["Hkv"], d["Hkv"], d["C"], torch.bfloat16,
-            d["D"], N_SM, cfg["min_split_tiles"], "mma")
+            d["B"], d["H"] // d["Hkv"], d["Hkv"], d["D"], d["C"], N_SM,
+            decode_ops._h100_resident(d["D"]), cfg["min_split_tiles"], "mma")
 
     def _index_bytes(self, shape, cfg):
         d = shape.d
@@ -261,8 +261,8 @@ class PagedAttentionSpace(_SplitDecodeSpace):
     """K2 over a paged pool [P, page, Hkv, D] through block tables of
     ``ceil(C / page)`` pages, every row's length C.  The page size decides
     the table width, which decides the split count (``_paged_splits``
-    reads the table, never the lengths); the kernel walks 16-slot tiles
-    whatever the page."""
+    counts over the table's reach, no longest length given); the kernel
+    walks 16-slot tiles whatever the page."""
 
     def _maxp(self, shape, cfg):
         return _cdiv(shape.d["C"], cfg["page_size"])
@@ -270,16 +270,16 @@ class PagedAttentionSpace(_SplitDecodeSpace):
     def n_split(self, shape, cfg):
         d = shape.d
         return paged_ops._paged_splits(
-            d["B"], d["Hkv"], self._maxp(shape, cfg), cfg["page_size"], None,
-            torch.bfloat16, d["D"], N_SM, d["H"] // d["Hkv"],
-            cfg["min_split_tiles"])
+            d["B"], d["Hkv"], d["D"], self._maxp(shape, cfg),
+            cfg["page_size"], None, N_SM, decode_ops._h100_resident(d["D"]),
+            d["H"] // d["Hkv"], cfg["min_split_tiles"])
 
     def _groups(self, shape, cfg):
         d = shape.d
         return paged_ops._paged_groups(
-            d["B"], d["H"] // d["Hkv"], d["Hkv"], self._maxp(shape, cfg),
-            cfg["page_size"], None, torch.bfloat16, d["D"], N_SM,
-            cfg["min_split_tiles"], "mma")
+            d["B"], d["H"] // d["Hkv"], d["Hkv"], d["D"],
+            self._maxp(shape, cfg), cfg["page_size"], None, N_SM,
+            decode_ops._h100_resident(d["D"]), cfg["min_split_tiles"], "mma")
 
     def _index_bytes(self, shape, cfg):
         d = shape.d

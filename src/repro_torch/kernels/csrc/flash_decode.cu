@@ -102,6 +102,25 @@ extern "C" int flash_decode(const void* q, const void* k, const void* v,
   return sd::dispatch_dtype(rows, a, dtype);
 }
 
+// The blocks of the kernel flash_decode would launch for these arguments
+// (body, dtype, D, G in NG head groups; aligned: k and v 16-byte aligned
+// and q 4-byte aligned) that one SM of the device holds at once, written
+// to *blocks; nothing is launched.  ops._num_splits counts a launch's
+// blocks against them.  Refused as flash_decode would refuse the launch.
+extern "C" int flash_decode_resident(int G, int NG, int D, int dtype,
+                                     int body, int aligned, int device,
+                                     int* blocks) {
+  if (!blocks || G < 1 || NG < 1 || D < 1 || D > sd::kMaxD)
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  sd::Launch a{};
+  a.B = a.Hkv = a.n_split = 1;
+  a.G = G, a.NG = NG, a.D = D, a.body = body;
+  a.resident = blocks, a.aligned = aligned != 0;
+  return sd::dispatch_dtype(DenseRows{}, a, dtype);
+}
+
 extern "C" const char* flash_decode_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -32,8 +32,10 @@
 // K/V rows are read once for G <= 16), other cases on the CUDA cores
 // (groups of up to 8); both stream the pool with cp.async several tiles
 // deep and merge the splits in the same launch.  The host picks n_split
-// from B, Hkv, the head groups and the table width (never from the
-// lengths, which stay on the card).
+// (ops._num_splits) from B, Hkv, the head groups, the blocks an SM holds
+// (paged_flash_decode_resident) and the slots a row can reach: the table
+// width, or the longest length where the caller knows it on the host (the
+// lengths on the card are never read back).
 #include "split_decode.cuh"
 
 namespace {
@@ -108,6 +110,22 @@ extern "C" int paged_flash_decode(const void* q, const void* k_pages,
                      Hkv, G, NG, D, n_split, scale,
                      static_cast<cudaStream_t>(stream), nullptr, body};
   return sd::dispatch_dtype(rows, a, dtype);
+}
+
+// As flash_decode_resident (flash_decode.cu), for the kernel
+// paged_flash_decode would launch: the blocks of it one SM holds at once.
+extern "C" int paged_flash_decode_resident(int G, int NG, int D, int dtype,
+                                           int body, int aligned, int device,
+                                           int* blocks) {
+  if (!blocks || G < 1 || NG < 1 || D < 1 || D > sd::kMaxD)
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  sd::Launch a{};
+  a.B = a.Hkv = a.n_split = 1;
+  a.G = G, a.NG = NG, a.D = D, a.body = body;
+  a.resident = blocks, a.aligned = aligned != 0;
+  return sd::dispatch_dtype(PagedRows{}, a, dtype);
 }
 
 extern "C" const char* paged_flash_decode_error_string(int err) {

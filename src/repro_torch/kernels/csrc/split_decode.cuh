@@ -877,6 +877,11 @@ cudaError_t with_group(int G, F&& f) {
 // scores over the slots it attended (-1e30 where none), so that launches
 // over disjoint runs of one row's cache can be merged by the caller.
 // body: kBodyCore (decode_block) or kBodyMma (decode_block_mma).
+// resident, when not null, asks for no launch: the kernel the launch would
+// run is chosen as for a launch, and the blocks of it that one SM holds at
+// once (cudaOccupancyMaxActiveBlocksPerMultiprocessor, at its threads and
+// dynamic shared memory) are written there; aligned then stands for the
+// pointers (k and v 16-byte aligned, q 4-byte aligned).
 constexpr int kBodyCore = 0, kBodyMma = 1;
 
 struct Launch {
@@ -887,23 +892,37 @@ struct Launch {
   cudaStream_t stream;
   void* lse = nullptr;
   int body = kBodyCore;
+  int* resident = nullptr;
+  bool aligned = false;
 };
+
+// Launch kernel over the grid of a, or with a.resident only count the
+// blocks of it an SM holds.
+template <typename Kernel, typename... Args>
+cudaError_t launch_or_count(Kernel kernel, size_t smem, const Launch& a,
+                            Args... args) {
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  if (a.resident)
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(a.resident, kernel,
+                                                         kThreads, smem);
+  kernel<<<dim3(a.n_split, a.Hkv * a.NG, a.B), kThreads, smem, a.stream>>>(
+      args...);
+  return cudaGetLastError();
+}
 
 template <typename Rows, typename T, int VEC, int NC, bool WIDE = false>
 cudaError_t launch_core(const Rows& rows, const Launch& a, int W) {
   const int NG = a.NG, Gc = (a.G + NG - 1) / NG;
   const size_t smem = core_smem_bytes(sizeof(T), Gc, a.D, W);
   return with_group(Gc, [&](auto g) {
-    auto kernel = decode_kernel<Rows, T, decltype(g)::value, VEC, NC, WIDE>;
-    cudaError_t err = allow_smem(kernel, smem);
-    if (err != cudaSuccess) return err;
-    kernel<<<dim3(a.n_split, a.Hkv * NG, a.B), kThreads, smem, a.stream>>>(
+    return launch_or_count(
+        decode_kernel<Rows, T, decltype(g)::value, VEC, NC, WIDE>, smem, a,
         rows, static_cast<const T*>(a.q), static_cast<const T*>(a.k),
         static_cast<const T*>(a.v), static_cast<T*>(a.o),
         static_cast<float*>(a.lse), static_cast<float*>(a.part_acc),
         static_cast<float*>(a.part_ml),
         static_cast<int*>(a.counters), a.G, NG, a.D, W, a.scale * kLog2e);
-    return cudaGetLastError();
   });
 }
 
@@ -915,15 +934,12 @@ cudaError_t launch_mma(const Rows& rows, const Launch& a) {
   // rows 8..15 of the m16 tile only for a group of more than 8 heads
   auto kernel = Gc > 8 ? decode_mma_kernel<Rows, D, true>
                        : decode_mma_kernel<Rows, D, false>;
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3(a.n_split, a.Hkv * NG, a.B), kThreads, smem, a.stream>>>(
-      rows, static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), static_cast<bf16*>(a.o),
-      static_cast<float*>(a.lse), static_cast<float*>(a.part_acc),
-      static_cast<float*>(a.part_ml),
+  return launch_or_count(
+      kernel, smem, a, rows, static_cast<const bf16*>(a.q),
+      static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
+      static_cast<bf16*>(a.o), static_cast<float*>(a.lse),
+      static_cast<float*>(a.part_acc), static_cast<float*>(a.part_ml),
       static_cast<int*>(a.counters), a.G, NG, Gc, a.scale * kLog2e);
-  return cudaGetLastError();
 }
 
 // Whether NG groups of G heads are a partition the body serves: Gc =
@@ -947,12 +963,15 @@ template <typename T, typename Rows>
 cudaError_t dispatch(const Rows& rows, const Launch& a) {
   constexpr int kVec = 16 / sizeof(T);
   const int D = a.D;
-  const bool aligned = reinterpret_cast<uintptr_t>(a.k) % 16 == 0 &&
-                       reinterpret_cast<uintptr_t>(a.v) % 16 == 0;
+  const bool aligned = a.resident ? a.aligned
+                       : reinterpret_cast<uintptr_t>(a.k) % 16 == 0 &&
+                         reinterpret_cast<uintptr_t>(a.v) % 16 == 0;
+  const bool q_aligned =
+      a.resident ? a.aligned : reinterpret_cast<uintptr_t>(a.q) % 4 == 0;
   if (!groups_served(a.G, a.NG, a.body)) return cudaErrorInvalidValue;
   if (a.body == kBodyMma) {
     if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-      if (aligned && reinterpret_cast<uintptr_t>(a.q) % 4 == 0) {
+      if (aligned && q_aligned) {
         if (D == 64) return launch_mma<Rows, 64>(rows, a);
         if (D == 80) return launch_mma<Rows, 80>(rows, a);
         if (D == 128) return launch_mma<Rows, 128>(rows, a);

@@ -3,9 +3,11 @@
 Replaces the Pallas TPU kernel ``repro/kernels/decode_attention/kernel.py
 ::flash_decode``.  The CUDA source is ``kernels/csrc/flash_decode.cu``; its
 header says what bounds it on the H100 (HBM: cache bytes / 3.35 TB/s) and
-what the design does about that: the cache is split across
-``_num_splits(B, Hkv, C)`` blocks per (row, KV head), whose fp32 partials
-merge in the same launch (``csrc/split_decode.cuh``).
+what the design does about that: the cache is split across ``_num_splits``
+blocks per (row, KV head), whose fp32 partials merge in the same launch
+(``csrc/split_decode.cuh``).  The count comes from one rule for K3 and K2,
+fed by the card's SMs and the blocks of the body launched that an SM
+holds (``_resident``, the occupancy query of the C entry).
 
 ``decode_attention`` takes ``[B, H, D]`` and returns ``[B, H, D]`` as the
 JAX entry point does.  On a CPU tensor it runs ``decode_attention_ref``; on
@@ -61,6 +63,30 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 GROUP_LIMIT = {"core": 8, "mma": 16}
 TILE = 16              # cache slots per tile (split_decode.cuh kTile)
 MIN_SPLIT_TILES = 8    # tiles a split holds at least, by default
+# splits a (row, KV head, head group) takes at most, by body; past
+# EVERY_COUNT only multiples of MERGE_UNROLL (whole rounds of the merge)
+MAX_SPLITS = {"mma": 16, "core": 64}
+EVERY_COUNT = 16
+WARPS, THREADS = 4, 128     # a block of split_decode.cuh (kWarps, kThreads)
+# the split rule's cost model (_num_splits), fit to sweeps of every split
+# count on the H100 (PERF.md; the tensor-core body in bf16, the CUDA-core
+# body in float32), in a tile step: the time a walker (WALKERS) takes for
+# one tile.  By body: the tiles a block walks at once (each warp of the
+# tensor-core body its own, every WARPS-th tile of the split; the
+# CUDA-core body's row groups each tile together); the share of the
+# blocks an SM holds that streams at full rate (1: the CUDA-core body
+# never streams faster than its blocks walk); a block's own cost (its
+# prologue and finish); and a merge's cost per round of dependent reads
+# of the partials (the split loop unrolled MERGE_UNROLL deep), beside a
+# fixed MERGE_STEPS.  A 16-row block's second softmax row a lane costs a
+# tile as much as WIDE_DIMS more head dims would.
+WALKERS = {"mma": WARPS, "core": 1}
+STREAM_SHARE = {"mma": 0.4, "core": 1.0}
+BLOCK_STEPS = {"mma": 0.0, "core": 4.0}
+MERGE_READ_STEPS = {"mma": 0.5, "core": 0.2}
+MERGE_STEPS = 4.0
+MERGE_UNROLL = 4
+WIDE_DIMS = 32
 LONG_TILES = 64        # tiles a SM walks from which one head group of 16
                        # pays on the tensor cores (_head_groups)
 N_SM = 132             # the H100's SMs
@@ -89,30 +115,67 @@ __all__ = ["decode_attention", "decode_attention_ref", "decode_scores",
            "decode_scores_ref", "decode_softmax_pv", "decode_softmax_pv_ref"]
 
 
-def _num_splits(B: int, Hkv: int, C: int, n_sm: int = N_SM,
-                waves: float = 2.0, force: Optional[int] = None,
-                min_tiles: int = MIN_SPLIT_TILES, tile: int = TILE,
-                round_down: bool = False) -> int:
-    """Blocks per (row, KV head): enough for ``waves`` waves over ``n_sm``
-    SMs (``B * Hkv * n >= waves * n_sm``) where the row has the tiles, with
-    every split at least ``min_tiles`` tiles of ``tile`` slots long (each
-    split pays a merge of its fp32 partial), and 1 when C fits one tile.
-    ``round_down`` takes the whole waves that fit instead (``B * Hkv * n
-    <= waves * n_sm``), for a body where a partial wave costs a whole one.
-    ``force`` (tests and chip_smoke only) asks for a given count, capped at
-    the tiles."""
+def _num_splits(B: int, Hkv: int, tiles: int, n_sm: int, resident: int,
+                min_tiles: int, rows: int, D: int, body: str = "mma") -> int:
+    """Blocks per (row, KV head), K3's and K2's split rule: a pure function
+    of the launch's ``B * Hkv`` (row, KV head or head group) pairs, the
+    ``tiles`` of TILE slots a row walks, the card's ``n_sm`` SMs, the
+    blocks of the body launched that an SM holds at once (``resident``,
+    ``_resident`` on the card), the least tiles of a split, the heads a
+    block serves (``rows``), D and the block ``body``.
+
+    It takes the count of least modelled cost, in tile steps: a split of
+    ``ceil(tiles / n)`` tiles costs a block that many over the tiles it
+    walks at once (``WALKERS[body]``), plus its own cost
+    (``BLOCK_STEPS[body]``), once per wave of ``resident`` blocks an SM
+    (the grid beyond them waits); but the SMs stream no faster than
+    ``STREAM_SHARE[body]`` of the blocks they hold, each walking its tiles
+    at full rate (a block of more than 8 heads doing a tile's work of D +
+    WIDE_DIMS head dims), so the launch costs at least its tiles over
+    that; and a split pays its merge, MERGE_STEPS, plus
+    ``MERGE_READ_STEPS[body]`` for each round of the last block's reads of
+    the partials: ``n // MERGE_UNROLL + n % MERGE_UNROLL`` rounds (the
+    split loop unrolled MERGE_UNROLL deep) for each of the ``ceil(rows *
+    D / THREADS)`` elements a thread merges.  The constants come from
+    sweeps of every split count on the H100 (``tools/decode_groups_ab.py
+    --splits``, PERF.md).  At most ``MAX_SPLITS[body]`` splits (past
+    EVERY_COUNT a multiple of MERGE_UNROLL), and every split at least
+    ``min_tiles`` tiles."""
     if min_tiles < 1:
         raise ValueError(f"min_tiles = {min_tiles}: a split walks at least "
                          "one tile")
+    if resident < 1:
+        raise ValueError(f"resident = {resident}: an SM holds no block")
+    pairs = B * Hkv
+    work = 1.0 + WIDE_DIMS / D if rows > GROUP_LIMIT["core"] else 1.0
+    walkers = WALKERS[body]
+    stream = pairs * tiles * work / (walkers * STREAM_SHARE[body] * resident
+                                     * n_sm)
+    merged = -(-rows * D // THREADS)
+    best, best_n = None, 1
+    for n in range(1, max(1, min(tiles // min_tiles, MAX_SPLITS[body])) + 1):
+        if n > EVERY_COUNT and n % MERGE_UNROLL:
+            continue
+        steps = -(-(-(-tiles // n)) // walkers)
+        waves = -(-pairs * n // (resident * n_sm))
+        cost = max((steps + BLOCK_STEPS[body]) * waves, stream)
+        if n > 1:
+            rounds = n // MERGE_UNROLL + n % MERGE_UNROLL
+            cost += MERGE_STEPS + MERGE_READ_STEPS[body] * merged * rounds
+        if best is None or cost < best:
+            best, best_n = cost, n
+    return best_n
+
+
+def _wave_splits(B: int, units: int, C: int, n_sm: int, waves: float,
+                 min_tiles: int, tile: int) -> int:
+    """Splits of ``decode_softmax_pv`` (the second pass of a head-dim
+    split): the whole waves of ``waves`` blocks an SM that fit
+    (``B * units * n <= waves * n_sm``), every split at least
+    ``min_tiles`` tiles of ``tile`` slots long."""
     tiles = -(-C // tile)
-    if force is not None:
-        return max(1, min(int(force), tiles))
-    want = (math.floor if round_down else math.ceil)(
-        waves * n_sm / (B * Hkv))
+    want = math.floor(waves * n_sm / (B * units))
     return max(1, min(want, tiles // min_tiles))
-
-
-_num_splits.force = None   # an override for every launch (tests, smoke)
 
 
 def _decode_body(dtype: torch.dtype, D: int, aligned: bool) -> str:
@@ -129,15 +192,6 @@ def _decode_body(dtype: torch.dtype, D: int, aligned: bool) -> str:
 def _aligned(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
     return (k.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0
             and q.data_ptr() % 4 == 0)
-
-
-def _waves(dtype: torch.dtype, D: int) -> float:
-    """The waves ``_num_splits`` aims for with the body that serves
-    ``dtype`` at ``D`` on aligned tensors: the tensor-core body (bf16, D =
-    64, 80 or 128) keeps 4 warps x 2 tiles in flight per block and fills
-    HBM at half a wave; the CUDA-core body needs two (measured: PERF.md
-    §6)."""
-    return 0.5 if _decode_body(dtype, D, True) == "mma" else 2.0
 
 
 def _cut(G: int, ng: int):
@@ -173,15 +227,84 @@ def _head_groups(G: int, body: str, blocks: Optional[int] = None,
     return _cut(G, -(-G // limit))
 
 
-def _launch_groups(B: int, G: int, Hkv: int, C: int, dtype: torch.dtype,
-                   D: int, n_sm: int, min_tiles: int, body: str):
+def _launch_groups(B: int, G: int, Hkv: int, D: int, C: int, n_sm: int,
+                   resident, min_tiles: int, body: str):
     """The head groups ``_head_groups`` gives a launch on ``body`` over C
     slots, from its grid at one group (``_num_splits`` over the (row, KV
-    head) pairs with the body's waves) and the tiles its rows walk."""
-    one = _num_splits(B, Hkv, C, n_sm, waves=_waves(dtype, D),
-                      force=_num_splits.force, min_tiles=min_tiles)
-    return _head_groups(G, body, B * Hkv * one, n_sm,
-                        B * Hkv * -(-C // TILE))
+    head) pairs, with the blocks an SM holds of the body's widest group,
+    ``resident(Gc)``) and the tiles its rows walk."""
+    tiles = -(-C // TILE)
+    widest = _head_groups(G, body)[1]
+    one = _num_splits(B, Hkv, tiles, n_sm, resident(widest), min_tiles,
+                      widest, D, body)
+    return _head_groups(G, body, B * Hkv * one, n_sm, B * Hkv * tiles)
+
+
+def _launch_splits(B: int, H: int, Hkv: int, D: int, C: int, n_sm: int,
+                   resident, min_split_tiles: Optional[int] = None,
+                   body: str = "mma", groups=None) -> int:
+    """The split count ``decode_attention`` launches with over C slots:
+    ``_num_splits`` over the head groups ``groups`` (by default
+    ``_launch_groups``'s for ``body``), the blocks an SM holds of the body
+    at those groups (``resident(Gc)``) and the resolved
+    ``min_split_tiles`` knob."""
+    min_tiles = tuning.resolve("decode_attention", "min_split_tiles",
+                               min_split_tiles)
+    if groups is None:
+        groups = _launch_groups(B, H // Hkv, Hkv, D, C, n_sm, resident,
+                                min_tiles, body)
+    return _num_splits(B, Hkv * groups[0], -(-C // TILE), n_sm,
+                       resident(groups[1]), min_tiles, groups[1], D,
+                       body)
+
+
+# the blocks an SM of the H100 holds of the tensor-core body by D, in a
+# group of 8 rows or of 16 alike: what flash_decode_resident and
+# paged_flash_decode_resident return there (chip_smoke.py checks them);
+# the CPU models of the card (autotune.space) count with them
+H100_RESIDENT = {64: 4, 80: 3, 128: 2}
+
+
+def _h100_resident(D: int):
+    """``resident(Gc)`` of the tensor-core body at D on the H100, from
+    H100_RESIDENT, for the models that count a launch off the card."""
+    return lambda gc: H100_RESIDENT[D]
+
+
+_RESIDENT: Dict[tuple, int] = {}   # per (entry, device, instantiation)
+
+
+def _resident(entry: str, device: torch.device, dtype: torch.dtype,
+              D: int, body: str, aligned: bool):
+    """``resident(Gc)``: the blocks an SM of ``device`` holds at once of
+    the kernel that the C entry ``entry`` (``"flash_decode"`` or
+    ``"paged_flash_decode"``) launches for ``dtype``, D, ``body``, the
+    pointers' alignment and a head group of Gc heads, as the card's
+    occupancy query gives it (``<entry>_resident``), cached per device and
+    instantiation.  A failed query raises."""
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+
+    def blocks(gc: int) -> int:
+        key = (entry, index, dtype, D, body, bool(aligned), gc)
+        n = _RESIDENT.get(key)
+        if n is None:
+            lib = _build.load(entry)
+            fn = getattr(lib, f"{entry}_resident")
+            if fn.argtypes is None:
+                fn.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
+                fn.restype = ctypes.c_int
+            out = ctypes.c_int(0)
+            _build.check(lib, entry, fn(gc, 1, D, _DTYPES[dtype],
+                                        BODIES[body], int(bool(aligned)),
+                                        index, ctypes.addressof(out)))
+            if out.value < 1:
+                raise RuntimeError(f"{entry}_resident: {out.value} blocks "
+                                   f"an SM for {dtype} D={D} {body} "
+                                   f"Gc={gc}")
+            n = _RESIDENT[key] = out.value
+        return n
+    return blocks
 
 
 # per device: the merge tickets, one int32 per (row, KV head, head group),
@@ -292,13 +415,16 @@ def decode_attention(
                              f"{MAX_D}")
         return decode_softmax_pv(decode_scores(q, k, scale=scale), v, q_pos,
                                  k_pos, window=window)
-    body = _decode_body(q.dtype, D, _aligned(q, k, v))
+    aligned = _aligned(q, k, v)
+    body = _decode_body(q.dtype, D, aligned)
     n_sm = _sm_count(q.device)
+    resident = _resident("flash_decode", q.device, q.dtype, D, body,
+                         aligned)
     min_tiles = tuning.resolve("decode_attention", "min_split_tiles",
                                min_split_tiles)
-    groups = _launch_groups(B, H // Hkv, Hkv, C, q.dtype, D, n_sm,
+    groups = _launch_groups(B, H // Hkv, Hkv, D, C, n_sm, resident,
                             min_tiles, body)
-    n_split = _launch_splits(B, H, Hkv, D, C, q.dtype, n_sm, min_tiles,
+    n_split = _launch_splits(B, H, Hkv, D, C, n_sm, resident, min_tiles,
                              body, groups)
     o, lse, groups = _launch(q, k, v, q_pos, k_pos, window, scale, n_split,
                              body, groups[0], return_lse)
@@ -308,12 +434,15 @@ def decode_attention(
 
 def _count(wrapper, body: str, groups, n_split: int) -> None:
     """Count one launch of K3's or K2's ``wrapper`` on ``body`` in the
-    head groups ``(NG, Gc)`` its C entry was given: in all, by body and by
-    NG; leave its split count and groups on it."""
+    head groups ``(NG, Gc)`` its C entry was given with ``n_split``
+    splits: in all, by body, by NG and by split count; leave its split
+    count and groups on it."""
     ng = groups[0]
     wrapper.launches += 1
     wrapper.launches_by_variant[body] += 1
     wrapper.launches_by_groups[ng] = wrapper.launches_by_groups.get(ng, 0) + 1
+    wrapper.launches_by_splits[n_split] = (
+        wrapper.launches_by_splits.get(n_split, 0) + 1)
     wrapper.last_n_split = n_split
     wrapper.last_groups = tuple(groups)
 
@@ -347,29 +476,10 @@ def _launch(q, k, v, q_pos, k_pos, window, scale, n_split, body, ng,
     return o, lse, groups
 
 
-def _launch_splits(B: int, H: int, Hkv: int, D: int, C: int,
-                   dtype: torch.dtype, n_sm: int,
-                   min_split_tiles: Optional[int] = None,
-                   body: Optional[str] = None, groups=None) -> int:
-    """The split count ``decode_attention`` launches with: ``_num_splits``
-    over the head groups ``groups`` (by default ``_launch_groups``'s for
-    ``body``, itself by default the one ``_decode_body`` names for
-    ``dtype`` and ``D`` on aligned tensors), the waves and the resolved
-    ``min_split_tiles`` knob."""
-    min_tiles = tuning.resolve("decode_attention", "min_split_tiles",
-                               min_split_tiles)
-    body = body or _decode_body(dtype, D, True)
-    if groups is None:
-        groups = _launch_groups(B, H // Hkv, Hkv, C, dtype, D, n_sm,
-                                min_tiles, body)
-    return _num_splits(B, Hkv * groups[0], C, n_sm,
-                       waves=_waves(dtype, D), force=_num_splits.force,
-                       min_tiles=min_tiles)
-
-
 decode_attention.launches = 0
 decode_attention.launches_by_variant = {"mma": 0, "core": 0}
 decode_attention.launches_by_groups = {}     # head groups NG -> launches
+decode_attention.launches_by_splits = {}     # n_split -> launches
 decode_attention.last_n_split = None
 decode_attention.last_groups = None          # (NG, Gc) of the last launch
 
@@ -413,7 +523,7 @@ def _pv_geometry(B: int, C: int, H: int, Hkv: int, Dl: int, es: int,
     row; each of its PV_WARPS warps walks its own tiles of ``tile`` slots
     (32 where a stage of them holds at most RING_PV_STAGE bytes, else 16)
     through its own ring of PV_STAGES stages; ``smem`` bytes a block;
-    ``blocks_per_sm`` the blocks an SM holds (the waves ``_num_splits``
+    ``blocks_per_sm`` the blocks an SM holds (the waves ``_wave_splits``
     fills).  None where no ring fits."""
     G = H // Hkv
     gy = Hkv * -(-G // UNIT_ROWS) * -(-Dl // UNIT_DIMS)
@@ -610,9 +720,11 @@ def decode_softmax_pv(
 
 def _launch_softmax_pv(s: torch.Tensor, v: torch.Tensor,
                        q_pos: torch.Tensor, k_pos: torch.Tensor,
-                       window: Optional[int], variant: str):
+                       window: Optional[int], variant: str,
+                       n_split: Optional[int] = None):
     """Pass 2's ``variant`` body on CUDA tensors that ``decode_softmax_pv``
-    has checked; returns ``(o, n_split)``, not counted."""
+    has checked, with ``n_split`` splits (None: the body's own count);
+    returns ``(o, n_split)``, not counted."""
     B, H, C = s.shape
     _, _, Hkv, Dl = v.shape
     G = H // Hkv
@@ -625,11 +737,10 @@ def _launch_softmax_pv(s: torch.Tensor, v: torch.Tensor,
     o = torch.empty((B, H, Dl), dtype=v.dtype, device=v.device)
     if variant == "ring":
         # whole waves of the blocks an SM holds, >= 2 tiles a warp
-        n_split = _num_splits(B, geo["gy"], C, n_sm,
-                              waves=geo["blocks_per_sm"],
-                              force=_num_splits.force,
-                              min_tiles=MIN_RING_TILES, tile=geo["tile"],
-                              round_down=True)
+        if n_split is None:
+            n_split = _wave_splits(B, geo["gy"], C, n_sm,
+                                   geo["blocks_per_sm"], MIN_RING_TILES,
+                                   geo["tile"])
         scratch = _ring_scratch(B, geo["gy"], n_split, v.device)
     else:
         ND = -(-Dl // PV_CHUNK)     # chunks of dims, a block each
@@ -637,10 +748,9 @@ def _launch_softmax_pv(s: torch.Tensor, v: torch.Tensor,
         # (PV_WAVES) to keep HBM busy; about 4 fit an SM at once, so the
         # count is rounded down to whole waves
         groups = _head_groups(G, "core")    # the CUDA-core body's
-        n_split = _num_splits(B, Hkv * ND * groups[0], C, n_sm,
-                              waves=PV_WAVES, force=_num_splits.force,
-                              min_tiles=MIN_PV_TILES, tile=PV_TILE,
-                              round_down=True)
+        if n_split is None:
+            n_split = _wave_splits(B, Hkv * ND * groups[0], C, n_sm,
+                                   PV_WAVES, MIN_PV_TILES, PV_TILE)
         scratch = _split_scratch(B, Hkv * ND, groups, PV_CHUNK, n_split,
                                  v.device)
     head = (s.data_ptr(), v.data_ptr(), q_pos.data_ptr(), k_pos.data_ptr(),

@@ -7,7 +7,8 @@ the H100 (HBM: the attended slots' K/V bytes / 3.35 TB/s) and what the
 design does about that: the split-cache kernels of K3
 (``csrc/split_decode.cuh``) over the paged layout, each row's reachable
 slots cut into ``_paged_splits`` runs whose fp32 partials merge in the
-same launch.
+same launch; the count is K3's rule over the slots a row can reach, or
+over the longest length where the caller gives it (``max_len``).
 
 ``paged_decode_attention`` takes ``[B, H, D]`` and returns ``[B, H, D]`` as
 the JAX entry point does.  On a CPU tensor it runs
@@ -34,10 +35,10 @@ from typing import Optional
 import torch
 
 from .. import _build, tuning
-from ..decode_attention.ops import (BODIES, _aligned, _count, _cut,
+from ..decode_attention.ops import (BODIES, TILE, _aligned, _count, _cut,
                                     _decode_body, _launch_groups,
-                                    _num_splits, _sm_count, _split_scratch,
-                                    _waves)
+                                    _num_splits, _resident, _sm_count,
+                                    _split_scratch)
 from .ref import paged_decode_attention_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -46,28 +47,26 @@ MAX_D = 256
 __all__ = ["paged_decode_attention", "paged_decode_attention_ref"]
 
 
-def _paged_splits(B: int, Hkv: int, maxp: int, page: int,
-                  window: Optional[int], dtype: torch.dtype, D: int,
-                  n_sm: int, G: int = 1,
-                  min_split_tiles: Optional[int] = None,
-                  body: Optional[str] = None, groups=None) -> int:
+def _paged_splits(B: int, Hkv: int, D: int, maxp: int, page: int,
+                  window: Optional[int], n_sm: int, resident, G: int = 1,
+                  min_split_tiles: Optional[int] = None, body: str = "mma",
+                  groups=None, max_len: Optional[int] = None) -> int:
     """Blocks per (row, KV head, head group): ``decode_attention.ops
-    ._num_splits`` over the most slots a row can reach (``_reach``), never
-    over the lengths, which stay on the card; the head groups ``groups``
-    (by default ``_paged_groups``'s, on ``body``, itself by default the
-    body ``_decode_body`` names for ``dtype`` and ``D`` on aligned
-    tensors) count as more KV heads.  ``_num_splits.force`` applies here
-    too; ``min_split_tiles=None`` resolves through ``kernels.tuning``."""
+    ._num_splits`` over the slots a row walks at most (``_span``: the
+    table's reach, or less where the host's longest length ``max_len``
+    says so), the blocks an SM holds of ``body`` (``resident(Gc)``); the
+    head groups ``groups`` (by default ``_paged_groups``'s) count as more
+    KV heads.  ``min_split_tiles=None`` resolves through
+    ``kernels.tuning``."""
     min_tiles = tuning.resolve("paged_attention", "min_split_tiles",
                                min_split_tiles)
-    body = body or _decode_body(dtype, D, True)
-    reach = _reach(maxp, page, window)
+    span = _span(maxp, page, window, max_len)
     if groups is None:
-        groups = _launch_groups(B, G, Hkv, reach, dtype, D, n_sm, min_tiles,
-                                body)
-    return _num_splits(B, Hkv * groups[0], reach, n_sm,
-                       waves=_waves(dtype, D), force=_num_splits.force,
-                       min_tiles=min_tiles)
+        groups = _launch_groups(B, G, Hkv, D, span, n_sm, resident,
+                                min_tiles, body)
+    return _num_splits(B, Hkv * groups[0], -(-span // TILE), n_sm,
+                       resident(groups[1]), min_tiles, groups[1], D,
+                       body)
 
 
 def _reach(maxp: int, page: int, window: Optional[int]) -> int:
@@ -77,17 +76,29 @@ def _reach(maxp: int, page: int, window: Optional[int]) -> int:
     return max(1, reach)
 
 
-def _paged_groups(B: int, G: int, Hkv: int, maxp: int, page: int,
-                  window: Optional[int], dtype: torch.dtype, D: int,
-                  n_sm: int, min_split_tiles: Optional[int] = None,
-                  body: Optional[str] = None):
+def _span(maxp: int, page: int, window: Optional[int],
+          max_len: Optional[int] = None) -> int:
+    """The slots the split rule counts a row over: ``_reach``, cut to the
+    host's longest length ``max_len`` rounded up to a page where given
+    (so the count moves only when the longest row crosses a page).  The
+    kernel cuts each row's own run whatever the count, so a ``max_len``
+    below a row's length changes the count, never the result."""
+    reach = _reach(maxp, page, window)
+    if max_len is None:
+        return reach
+    return max(1, min(reach, -(-int(max_len) // page) * page))
+
+
+def _paged_groups(B: int, G: int, Hkv: int, D: int, maxp: int, page: int,
+                  window: Optional[int], n_sm: int, resident,
+                  min_split_tiles: Optional[int] = None, body: str = "mma",
+                  max_len: Optional[int] = None):
     """The head groups of a launch on ``body``: ``_launch_groups`` over the
-    slots a row can reach."""
+    slots the split rule counts (``_span``)."""
     min_tiles = tuning.resolve("paged_attention", "min_split_tiles",
                                min_split_tiles)
-    return _launch_groups(B, G, Hkv, _reach(maxp, page, window), dtype, D,
-                          n_sm, min_tiles, body or _decode_body(dtype, D,
-                                                                True))
+    return _launch_groups(B, G, Hkv, D, _span(maxp, page, window, max_len),
+                          n_sm, resident, min_tiles, body)
 
 
 def _lib() -> ctypes.CDLL:
@@ -111,11 +122,17 @@ def paged_decode_attention(
     window: Optional[int] = None,
     scale: Optional[float] = None,
     min_split_tiles: Optional[int] = None,
+    max_len: Optional[int] = None,
 ) -> torch.Tensor:
     """One decode token over a paged KV cache.  Returns [B, H, D].
 
-    ``min_split_tiles=None`` resolves through ``kernels.tuning``; the
-    launch's split count is left in ``paged_decode_attention.last_n_split``."""
+    ``max_len``, a host integer, is the longest of ``lengths`` as the
+    caller knows it without reading the card: the split count runs over
+    it rounded up to a page (``_span``) instead of the table's width.  It
+    moves only the count: the kernel cuts each row's own run, so any
+    ``max_len`` gives the same output.  ``min_split_tiles=None`` resolves
+    through ``kernels.tuning``; the launch's split count is left in
+    ``paged_decode_attention.last_n_split``."""
     B, H, D = q.shape
     P, page, Hkv, _ = k_pages.shape
     # scale from the TRUE head dim
@@ -155,12 +172,17 @@ def paged_decode_attention(
     if not all(t.is_contiguous()
                for t in (q, k_pages, v_pages, block_tables, lengths)):
         raise ValueError("paged_decode_attention: inputs must be contiguous")
-    body = _decode_body(q.dtype, D, _aligned(q, k_pages, v_pages))
+    if max_len is not None and int(max_len) < 1:
+        raise ValueError(f"paged_decode_attention: max_len = {max_len}")
+    aligned = _aligned(q, k_pages, v_pages)
+    body = _decode_body(q.dtype, D, aligned)
     n_sm = _sm_count(q.device)
-    groups = _paged_groups(B, H // Hkv, Hkv, maxp, page, window, q.dtype, D,
-                           n_sm, min_split_tiles, body)
-    n_split = _paged_splits(B, Hkv, maxp, page, window, q.dtype, D, n_sm,
-                            H // Hkv, min_split_tiles, body, groups)
+    resident = _resident("paged_flash_decode", q.device, q.dtype, D, body,
+                         aligned)
+    groups = _paged_groups(B, H // Hkv, Hkv, D, maxp, page, window, n_sm,
+                           resident, min_split_tiles, body, max_len)
+    n_split = _paged_splits(B, Hkv, D, maxp, page, window, n_sm, resident,
+                            H // Hkv, min_split_tiles, body, groups, max_len)
     o, groups = _launch(q, k_pages, v_pages, block_tables, lengths, window,
                         scale, n_split, body, groups[0])
     _count(paged_decode_attention, body, groups, n_split)
@@ -196,5 +218,6 @@ def _launch(q, k_pages, v_pages, block_tables, lengths, window, scale,
 paged_decode_attention.launches = 0
 paged_decode_attention.launches_by_variant = {"mma": 0, "core": 0}
 paged_decode_attention.launches_by_groups = {}   # head groups -> launches
+paged_decode_attention.launches_by_splits = {}   # n_split -> launches
 paged_decode_attention.last_n_split = None
 paged_decode_attention.last_groups = None   # (NG, Gc) of the last launch

@@ -756,9 +756,12 @@ class PagedEngine:
             self.kv.dirty = False
             self.stats.bt_uploads += 1
         token, pos, active = torch.from_numpy(host).to(self.device)
+        # the longest row (positions + 1), known here: K2's split count
+        # runs over it instead of the table's width
         logits, self.kv.k_pages, self.kv.v_pages = paged_decode_step(
             self._params, self.cfg, self.kv.k_pages, self.kv.v_pages,
-            self._bt_dev, token, pos, active)
+            self._bt_dev, token, pos, active,
+            max_len=int(host[1].max()) + 1)
         if all(self._default_params(self._active[s]) for s in slots):
             arr_toks, arr_logps = self._sample(logits)
             toks = {s: int(arr_toks[s]) for s in slots}

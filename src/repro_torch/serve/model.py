@@ -25,7 +25,7 @@ as the reference's does; the pools are updated in place and returned.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -62,10 +62,16 @@ def _gather_attention(q: Tensor, kp: Tensor, vp: Tensor, table: Tensor,
 
 def paged_decode_step(params: Params, cfg: ModelConfig, k_pages: Tensor,
                       v_pages: Tensor, block_tables: Tensor, token: Tensor,
-                      pos: Tensor, active: Tensor
+                      pos: Tensor, active: Tensor,
+                      max_len: Optional[int] = None
                       ) -> Tuple[Tensor, Tensor, Tensor]:
     """One decode token for every slot: token [S], pos [S], active [S]
     (int32) -> (logits [S, padded_vocab], k_pages, v_pages).
+
+    ``max_len``, a host integer (the engine's largest ``pos`` + 1), is
+    handed to every layer's ``paged_decode_attention``, whose split count
+    then runs over the longest row instead of the table's width; it never
+    changes the result.
 
     ``block_tables`` is the FULL int32 device table (the engine keeps a
     cached copy and re-uploads it only when the allocator dirtied it);
@@ -90,7 +96,8 @@ def paged_decode_step(params: Params, cfg: ModelConfig, k_pages: Tensor,
         kp.index_put_((page_of, off), k[:, 0].to(kp.dtype))
         vp.index_put_((page_of, off), v[:, 0].to(vp.dtype))
         o = paged_decode_attention(q[:, 0], kp, vp, tables, lengths,
-                                   window=cfg.attn_window)[:, None]
+                                   window=cfg.attn_window,
+                                   max_len=max_len)[:, None]
         h = h + blocks.out_project(o, lp["attn"])
         h = _ffn_block(h, lp, cfg)
     logits = unembed(params, cfg, h[:, 0])

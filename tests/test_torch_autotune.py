@@ -367,36 +367,31 @@ SPLIT_SHAPES = [(B, H, Hkv, D, C)
                     (64, 80, 128), (1, 33, 161, 2048, 8192))]
 
 
-def _parent_splits(B, Hkv, C, n_sm, waves):
-    """The split rule as it stood before the knob: 8 tiles at least."""
-    tiles = -(-C // 16)
-    return max(1, min(math.ceil(waves * n_sm / (B * Hkv)), tiles // 8))
+def _resident(body, D):
+    """Blocks an SM holds: the H100's table for the tensor-core body, a
+    number for the CUDA-core one."""
+    return decode_ops._h100_resident(D) if body == "mma" else (lambda gc: 3)
 
 
 def test_empty_table_launches_as_before(clean_tuning):
+    """With no tuned table the wrappers' split counts are the builtin
+    rule's at its default knob (8 tiles a split at least)."""
     with tuning.override_device_type("H100"):
         for B, H, Hkv, D, C in SPLIT_SHAPES:
             for dtype in (torch.float32, torch.bfloat16):
-                # the head groups of the body the wrappers launch, from
-                # the grid of the launch at one group
                 body = decode_ops._decode_body(dtype, D, True)
-                waves = decode_ops._waves(dtype, D)
-
-                def groups(slots):
-                    one = _parent_splits(B, Hkv, slots, 132, waves)
-                    return decode_ops._head_groups(
-                        H // Hkv, body, B * Hkv * one, 132,
-                        B * Hkv * -(-slots // 16))[0]
-                want = _parent_splits(B, Hkv * groups(C), C, 132, waves)
-                assert decode_ops._launch_splits(B, H, Hkv, D, C, dtype,
-                                                 132) == want
+                res = _resident(body, D)
+                assert decode_ops._launch_splits(
+                    B, H, Hkv, D, C, 132, res, body=body) == \
+                    decode_ops._launch_splits(B, H, Hkv, D, C, 132, res, 8,
+                                              body)
                 for page in (16, 128):
                     maxp = -(-C // page)
                     assert paged_ops._paged_splits(
-                        B, Hkv, maxp, page, None, dtype, D, 132,
-                        H // Hkv) == _parent_splits(
-                            B, Hkv * groups(maxp * page), maxp * page, 132,
-                            waves)
+                        B, Hkv, D, maxp, page, None, 132, res, H // Hkv,
+                        body=body) == paged_ops._paged_splits(
+                            B, Hkv, D, maxp, page, None, 132, res,
+                            H // Hkv, 8, body)
         assert tuning.resolve("ssm_scan", "chunk", None) == 64
         assert tuning.resolve("paged_attention", "page_size", None) == 128
 
@@ -412,17 +407,20 @@ def test_tuned_defaults_flow_into_the_wrappers(clean_tuning, monkeypatch):
                                          config=cfg))
         db.put("H800", kernel, "b", _rec("repro_torch", config=cfg))
     assert load_tuned_defaults(db) == 8
-    B, H, Hkv, D, C = 32, 12, 2, 128, 256
+    B, H, Hkv, D, C = 1, 12, 2, 128, 1008
+    res = decode_ops._h100_resident(D)
+    # the builtin rule's counts at the default knob
+    assert decode_ops._launch_splits(B, H, Hkv, D, C, 132, res, 8) == 4
+    assert paged_ops._paged_splits(B, Hkv, D, C // 16, 16, None, 132, res,
+                                   6, 8) == 4
     with tuning.override_device_type("H100"):
         assert tuning.tuned_config("paged_attention") == {
             "min_split_tiles": 32, "page_size": 16}
         # the split counts the wrappers would launch with: 1 where the
-        # builtin rule takes 2
-        assert _parent_splits(B, Hkv, C, 132, 0.5) == 2
-        assert decode_ops._launch_splits(B, H, Hkv, D, C, torch.bfloat16,
-                                         132) == 1
-        assert paged_ops._paged_splits(B, Hkv, C // 16, 16, None,
-                                       torch.bfloat16, D, 132, 6) == 1
+        # builtin rule takes 4
+        assert decode_ops._launch_splits(B, H, Hkv, D, C, 132, res) == 1
+        assert paged_ops._paged_splits(B, Hkv, D, C // 16, 16, None, 132,
+                                       res, 6) == 1
         # the scan's chunk and the pool's page on CPU tensors
         seen = []
         real = scan_ops.mlstm_chunkwise_ref
@@ -516,15 +514,15 @@ def test_device_mode_treats_equal_launches_as_one(one_split_faster,
                                                   monkeypatch):
     """Configs that launch the same split count are one candidate, timed
     as the median of their times and represented by the config nearest
-    the builtin default: K3 at B 32, C 256 splits in 2 for
-    min_split_tiles 1..8 (the default, 8, stands for them) and in 1 for
-    16..64 (16 stands for them)."""
-    shape = port_space.ShapeBucket.make("b32_c256", B=32, C=256, H=12,
+    the builtin default: K3 at B 8, C 1024 splits in 4 for
+    min_split_tiles 1..16 (the default, 8, stands for them) and in 1 for
+    32..64 (32 stands for them)."""
+    shape = port_space.ShapeBucket.make("b8_c1024", B=8, C=1024, H=12,
                                         Hkv=2, D=128)
     space = SPACES["decode_attention"]
     keys = {c["min_split_tiles"]: space.launch_key(shape, c)
             for c in space.configs()}
-    assert keys == {m: ((2 if m <= 8 else 1), None)
+    assert keys == {m: ((4 if m <= 16 else 1), None)
                     for m in (1, 2, 4, 8, 16, 32, 64)}
     # noisy times: within a launch, the fastest trial is never the default
     noise = {1: 0.90, 2: 1.00, 4: 1.02, 8: 1.05, 16: 0.97, 32: 1.10,
@@ -539,7 +537,7 @@ def test_device_mode_treats_equal_launches_as_one(one_split_faster,
     def timer(fn, flush):
         fn()
         m = calls[-1]["min_split_tiles"]
-        return noise[m] * (fast if m >= 16 else slow)
+        return noise[m] * (fast if m >= 32 else slow)
 
     monkeypatch.setattr(bench, "time_on_device", timer)
     monkeypatch.setattr(bench, "warm_card", lambda fn: None)
@@ -548,9 +546,9 @@ def test_device_mode_treats_equal_launches_as_one(one_split_faster,
     best = bench.bench_shape("decode_attention", shape, ["H100", "H800"],
                              device=torch.device("cpu"), trials=trials)
     assert len(trials) == 7 and best["H100"].mode == "device"
-    want = 16 if one_split_faster else 8
+    want = 32 if one_split_faster else 8
     assert best["H100"].config == {"min_split_tiles": want}
-    members = [noise[m] * (fast if m >= 16 else slow) for m in noise
-               if (m >= 16) == one_split_faster]
+    members = [noise[m] * (fast if m >= 32 else slow) for m in noise
+               if (m >= 32) == one_split_faster]
     assert best["H100"].time_s == statistics.median(members)
     assert best["H800"].mode == "interpret"

@@ -3,7 +3,7 @@
 Which kernel or block body serves a call: K1's ``_variant`` sends bfloat16
 at D = 80 to the wgmma kernel, and ``decode_attention.ops._decode_body``
 (the body that ``csrc/split_decode.cuh::dispatch`` launches for K3 and K2)
-sends it to the mma body, with ``_waves`` following the body.  A numpy
+sends it to the mma body, with the H100's resident blocks following D.  A numpy
 model of the wgmma kernel's padding (D padded to whole 64-column chunks
 in shared memory, zeros past D, Q K^T over the k16 steps of real columns
 only, P V over the padded chunks, the store cut at D, the scale of the
@@ -62,13 +62,20 @@ def test_decode_body(D, dtype, aligned):
     assert decode_ops._decode_body(dtype, D, aligned) == want
 
 
-@pytest.mark.parametrize("dtype,D,want", [
-    (torch.bfloat16, 64, 0.5), (torch.bfloat16, 80, 0.5),
-    (torch.bfloat16, 128, 0.5), (torch.bfloat16, 96, 2.0),
-    (torch.float32, 80, 2.0), (torch.float32, 128, 2.0),
+@pytest.mark.parametrize("D,rows16,want", [
+    (64, False, 4), (64, True, 4), (80, False, 3), (80, True, 3),
+    (128, False, 2), (128, True, 2),
 ])
-def test_waves_follow_the_body(dtype, D, want):
-    assert decode_ops._waves(dtype, D) == want
+def test_h100_resident_follows_the_head_dim(D, rows16, want):
+    """The blocks an H100 SM holds of the tensor-core body, as the CPU
+    models count them (``_h100_resident``; the card's query gives the
+    same, which ``chip_smoke.py`` checks): the shared-memory ring of 4
+    warps x 3 stages of K and V tiles sets them, whatever the rows."""
+    gc = 12 if rows16 else 6
+    assert decode_ops._h100_resident(D)(gc) == decode_ops.H100_RESIDENT[D]
+    assert decode_ops.H100_RESIDENT[D] == want
+    ring = 4 * 3 * 2 * 16 * (2 * D + 16)
+    assert want == 233472 // (ring + 1024)
 
 
 def test_variants_agree_on_the_head_dims():

@@ -26,7 +26,7 @@ import torch
 
 from repro_torch.kernels.decode_attention import ops
 from repro_torch.kernels.decode_attention.ops import (
-    PV_TILE, _num_splits, decode_attention, decode_attention_ref,
+    PV_TILE, _wave_splits, decode_attention, decode_attention_ref,
     decode_scores, decode_scores_ref, decode_softmax_pv,
     decode_softmax_pv_ref)
 from repro_torch.parallel import local
@@ -320,8 +320,7 @@ def test_pv_geometry(B, C, H, Hkv, Dl, es):
     bps = geo["blocks_per_sm"]
     assert 1 <= bps <= ops.RING_PV_BLOCKS
     assert bps == 1 or bps * (geo["smem"] + ops.SMEM_RESERVED) <= ops.SM_SMEM
-    n = _num_splits(B, gy, C, 132, waves=bps, min_tiles=ops.MIN_RING_TILES,
-                    tile=tile, round_down=True)
+    n = _wave_splits(B, gy, C, 132, bps, ops.MIN_RING_TILES, tile)
     tiles = -(-C // tile)
     assert 1 <= n <= max(1, tiles // ops.MIN_RING_TILES)
     if 1 < n < tiles // ops.MIN_RING_TILES:
@@ -333,14 +332,14 @@ def test_pv_geometry(B, C, H, Hkv, Dl, es):
 
 
 def test_pv_splits():
-    """Pass 2's split count (``_num_splits`` over PV_TILE-slot tiles,
+    """Pass 2's split count (``_wave_splits`` over PV_TILE-slot tiles,
     rounded down to whole waves): at least one split, never more than the
     tiles, every split at least MIN_PV_TILES tiles by default, and as many
-    as fit PV_WAVES blocks per SM where the row has the tiles."""
-    def pv_splits(B, rows, C, force=None):
-        return _num_splits(B, rows, C, 132, waves=ops.PV_WAVES, force=force,
-                           min_tiles=ops.MIN_PV_TILES, tile=PV_TILE,
-                           round_down=True)
+    as fit PV_WAVES blocks per SM where the row has the tiles; other waves
+    give as many as fit them."""
+    def pv_splits(B, rows, C, waves=ops.PV_WAVES):
+        return _wave_splits(B, rows, C, 132, waves, ops.MIN_PV_TILES,
+                            PV_TILE)
 
     for B, rows, C in [(32, 2, 161), (64, 2, 8192), (1, 2, 8192),
                        (1, 1, 1), (8, 4, 4096), (3, 16, 40)]:
@@ -349,8 +348,9 @@ def test_pv_splits():
         assert 1 <= n <= max(1, tiles // ops.MIN_PV_TILES)
         if 1 < n < tiles // ops.MIN_PV_TILES:
             assert B * rows * n <= ops.PV_WAVES * 132 < B * rows * (n + 1)
-        for force in (1, 3, 10 ** 6):
-            assert pv_splits(B, rows, C, force=force) == min(force, tiles)
+        for waves in (1, 3, 10 ** 6):
+            assert pv_splits(B, rows, C, waves) == max(1, min(
+                waves * 132 // (B * rows), tiles // ops.MIN_PV_TILES))
     assert pv_splits(32, 2, 161) == 1 and pv_splits(64, 2, 8192) == 8
 
 
@@ -362,7 +362,9 @@ def test_two_passes_on_the_card(dtype):
     the whole cache (strided), a window over a ring, an empty row, one
     split and splits forced to 3; the wrappers take the ring body where
     16-byte copies fit (Dl 5 takes the other; pass 1's ring takes bfloat16
-    only).  And K3's wrapper at D 384 (through the passes)."""
+    only); pass 2's bodies also at the forced count through their
+    launcher (``_launch_softmax_pv(..., n_split)``).  And K3's wrapper at
+    D 384 (through the passes)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the kernels have no CPU mode)")
     tol = (dict(atol=5e-2, rtol=5e-2) if dtype == torch.bfloat16 else TOL)
@@ -380,24 +382,22 @@ def test_two_passes_on_the_card(dtype):
                 else "simt", "pv": "ring" if fits else "simt"}
         before = (dict(decode_scores.launches_by_variant),
                   dict(decode_softmax_pv.launches_by_variant))
-        _num_splits.force = force
-        try:
-            s = sum(decode_scores(a, b, scale=D ** -0.5) for a, b in
-                    zip(q.chunk(m, -1), k.chunk(m, -1)))
-            o = torch.cat([decode_softmax_pv(s, c, qp, kp, window=window)
-                           for c in v.chunk(m, -1)], -1)
-            # the other body, launched directly (not counted)
-            # each pass's other body, launched directly (not counted)
-            bodies = {"wrappers": (s, o)}
-            if "ring" in want.values():
-                sb = sum(ops._launch_scores(a, b, D ** -0.5, "simt")
-                         for a, b in zip(q.chunk(m, -1), k.chunk(m, -1)))
-                ob = torch.cat([ops._launch_softmax_pv(sb, c, qp, kp, window,
-                                                       "simt")[0]
-                                for c in v.chunk(m, -1)], -1)
-                bodies["simt"] = (sb, ob)
-        finally:
-            _num_splits.force = None
+        s = sum(decode_scores(a, b, scale=D ** -0.5) for a, b in
+                zip(q.chunk(m, -1), k.chunk(m, -1)))
+        o = torch.cat([decode_softmax_pv(s, c, qp, kp, window=window)
+                       for c in v.chunk(m, -1)], -1)
+        bodies = {"wrappers": (s, o)}
+        # each pass's bodies launched directly (not counted), pass 2 at
+        # the forced split count
+        for body in dict.fromkeys((want["pv"], "simt")):
+            sb = sum(ops._launch_scores(a, b, D ** -0.5,
+                                        "simt" if body == "simt"
+                                        else want["scores"])
+                     for a, b in zip(q.chunk(m, -1), k.chunk(m, -1)))
+            ob = torch.cat([ops._launch_softmax_pv(sb, c, qp, kp, window,
+                                                   body, force)[0]
+                            for c in v.chunk(m, -1)], -1)
+            bodies[body] = (sb, ob)
         for name, fn in (("scores", decode_scores),
                          ("pv", decode_softmax_pv)):
             got = fn.launches_by_variant

@@ -17,7 +17,10 @@ import pytest
 import torch
 
 from repro.kernels.decode_attention.ref import decode_attention_ref as jax_decode_ref
-from repro_torch.kernels.decode_attention.ops import (MIN_SPLIT_TILES,
+from repro_torch.kernels.decode_attention.ops import (EVERY_COUNT,
+                                                      MAX_SPLITS,
+                                                      MERGE_UNROLL,
+                                                      MIN_SPLIT_TILES,
                                                       TILE, _num_splits)
 from repro_torch.kernels.decode_attention.ref import decode_attention_split_ref
 
@@ -88,24 +91,55 @@ def test_split_ref_matches_jax(name, n_split, tile, dtype):
                                rtol=tol)
 
 
-@pytest.mark.parametrize("B,Hkv,C,waves", [
-    (1, 1, 1, 2.0), (1, 1, TILE, 2.0), (1, 1, TILE + 1, 2.0),
-    (8, 2, 161, 2.0), (32, 2, 161, 2.0), (32, 2, 161, 0.5),
-    (64, 2, 8192, 2.0), (64, 2, 8192, 0.5), (8, 2, 1000, 2.0),
-    (1, 8, 100_000, 2.0), (200, 8, 4096, 2.0), (3, 1, 300, 0.5),
+@pytest.mark.parametrize("B,Hkv,C,resident,rows,D", [
+    (1, 1, 1, 4, 1, 64), (1, 1, TILE, 2, 6, 128), (1, 1, TILE + 1, 2, 6, 128),
+    (8, 2, 161, 2, 6, 128), (32, 2, 161, 2, 6, 128), (32, 2, 256, 2, 6, 128),
+    (64, 2, 8192, 2, 6, 128), (64, 2, 8192, 4, 6, 64), (8, 2, 1000, 3, 4, 80),
+    (1, 8, 100_000, 2, 4, 128), (200, 8, 4096, 2, 4, 128),
+    (3, 1, 300, 4, 12, 64), (8, 12, 1500, 4, 1, 64), (4, 8, 4096, 3, 4, 80),
 ])
-def test_num_splits_properties(B, Hkv, C, waves):
+@pytest.mark.parametrize("body", ["mma", "core"])
+def test_num_splits_properties(B, Hkv, C, resident, rows, D, body):
+    """The split rule is a pure function of numbers: at least one split,
+    never more than the body's MAX_SPLITS or the tiles over
+    MIN_SPLIT_TILES (1 when C fits two splits' least tiles; past
+    EVERY_COUNT a multiple of MERGE_UNROLL), never fewer where the SMs
+    hold more blocks or the rows walk more tiles, never more where a split
+    must hold more tiles; and it refuses a split of no tile and an SM of
+    no block."""
+    if body == "core":
+        rows = min(rows, 8)        # the CUDA-core body's groups
     tiles = math.ceil(C / TILE)
-    n = _num_splits(B, Hkv, C, n_sm=132, waves=waves)
-    assert 1 <= n <= tiles
-    if C <= TILE:
+
+    def rule(B=B, tiles=tiles, n_sm=132, resident=resident,
+             min_tiles=MIN_SPLIT_TILES):
+        return _num_splits(B, Hkv, tiles, n_sm, resident, min_tiles, rows,
+                           D, body)
+
+    n = rule()
+    assert 1 <= n <= max(1, min(MAX_SPLITS[body], tiles // MIN_SPLIT_TILES))
+    assert n <= EVERY_COUNT or n % MERGE_UNROLL == 0
+    if tiles < 2 * MIN_SPLIT_TILES:
         assert n == 1
-    # enough waves wherever the row has the tiles for splits of at least
-    # MIN_SPLIT_TILES tiles
-    want = math.ceil(waves * 132 / (B * Hkv))
-    if tiles // MIN_SPLIT_TILES >= want:
-        assert B * Hkv * n >= waves * 132
-    else:
-        assert n == max(1, tiles // MIN_SPLIT_TILES)
-    # a forced count is kept within the tiles
-    assert _num_splits(B, Hkv, C, force=7) == min(7, tiles)
+    assert rule(resident=resident + 1) >= n
+    assert rule(tiles=2 * tiles) >= n
+    assert rule(min_tiles=2 * MIN_SPLIT_TILES) <= n
+    # the same launch on a card of twice the SMs and half the rows per SM
+    assert rule(n_sm=264) >= n
+    with pytest.raises(ValueError, match="min_tiles"):
+        rule(min_tiles=0)
+    with pytest.raises(ValueError, match="resident"):
+        rule(resident=0)
+
+
+def test_num_splits_pays_a_split_only_where_it_gains():
+    """A split that only adds a merge is not taken (K2's 1.5B paged step,
+    32 rows x 2 KV heads over 256 slots: 1, where the half-wave rule took
+    2); one that fills idle SMs is (whisper's 96 rows x KV heads over 94
+    tiles, 4 blocks an SM: 4 splits, one resident wave of 384 blocks);
+    and the merge's unrolled loop makes 4 splits cheaper than 5 or 6."""
+    assert _num_splits(32, 2, 16, 132, 2, 8, 6, 128) == 1
+    assert _num_splits(8, 12, 94, 132, 4, 8, 1, 64) == 4
+    assert 8 * 12 * 4 <= 4 * 132 < 8 * 12 * 6
+    assert _num_splits(64, 2, 512, 132, 2, 8, 6, 128) == 1
+    assert _num_splits(1, 8, 512, 132, 2, 8, 6, 128) == 12

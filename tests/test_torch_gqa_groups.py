@@ -136,7 +136,8 @@ def test_head_groups_cover_every_head_once(body):
 
 def test_cut_never_leaves_a_group_empty():
     # the launchers' explicit groups (the smoke's two-group launch)
-    assert not hasattr(_head_groups, "force") and _num_splits.force is None
+    assert not hasattr(_head_groups, "force")
+    assert not hasattr(_num_splits, "force")
     assert _cut(12, 2) == (2, 6) and _cut(16, 2) == (2, 8)
     assert _cut(16, 1) == (1, 16) and _cut(12, 5) == (4, 3)
     assert _cut(3, 8) == (3, 1)
@@ -172,36 +173,48 @@ def test_head_groups_follow_the_one_group_grid(key):
         _head_groups(G, body) == _head_groups(G, body, 132, 132)
 
 
+# blocks an SM holds of each body at D 128, given as numbers: the H100's
+# query gives 2 for the tensor-core body at any group, and for the
+# CUDA-core body fewer the more heads a group holds
+RESIDENT = {"mma": lambda gc: 2, "core": lambda gc: {1: 6, 6: 3}.get(gc, 2)}
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("H,Hkv", [(48, 4), (64, 4), (12, 1), (48, 8)])
 def test_launch_groups_one_group_where_the_rows_fill_the_card(H, Hkv,
                                                               dtype):
-    """With the tensor-core body's half wave, a one-group launch fills
-    132 SMs only where its (row, KV head) pairs do, whatever C; its K/V
-    read dominates where the SMs walk LONG_TILES tiles each.  K3 and K2
-    then read each K/V tile once at G 12 / 16 (B 64 x Hkv 4 at any C, B
-    32 x 2048), and keep two groups at the serve shapes (B 8 or 32 x Hkv
-    4 at 161 slots); G <= 8 is one group everywhere."""
+    """A one-group launch takes 16-row groups on the tensor cores where
+    its grid (B x Hkv x the split rule's count at one group, from the
+    blocks an SM holds) fills 132 SMs or its K/V read dominates (the SMs
+    walk LONG_TILES tiles each); else groups of 8.  K3 and K2 then read
+    each K/V tile once at G 12 / 16 where B x Hkv fills the card or the
+    rows are long (B 64 x Hkv 4 at any C, B 32 x 2048), and keep two
+    groups at the serve shapes (B 8 or 32 x Hkv 4 at 65 / 161 slots); G
+    <= 8 is one group everywhere."""
     G = H // Hkv
     body = "mma" if dtype == torch.bfloat16 else "core"
+    res = RESIDENT[body]
+    widest = _head_groups(G, body)[1]
     for B in (1, 4, 8, 16, 32, 33, 64, 128):
         for C in (1, 65, 161, 512, 2048, 8192, 32768):
-            ng = _launch_groups(B, G, Hkv, C, dtype, 128, 132, 8, body)
-            long = B * Hkv * -(-C // 16) >= LONG_TILES * 132
-            want = 1 if G <= 8 or (body == "mma" and (B * Hkv >= 132
-                                                      or long)) else 2
+            ng = _launch_groups(B, G, Hkv, 128, C, 132, res, 8, body)
+            tiles = -(-C // 16)
+            one = _num_splits(B, Hkv, tiles, 132, res(widest), 8, widest,
+                              128, body)
+            long = B * Hkv * tiles >= LONG_TILES * 132
+            want = 1 if G <= 8 or (body == "mma" and (
+                B * Hkv * one >= 132 or long)) else 2
             assert ng == _cut(G, want)
             page = 128
-            assert _paged_groups(B, G, Hkv, -(-C // page), page, None,
-                                 dtype, 128, 132) == ng
-    assert _launch_groups(64, 12, 4, 8192, torch.bfloat16, 128, 132, 8,
+            assert _paged_groups(B, G, Hkv, 128, -(-C // page), page, None,
+                                 132, res, None, body) == ng
+    mma = RESIDENT["mma"]
+    assert _launch_groups(64, 12, 4, 128, 8192, 132, mma, 8,
                           "mma") == (1, 12)
-    assert _launch_groups(32, 12, 4, 161, torch.bfloat16, 128, 132, 8,
-                          "mma") == (2, 6)
-    assert _launch_groups(32, 12, 4, 2048, torch.bfloat16, 128, 132, 8,
+    assert _launch_groups(32, 12, 4, 128, 161, 132, mma, 8, "mma") == (2, 6)
+    assert _launch_groups(32, 12, 4, 128, 2048, 132, mma, 8,
                           "mma") == (1, 12)
-    assert _launch_groups(8, 16, 4, 65, torch.bfloat16, 128, 132, 8,
-                          "mma") == (2, 8)
+    assert _launch_groups(8, 16, 4, 128, 65, 132, mma, 8, "mma") == (2, 8)
 
 
 @pytest.mark.parametrize("body", ["core", "mma"])
@@ -223,43 +236,38 @@ def test_split_scratch_is_per_head_group(G, body):
 @pytest.mark.parametrize("H,Hkv", [(12, 2), (48, 4), (64, 4), (36, 2)])
 def test_launch_splits_count_the_body_groups(H, Hkv, body):
     """K3's and K2's split counts treat each head group they launch as one
-    more KV head: the groups given, or by default those ``_head_groups``
-    gives the body for the one-group launch's grid; the default body is
-    the one ``_decode_body`` names (bfloat16 at D 128 on the tensor cores,
-    float32 on the CUDA cores)."""
-    G, n_sm = H // Hkv, 132
-    dtype = torch.bfloat16 if body == "mma" else torch.float32
+    more KV head, with the blocks an SM holds of the body at those groups
+    and the heads a group serves: the groups given, or by default those
+    ``_head_groups`` gives the body for the one-group launch's grid."""
+    G, n_sm, D = H // Hkv, 132, 128
+    res = RESIDENT[body]
     for B, C in [(1, 8192), (4, 8192), (32, 161), (64, 8192), (64, 161)]:
-        for dt in (torch.bfloat16, torch.float32):
-            waves = 0.5 if dt == torch.bfloat16 else 2.0
-            page = 128
-            maxp = -(-C // page)
-            one = _num_splits(B, Hkv, C, n_sm, waves=waves)
-            ng = _head_groups(G, body, B * Hkv * one, n_sm,
-                              B * Hkv * -(-C // 16))[0]
-            assert _launch_splits(B, H, Hkv, 128, C, dt, n_sm,
-                                  body=body) == _num_splits(
-                B, Hkv * ng, C, n_sm, waves=waves)
-            one = _num_splits(B, Hkv, maxp * page, n_sm, waves=waves)
-            ng = _head_groups(G, body, B * Hkv * one, n_sm,
-                              B * Hkv * maxp * page // 16)[0]
-            assert _paged_splits(B, Hkv, maxp, page, None, dt, 128, n_sm, G,
-                                 body=body) == _num_splits(
-                B, Hkv * ng, maxp * page, n_sm, waves=waves)
-            for groups in ((1, G), _cut(G, 2)):
-                want = _num_splits(B, Hkv * groups[0], C, n_sm, waves=waves)
-                assert _launch_splits(B, H, Hkv, 128, C, dt, n_sm, body=body,
-                                      groups=groups) == want
-        assert _launch_splits(B, H, Hkv, 128, C, dtype, n_sm) == \
-            _launch_splits(B, H, Hkv, 128, C, dtype, n_sm, body=body)
-    # one group of 12 / 16 on the tensor cores takes half the blocks a
-    # split, so at B 1 the long cache would take more splits than two
-    # groups; the grid rule keeps two there, and one at B 64
+        page = 128
+        maxp = -(-C // page)
+        for slots in (C, maxp * page):
+            tiles = -(-slots // 16)
+            widest = _head_groups(G, body)[1]
+            one = _num_splits(B, Hkv, tiles, n_sm, res(widest), 8, widest, D,
+                              body)
+            ng, gc = _head_groups(G, body, B * Hkv * one, n_sm,
+                                  B * Hkv * tiles)
+            want = _num_splits(B, Hkv * ng, tiles, n_sm, res(gc), 8, gc, D,
+                               body)
+            if slots == C:
+                assert _launch_splits(B, H, Hkv, D, C, n_sm, res,
+                                      body=body) == want
+            else:
+                assert _paged_splits(B, Hkv, D, maxp, page, None, n_sm, res,
+                                     G, body=body) == want
+        for groups in ((1, G), _cut(G, 2)):
+            want = _num_splits(B, Hkv * groups[0], -(-C // 16), n_sm,
+                               res(groups[1]), 8, groups[1], D, body)
+            assert _launch_splits(B, H, Hkv, D, C, n_sm, res, body=body,
+                                  groups=groups) == want
+    # at B 1 over 8192 slots two groups of G 12 / 16 take 12 splits a
+    # group and one group 8; at B 64 one split
     if body == "mma" and G in (12, 16):
-        assert _launch_splits(1, H, Hkv, 128, 8192, torch.bfloat16,
-                              n_sm) == _num_splits(1, Hkv * 2, 8192, n_sm,
-                                                   waves=0.5) == 9
-        assert _launch_splits(1, H, Hkv, 128, 8192, torch.bfloat16, n_sm,
-                              groups=(1, G)) == 17
-        assert _launch_splits(64, H, Hkv, 128, 8192, torch.bfloat16,
-                              n_sm) == 1
+        assert _launch_splits(1, H, Hkv, D, 8192, n_sm, res) == 12
+        assert _launch_splits(1, H, Hkv, D, 8192, n_sm, res,
+                              groups=(1, G)) == 8
+        assert _launch_splits(64, H, Hkv, D, 8192, n_sm, res) == 1

@@ -103,29 +103,33 @@ def test_paged_split_ref_refuses_more_splits_than_tiles():
         paged_decode_attention_split_ref(*t, 2, window=6, tile=TILE)
 
 
-@pytest.mark.parametrize("B,Hkv,maxp,page,window,dtype,D", [
-    (32, 2, 2, 128, None, torch.bfloat16, 128),      # the paged main path
-    (64, 2, 64, 128, None, torch.bfloat16, 128),     # the long shape
-    (8, 2, 64, 128, None, torch.float32, 128),
-    (3, 2, 9, 4, None, torch.float32, 16),
-    (3, 2, 9, 4, 13, torch.bfloat16, 64),
-    (1, 1, 1, 4, None, torch.bfloat16, 128),
-    (2, 2, 512, 16, 100, torch.float32, 64),
-    (4, 8, 1000, 16, None, torch.bfloat16, 128),
-    (2, 2, 8, 16, 0, torch.bfloat16, 128),
+@pytest.mark.parametrize("B,Hkv,maxp,page,window,resident,D", [
+    (32, 2, 2, 128, None, 2, 128),      # the paged main path
+    (64, 2, 64, 128, None, 2, 128),     # the long shape
+    (8, 2, 64, 128, None, 3, 128),
+    (3, 2, 9, 4, None, 6, 16),
+    (3, 2, 9, 4, 13, 4, 64),
+    (1, 1, 1, 4, None, 2, 128),
+    (2, 2, 512, 16, 100, 5, 64),
+    (4, 8, 1000, 16, None, 2, 128),
+    (2, 2, 8, 16, 0, 2, 128),
+    (4, 8, 36, 128, 4096, 3, 80),       # danube's paged rows
 ])
-def test_paged_splits_properties(B, Hkv, maxp, page, window, dtype, D):
-    """Never more splits than the tiles a row can reach (the table's width,
-    or the window); otherwise K3's count over that reach."""
+def test_paged_splits_properties(B, Hkv, maxp, page, window, resident, D):
+    """Never more splits than the tiles a row can reach (the table's
+    width, or the window); otherwise K3's count over that reach, and with
+    the host's longest length K3's count over it rounded up to a page
+    (never more than without it)."""
     reach = maxp * page if window is None else min(maxp * page, window)
     tiles = max(1, math.ceil(reach / TILE))
-    n = _paged_splits(B, Hkv, maxp, page, window, dtype, D, 132)
+    res = lambda gc: resident                 # noqa: E731
+    n = _paged_splits(B, Hkv, D, maxp, page, window, 132, res)
     assert 1 <= n <= tiles
-    waves = 0.5 if dtype == torch.bfloat16 and D in (64, 128) else 2.0
-    assert n == _num_splits(B, Hkv, max(1, reach), 132, waves=waves)
-    try:
-        _num_splits.force = 7
-        assert _paged_splits(B, Hkv, maxp, page, window, dtype, D,
-                             132) == min(7, tiles)
-    finally:
-        _num_splits.force = None
+    assert n == _num_splits(B, Hkv, math.ceil(max(1, reach) / TILE), 132,
+                            resident, 8, 1, D)
+    for max_len in (1, page, 3 * page + 1, maxp * page, 10 ** 6):
+        span = max(1, min(reach, -(-max_len // page) * page))
+        got = _paged_splits(B, Hkv, D, maxp, page, window, 132, res,
+                            max_len=max_len)
+        assert got == _num_splits(B, Hkv, math.ceil(span / TILE), 132,
+                                  resident, 8, 1, D) <= n
