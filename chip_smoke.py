@@ -15,10 +15,12 @@ Phases (any failure exits non-zero before the result line):
    32- and 128-token rollouts of phase 3; paged decode at 32 slots over
    pages of 128 with mixed lengths up to prompt + 128 and shuffled
    tables, plus the permuted, poisoned, absurd-id and empty-row cases)
-   and one long shape each.  K1 has two kernels (``_variant``): every
-   bfloat16 case runs the tensor-core kernel through the wrapper (its
-   launch counted by variant) and the CUDA-core kernel through its C
-   entry, over a sweep of D 64 / 80 / 128, groups of 1, 5, 6, 7 and 8 heads,
+   and one long shape each.  K1 has three kernels (``_variant``): every
+   case at D 64 / 80 / 128 runs a tensor-core kernel through the wrapper
+   (wgmma in bfloat16, the 3xTF32 kernel "tf32x3" in float32; its launch
+   counted by variant) and the CUDA-core kernel through its C entry, both
+   held to the plain version and their max errors printed side by side,
+   over a sweep of D 64 / 80 / 128, groups of 1, 5, 6, 7 and 8 heads,
    Sq 2..160, windows 9 / 200, Sq != Sk and non-causal, and a case whose
    rows at positions >= 47 attend nothing and must read 0.  K3 adds
    n_split forced to 1, 2 and 7 over 8192 slots with one valid, a window
@@ -43,9 +45,13 @@ Phases (any failure exits non-zero before the result line):
    device-side wait longer than the host's enqueue) for the
    kernel, its plain version and ``scaled_dot_product_attention`` as a
    yardstick (for the paged kernel over the pre-gathered dense cache: the
-   gather is not timed), and K1's and K4's CUDA-core kernels in bfloat16
-   beside their tensor-core ones, beside the least time the card could
-   take for the same work, at the B=32 shapes and the long shapes.
+   gather is not timed), and K1's and K4's CUDA-core kernels beside their
+   tensor-core ones (K1 in both dtypes), beside the least time the card
+   could take for the same work, at the B=32 shapes and the long shapes
+   (K1 also at the float32 train step's B=8 x 160).  The bound of the
+   float32 tensor-core kernel counts its operations at the TF32 peak over
+   3 (``PEAK_FLOPS["tf32x3"]``), of the CUDA-core kernel at the float32
+   CUDA-core peak.
    The autotuner (``autotune_phase``): a full ``run_sweep`` of the four
    kernels, H100 measured (every feasible config of every bucket through
    its wrapper, the knob passed explicitly, CUDA events, median of 20, L2
@@ -245,7 +251,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12                 # H100 SXM data sheet
 PEAK_FLOPS = {"float32": 67e12,           # fp32 outside the tensor cores
-              "bfloat16": 989e12}         # dense bf16 tensor cores
+              "bfloat16": 989e12,         # dense bf16 tensor cores
+              "tf32x3": 495e12 / 3}       # float32 as three TF32 products
 TOL = {"float32": dict(atol=2e-5, rtol=2e-5),
        "bfloat16": dict(atol=5e-2, rtol=5e-2)}
 # the reference's own tolerances for the mLSTM scan (tests/test_kernels.py)
@@ -345,9 +352,11 @@ def _time_ms(fn, flush, reps=20):
     return time_on_device(fn, flush, reps) * 1e3
 
 
-def _bound_ms(n_bytes, flops, dtype):
+def _bound_ms(n_bytes, flops, route):
+    """The least time of a call: bytes at the HBM rate or operations at
+    the peak of ``route`` (a dtype, or "tf32x3"), whichever is longer."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_ops = flops / PEAK_FLOPS[route] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -600,8 +609,6 @@ def paged_kernel_phase(prompt_len, new_tokens):
             check("lengths " + ("mixed" if shape == main else "8192"),
                   paged_decode_attention(*args),
                   paged_decode_attention_ref(*args), dtype, shape)
-            if dtype != "bfloat16":
-                continue
             q, kp, vp, bt, lengths = args
             C = maxp * page
             kd, vd = (x[bt.long()].reshape(B, C, Hkv, D).transpose(1, 2)
@@ -613,7 +620,7 @@ def paged_kernel_phase(prompt_len, new_tokens):
             bound, by = _bound_ms(n_bytes, flops, dtype)
             # the engine's call: the longest length as the host knows it
             kw = dict(max_len=max(lens))
-            timings[shape] = dict(
+            timings[(shape, dtype)] = dict(
                 ms=_time_ms(lambda: paged_decode_attention(*args, **kw),
                             flush),
                 plain_ms=_time_ms(lambda: paged_decode_attention_ref(*args),
@@ -622,15 +629,15 @@ def paged_kernel_phase(prompt_len, new_tokens):
                     qt, kd, vd, attn_mask=mask, enable_gqa=True), flush),
                 bound_ms=bound, bound_by=by,
                 n_split=_rule("paged_flash_decode", args, kw)[3])
-            if paged_decode_attention.last_n_split != timings[shape][
-                    "n_split"]:
-                fail(f"paged_flash_decode {shape}: launched "
+            if paged_decode_attention.last_n_split != timings[
+                    (shape, dtype)]["n_split"]:
+                fail(f"paged_flash_decode {shape} {dtype}: launched "
                      f"{paged_decode_attention.last_n_split} splits, the "
-                     f"rule gives {timings[shape]['n_split']}")
+                     f"rule gives {timings[(shape, dtype)]['n_split']}")
             del kd, vd
             torch.cuda.synchronize()
-    for shape, t in timings.items():
-        say(f"  time paged {shape} bfloat16: kernel {t['ms']:.4f} ms, bound "
+    for (shape, dtype), t in timings.items():
+        say(f"  time paged {shape} {dtype}: kernel {t['ms']:.4f} ms, bound "
             f"{t['bound_ms']:.4f} ms ({t['bound_by']}), plain "
             f"{t['plain_ms']:.4f} ms, sdpa over the pre-gathered cache "
             f"(gather not timed) {t['library_ms']:.4f} ms, n_split "
@@ -675,7 +682,10 @@ def paged_kernel_phase(prompt_len, new_tokens):
         max_abs_err=stats["max_abs_err"], checks=stats["checks"],
         library="scaled_dot_product_attention over the pre-gathered dense "
                 "cache (gather not timed)",
-        **timings[main], long=dict(shape=long, **timings[long]),
+        **timings[(main, "bfloat16")],
+        long=dict(shape=long, **timings[(long, "bfloat16")]),
+        float32=timings[(main, "float32")],
+        long_float32=dict(shape=long, **timings[(long, "float32")]),
         split_sweep=split_sweep)
 
 
@@ -1285,10 +1295,10 @@ def flash_grad_phase():
 
 def _simt_flash(q, k, v, causal, window):
     """K1's CUDA-core kernel (csrc/flash_attention_fwd.cu) through its C
-    entry, whatever the dtype: the wrapper sends bfloat16 at D = 64, 80 or
-    128 to the tensor-core kernel, so this is how the sweep holds the older
-    design to the plain version in bfloat16 too, and how the phase times
-    it beside the new one.  Not counted as a launch."""
+    entry, whatever the dtype: the wrapper sends both dtypes at D = 64, 80
+    or 128 to a tensor-core kernel, so this is how the sweep holds the
+    older design to the plain version there too, and how the phase times
+    it beside the new ones.  Not counted as a launch."""
     import torch
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import ops
@@ -1344,7 +1354,7 @@ def _core_paged(q, kp, vp, bt, lengths, window=None):
 
 
 def kernels_phase(prompt_len, new_tokens):
-    """Hold K1 (both kernels) and K3 to their plain versions over the
+    """Hold K1 (all three kernels) and K3 to their plain versions over the
     sweeps; time the main-path and long shapes.  Returns the per-kernel
     records of the result line."""
     import torch
@@ -1358,6 +1368,8 @@ def kernels_phase(prompt_len, new_tokens):
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
     fstats = {"checks": 0, "max_abs_err": 0.0}
     dstats = {"checks": 0, "max_abs_err": 0.0}
+    # K1's worst error by (kernel, dtype) over the sweep and the shapes
+    kerr = {}
     timings = {}
 
     # -- flash attention (K1)
@@ -1365,6 +1377,9 @@ def kernels_phase(prompt_len, new_tokens):
     serve_f = (8, prompt_len, prompt_len, 12, 2, 128)
     main_f = (32, prompt_len, prompt_len, 12, 2, 128)
     long_f = (4, 4096, 4096, 12, 2, 128)
+    # the float32 train step's forward (qwen_step_phase, B=8 x 160)
+    train_f = (8, 160, 160, 12, 2, 128)
+    timed = (main_f, long_f, train_f)
     # rows at positions >= 47 attend nothing (keys < 32, window 16)
     masked_f = (2, 96, 32, 8, 2, 128)
     shapes = [((2, 33, 65, 4, 4, 24), m) for m in
@@ -1374,7 +1389,7 @@ def kernels_phase(prompt_len, new_tokens):
                ((1, 128, 128, 8, 2, 64), (True, 20)),
                (masked_f, (True, 16)),
                (serve_f, (True, None)), (main_f, (True, None)),
-               (long_f, (True, None))]
+               (train_f, (True, None)), (long_f, (True, None))]
     # the tensor-core sweep: D 64 / 80 / 128 (80: h2o-danube, padded to
     # two 64-column chunks in shared memory), groups of 1 and of the
     # 1.5B / 7B / 14B configs (6, 7, 5) and 8; lengths around the 128-row
@@ -1402,24 +1417,30 @@ def kernels_phase(prompt_len, new_tokens):
                      f"{before} -> {after}, expected one {variant} launch")
             want = flash_attention_ref(q, k, v, causal, window)
             outs = {variant: got}
-            if variant == "wgmma":
+            if variant != "simt":
                 outs["simt"] = _simt_flash(q, k, v, causal, window)
             for name, out in outs.items():
                 _check(f"flash_attention_fwd ({name})", out, want, dtype,
                        shape, fstats)
-                errs.append(f"{dtype} {name} {_max_err(out, want):.2e}")
+                err = _max_err(out, want)
+                kerr[(name, dtype)] = max(kerr.get((name, dtype), 0.0), err)
+                errs.append(f"{dtype} {name} {err:.2e}")
                 if shape == masked_f and bool(out[:, 47:].abs().max() != 0):
                     fail(f"flash_attention_fwd ({name}) {shape} {dtype}: "
                          "rows that attend nothing are not 0")
             del got, want, outs
-            if shape in (main_f, long_f):
-                if dtype == "bfloat16" and variant != "wgmma":
-                    fail(f"flash_attention {shape} bf16 took {variant}")
+            if shape in timed:
+                if variant != {"bfloat16": "wgmma",
+                               "float32": "tf32x3"}[dtype]:
+                    fail(f"flash_attention {shape} {dtype} took {variant}")
                 qt, kt, vt = (x.transpose(1, 2).contiguous()
                               for x in (q, k, v))
                 n_bytes, flops = flash_work(*shape, causal, window,
                                             q.element_size())
-                bound, by = _bound_ms(n_bytes, flops, dtype)
+                # the route's own peak: TF32 / 3 for the 3xTF32 kernel
+                bound, by = _bound_ms(n_bytes, flops,
+                                      "tf32x3" if variant == "tf32x3"
+                                      else dtype)
                 t = dict(
                     ms=_time_ms(lambda: flash_attention(q, k, v, causal,
                                                         window), flush),
@@ -1428,9 +1449,10 @@ def kernels_phase(prompt_len, new_tokens):
                     library_ms=_time_ms(lambda: F.scaled_dot_product_attention(
                         qt, kt, vt, is_causal=True, enable_gqa=True), flush),
                     bound_ms=bound, bound_by=by, variant=variant)
-                if variant == "wgmma":
-                    t["simt_ms"] = _time_ms(lambda: _simt_flash(
-                        q, k, v, causal, window), flush)
+                t["simt_ms"] = _time_ms(lambda: _simt_flash(
+                    q, k, v, causal, window), flush)
+                # the CUDA-core kernel's own bound (its peak)
+                t["simt_bound_ms"] = _bound_ms(n_bytes, flops, dtype)[0]
                 timings[("flash", shape, dtype)] = t
             del q, k, v
             torch.cuda.synchronize()
@@ -1438,8 +1460,11 @@ def kernels_phase(prompt_len, new_tokens):
             say(f"  flash_attention_fwd {shape} causal={causal} "
                 f"window={window}: ok, max err " + ", ".join(errs))
     say(f"  flash_attention_fwd tensor-core sweep: {len(sweep)} shapes, "
-        "both kernels in bf16 and the CUDA-core kernel in f32 hold to the "
-        "plain version; rows that attend nothing read 0")
+        "the tensor-core kernel (wgmma in bf16, tf32x3 in f32) and the "
+        "CUDA-core kernel in both dtypes hold to the plain version; rows "
+        "that attend nothing read 0; worst max err " + ", ".join(
+            f"{name} {dtype} {e:.2e}" for (name, dtype), e in
+            sorted(kerr.items())))
 
     # -- flash decode (K3)
     serve_d = (8, 12, 2, 128, prompt_len + 32)
@@ -1558,27 +1583,49 @@ def kernels_phase(prompt_len, new_tokens):
         extra = "".join(f", {key} {t[key]}" for key in ("variant", "n_split")
                         if key in t)
         if "simt_ms" in t:
-            extra += f", CUDA-core kernel {t['simt_ms']:.4f} ms"
+            extra += (f", CUDA-core kernel {t['simt_ms']:.4f} ms (its bound "
+                      f"{t['simt_bound_ms']:.4f} ms)")
         say(f"  time {kind} {shape} {dtype}: kernel {t['ms']:.4f} ms, bound "
             f"{t['bound_ms']:.4f} ms ({t['bound_by']}), plain "
             f"{t['plain_ms']:.4f} ms, sdpa {t['library_ms']:.4f} ms{extra}")
     say("kernels: both hold to their plain versions at every shape "
         f"({fstats['checks']} flash, {dstats['checks']} decode checks)")
     flash = timings[("flash", main_f, "bfloat16")]
+    f32 = {key: timings[("flash", shape, "float32")]
+           for key, shape in (("main", main_f), ("long", long_f),
+                              ("train", train_f))}
     records = {
         "flash_attention_fwd": dict(
             route="cuda",
             source="src/repro_torch/kernels/csrc/flash_attention_fwd_sm90.cu",
             sources={"wgmma": "src/repro_torch/kernels/csrc/"
                               "flash_attention_fwd_sm90.cu",
+                     "tf32x3": "src/repro_torch/kernels/csrc/"
+                               "flash_attention_fwd_tf32x3.cu",
                      "simt": "src/repro_torch/kernels/csrc/"
                              "flash_attention_fwd.cu"},
             replaces="src/repro/kernels/flash_attention/kernel.py:118",
             max_abs_err=fstats["max_abs_err"], checks=fstats["checks"],
+            max_abs_err_by_kernel={f"{name} {dtype}": e for (name, dtype), e
+                                   in sorted(kerr.items())},
             **flash,
-            float32=timings[("flash", main_f, "float32")],
+            float32=f32["main"],
             long=dict(shape=long_f, **timings[("flash", long_f, "bfloat16")]),
-            long_float32=timings[("flash", long_f, "float32")]),
+            long_float32=f32["long"],
+            train_float32=dict(shape=train_f, **f32["train"])),
+        # K1's float32 kernel on its own line: the float32 train step's
+        # forward (B=8 x 160) first, then the B=32 prefill and the long
+        # shape; launches are counted on the float32 paths in main()
+        "flash_attention_fwd_tf32x3": dict(
+            route="cuda",
+            source="src/repro_torch/kernels/csrc/"
+                   "flash_attention_fwd_tf32x3.cu",
+            replaces="src/repro/kernels/flash_attention/kernel.py:118",
+            max_abs_err=kerr[("tf32x3", "float32")],
+            simt_max_abs_err=kerr[("simt", "float32")],
+            shape=train_f, **f32["train"],
+            main=dict(shape=main_f, **f32["main"]),
+            long=dict(shape=long_f, **f32["long"])),
         "flash_decode": dict(
             route="cuda",
             source="src/repro_torch/kernels/csrc/flash_decode.cu",
@@ -1629,8 +1676,10 @@ def _scan_variants():
 
 
 def _expect_variants(what, want):
-    """K1's launches by kernel since the last _reset_counts()."""
+    """K1's launches by kernel since the last _reset_counts(), against
+    ``want`` (kernels it leaves out: none)."""
     got = dict(_wrappers()["flash_attention_fwd"].launches_by_variant)
+    want = {variant: want.get(variant, 0) for variant in got}
     if got != want:
         fail(f"{what}: flash_attention launches by kernel {got}, expected "
              f"{want}")
@@ -1761,7 +1810,7 @@ def autotune_phase():
     for kernel, space in SPACES.items():
         name = TUNED_NAMES[kernel]
         default = dict(tuning.BUILTIN_DEFAULTS[kernel]
-                       or tuning.COMPILED[kernel])
+                       or tuning.COMPILED[kernel][0])
         rows = {}
         for shape in space.buckets():
             d = shape.d
@@ -1937,8 +1986,9 @@ def serve_phase():
     out = run(["--arch", ARCH, "--batch", "8", "--max-new", "32", "--greedy"])
     counts = _read_counts()
     _expect_counts("serve.run", n_layers, out["decode_steps"], counts)
+    # float32 weights at D 128: the 3xTF32 kernel
     variants = {"serve.run": _expect_variants(
-        "serve.run", {"simt": n_layers, "wgmma": 0})}
+        "serve.run", {"tf32x3": n_layers})}
     _check_rollouts("serve.run", out["rollouts"], 259, 32)
     say(f"serve.run: {out['tokens']} tokens in {out['seconds']:.3f} s "
         f"({out['tok_per_s']:.1f} tok/s, host clock, weight fetch included)")
@@ -2624,6 +2674,8 @@ def monitor_phase():
     decode_steps = trainer.engine.stats.decode_steps - steps0
     _trainer_counts("monitored trainer (1 + 2 steps)", tcfg.n_layers, 3,
                     decode_steps, counts)
+    k1_variants = _expect_variants("monitored trainer (1 + 2 steps)",
+                                   {"tf32x3": tcfg.n_layers * 3})
     hist = list(trainer.history)
     if len(hist) != 3 or any(not math.isfinite(h["loss"]) for h in hist) \
             or max(h["max_staleness"] for h in hist) > eta:
@@ -2711,6 +2763,7 @@ def monitor_phase():
                    monitored_s=sdt, trace_events=tr.n_events,
                    alerts=serve_alerts),
         launches={k: scounts[k] + counts[k] for k in counts},
+        trainer_k1_by_variant=k1_variants,
         trainer=dict(layers=tcfg.n_layers, group_size=tc.group_size,
                      prompts_per_step=tc.prompts_per_step,
                      measured_steps=2, warmup_spans_s=warm,
@@ -3172,7 +3225,8 @@ def train_phase():
     """``repro_torch.launch.train`` at full width with the reference
     launcher's setup (float32, tokenizer vocab, no remat, group 4 x 2
     prompts, eta 2): 3 steps of xlstm-1.3b, 2 of qwen-distill-1.5b.
-    Returns {arch: (launch counts, summary)}."""
+    Returns {arch: (launch counts, summary, K4's and K1's launches by
+    kernel)}."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch.train import run
@@ -3201,6 +3255,9 @@ def train_phase():
         if scan_variants != {"simt": counts["mlstm_scan"], "mma": 0}:
             fail(f"{what}: mlstm_scan launches by kernel {scan_variants}, "
                  "expected every one on the CUDA-core kernel (float32)")
+        # float32 at D 128: every K1 launch on the 3xTF32 kernel
+        flash_variants = _expect_variants(
+            what, {"tf32x3": counts["flash_attention_fwd"]})
         hist = out["steps"]
         if len(hist) != steps or out["produced"] != steps:
             fail(f"{what}: {len(hist)} steps from {out['produced']} produce "
@@ -3244,7 +3301,7 @@ def train_phase():
             summary["trace_spans_ms"] = spans
         say(f"{what}: {out['seconds']:.2f} s, peak memory "
             f"{summary['peak_mem_gib']:.2f} GiB, buffer {out['buffer']}")
-        results[arch] = (counts, summary, scan_variants)
+        results[arch] = (counts, summary, scan_variants, flash_variants)
         del out
         torch.cuda.empty_cache()
     return results
@@ -3411,13 +3468,13 @@ def qwen_step_phase():
     batch["behavior_logp"] = torch.cat(
         [torch.zeros_like(lp[:, :1]), lp], 1) * batch["loss_mask"]
     del lp
-    # the float32 step from the same weights: K1 on the CUDA-core kernel
+    # the float32 step from the same weights: K1 on the 3xTF32 kernel
     p32.requires_grad_(True)
     _reset_counts()
     _, _, m = make_train_step(cfg32, opt)(p32, adamw_init(p32, opt), batch)
     loss32, gnorm32 = float(m["loss"]), float(m["grad_norm"])
-    _expect_variants("qwen f32 train step", {"simt": 2 * cfg.n_layers,
-                                             "wgmma": 0})
+    f32_variants = _expect_variants("qwen f32 train step",
+                                    {"tf32x3": 2 * cfg.n_layers})
     del p32, m
     torch.cuda.empty_cache()
 
@@ -3445,7 +3502,7 @@ def qwen_step_phase():
             fail(f"qwen bf16 train step: launches {counts} (expected "
                  f"{want}), loss {loss}, grad_norm {gnorm}")
         variants = _expect_variants(f"qwen bf16 train step {i + 1}",
-                                    {"simt": 0, "wgmma": 2 * cfg.n_layers})
+                                    {"wgmma": 2 * cfg.n_layers})
     rel = abs(losses[0] - loss32) / abs(loss32)
     if not rel <= 5e-2:
         fail(f"qwen bf16 train step: loss {losses[0]} vs float32 {loss32} "
@@ -3457,6 +3514,7 @@ def qwen_step_phase():
                losses=losses, grad_norms=gnorms,
                launches=counts["flash_attention_fwd"],
                launches_by_variant=variants,
+               f32_launches_by_variant=f32_variants,
                params=sum(p.numel() for p in p16.parameters()),
                peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
     say(f"qwen-distill-1.5b published config (bfloat16, vocab 151936, remat) "
@@ -5721,8 +5779,7 @@ def family_serve_phase(arch, paged=False):
     if counts != want or m["decode_steps"] < 1:
         fail(f"{what}: kernel launches {counts}, expected {want} (one "
              f"prefill, {m['decode_steps']} decode steps)")
-    _expect_variants(what, {"simt": k1 * (variant == "simt"),
-                            "wgmma": k1 * (variant == "wgmma")})
+    _expect_variants(what, {variant: k1})
     bodies = _decode_bodies(what, arch, "flash_decode", cfg,
                             k3 * m["decode_steps"],
                             max(len(t.prompt_ids) for t in tasks) + 32)
@@ -6017,12 +6074,14 @@ def main() -> None:
         records[name]["tuned"] = entry
     counts, gen = serve_phase()
     records["flash_attention_fwd"]["launches"] = counts["flash_attention_fwd"]
+    # the serving path: serve.run in float32, the timed generate in bf16
     by_variant = {v: sum(run[v] for run in
                          gen["flash_launches_by_variant"].values())
-                  for v in ("simt", "wgmma")}
-    if min(by_variant.values()) < 1:
+                  for v in ("simt", "wgmma", "tf32x3")}
+    if min(by_variant["wgmma"], by_variant["tf32x3"]) < 1:
         fail(f"a K1 kernel was not launched on the serving path: {by_variant}")
     records["flash_attention_fwd"]["launches_by_variant"] = by_variant
+    records["flash_attention_fwd_tf32x3"]["launches"] = by_variant["tf32x3"]
     records["flash_decode"]["launches"] = counts["flash_decode"]
     say("serve summary " + json.dumps(gen))
     records["paged_flash_decode"]["launches"], paged, measured = (
@@ -6037,14 +6096,19 @@ def main() -> None:
     say("recovery summary " + json.dumps(dict(rec, **CARD)))
     for name in ("flash_attention_fwd", "paged_flash_decode"):
         records[name]["monitored_launches"] = mon["launches"][name]
+    records["flash_attention_fwd_tf32x3"]["monitored_launches"] = (
+        mon["trainer_k1_by_variant"]["tf32x3"])
     train = train_phase()
     records["mlstm_scan"]["launches"] = train["xlstm-1.3b"][0]["mlstm_scan"]
     for name, rec in records.items():
         # launches on the training path: xlstm's run for the scan, the
         # dense run for the attention kernels
         arch = "xlstm-1.3b" if name == "mlstm_scan" else ARCH
-        rec["train_launches"] = train[arch][0][name]
-    for arch, (_, summary, _) in train.items():
+        if name in train[arch][0]:
+            rec["train_launches"] = train[arch][0][name]
+    records["flash_attention_fwd_tf32x3"]["train_launches"] = (
+        train[ARCH][3]["tf32x3"])
+    for arch, (_, summary, _, _) in train.items():
         say(f"train summary {arch} " + json.dumps(summary))
     step = xlstm_step_phase()
     say("xlstm train step summary " + json.dumps(step))
@@ -6061,6 +6125,8 @@ def main() -> None:
     say("qwen train step summary " + json.dumps(dict(qstep, **CARD)))
     records["flash_attention_fwd"]["train_step_launches_by_variant"] = (
         qstep["launches_by_variant"])
+    records["flash_attention_fwd_tf32x3"]["train_step_launches"] = (
+        qstep["f32_launches_by_variant"]["tf32x3"])
     par = parallel_phase()
     records.update(par.pop("hd"))
     say("parallel summary " + json.dumps(dict(par, **CARD)))

@@ -80,7 +80,7 @@ _MICRO_SHAPES = {
     "ssm_scan": ShapeBucket.make("micro", B=1, S=64, H=2, D=64),
 }
 _MICRO_CONFIGS = {
-    "flash_attention": dict(tuning.COMPILED["flash_attention"]),
+    "flash_attention": dict(tuning.COMPILED["flash_attention"][0]),
     "decode_attention": dict(tuning.BUILTIN_DEFAULTS["decode_attention"]),
     "paged_attention": dict(tuning.BUILTIN_DEFAULTS["paged_attention"]),
     "ssm_scan": dict(tuning.BUILTIN_DEFAULTS["ssm_scan"]),

@@ -20,10 +20,12 @@
 // tiles cost nothing (on the TPU they still took a grid step).  The
 // sequential k axis of the TPU grid becomes that loop; the VMEM carry
 // becomes per-thread registers.  Products run on the fp32 CUDA cores and
-// tiles are staged synchronously.  This kernel serves float32 (whose 2e-5
-// tolerance rules out TF32 and bf16 tensor cores) and the head dims the
-// tensor-core kernel does not take; bf16 at D = 64 or 128 goes to
-// flash_attention_fwd_sm90.cu (ops._variant).
+// tiles are staged synchronously.  This kernel serves only the head dims
+// the tensor-core kernels do not take (ops._variant): at D = 64, 80 and
+// 128, bf16 goes to flash_attention_fwd_sm90.cu, and float32 to
+// flash_attention_fwd_tf32x3.cu, whose 3xTF32 split (three TF32 products
+// of hi/lo operands) holds the 2e-5 tolerance that one TF32 product
+// misses.
 #include "common.cuh"
 
 namespace {

@@ -1,6 +1,7 @@
 // PTX wrappers for Hopper (sm_90a) used by the hand-written kernels: shared
 // memory addresses, mbarriers, TMA tensor loads, wgmma (descriptors, fences,
-// the m64n64k16 bf16 products), ldmatrix and mma.sync, and cp.async.  Only
+// the m64n64k16 bf16 products), ldmatrix and mma.sync (bf16, and tf32 with
+// the 3xTF32 split), and cp.async.  Only
 // nvcc is needed: nothing here comes from CUTLASS or CuTe.
 #pragma once
 
@@ -206,6 +207,42 @@ __device__ __forceinline__ void mma_m16n8k16(float (&c)[4],
       " {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// ---------------------------------------------------------------- 3xTF32
+// x = hi + lo as TF32 bit patterns for mma's .tf32 operands: hi = tf32(x),
+// lo = tf32(x - hi), both rounded to nearest, ties away (x - hi is exact).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(x - __uint_as_float(hi)));
+}
+
+// c[16 x 8] += a[16 x 8] * b[8 x 8], tf32 in, fp32 accumulate, in the
+// fragments of the PTX ISA's m16n8k8 .row.col layout: lane (g = l / 4,
+// t4 = l % 4) holds a {(g, t4), (g + 8, t4), (g, t4 + 4), (g + 8, t4 + 4)},
+// b {(k t4, n g), (k t4 + 4, n g)} and c {(g, 2t4), (g, 2t4 + 1),
+// (g + 8, 2t4), (g + 8, 2t4 + 1)}.
+__device__ __forceinline__ void mma_m16n8k8_tf32(float (&c)[4],
+                                                 const uint32_t (&a)[4],
+                                                 uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3},"
+      " {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The float32 product a * b as three TF32 products of the split operands
+// (split_tf32), the small ones first: lo(a) hi(b) + hi(a) lo(b) + hi(a)
+// hi(b).  The dropped lo(a) lo(b) is 2^-22 of the product.
+__device__ __forceinline__ void mma_m16n8k8_tf32x3(float (&c)[4],
+                                                   const uint32_t (&ah)[4],
+                                                   const uint32_t (&al)[4],
+                                                   const uint32_t (&bh)[2],
+                                                   const uint32_t (&bl)[2]) {
+  mma_m16n8k8_tf32(c, al, bh[0], bh[1]);
+  mma_m16n8k8_tf32(c, ah, bl[0], bl[1]);
+  mma_m16n8k8_tf32(c, ah, bh[0], bh[1]);
 }
 
 // -------------------------------------------------------------- cp.async

@@ -6,13 +6,15 @@ Replace the Pallas TPU kernel ``repro/kernels/flash_attention/kernel.py
 on the H100 (tensor-core FLOPs at long S: ``4*B*H*Sq*Sk*D/2`` causal)
 and what its design does about that.
 
-Two kernels, chosen by ``_variant(dtype, D)``: ``"wgmma"``
-(``csrc/flash_attention_fwd_sm90.cu``: tensor cores, GQA-packed rows, TMA)
-for bfloat16 at D = 64, 80 or 128, and ``"simt"`` (``csrc/
-flash_attention_fwd.cu``: fp32 CUDA cores) for float32 and every other D.
-At D = 80 (h2o-danube) the tensor-core kernel pads the head dim to 128 in
-shared memory, as the reference's wrapper pads it in HBM, and scales by
-the true D.
+Three kernels, chosen by ``_variant(dtype, D)`` from the dtype and D alone:
+``"wgmma"`` (``csrc/flash_attention_fwd_sm90.cu``: tensor cores, GQA-packed
+rows, TMA) for bfloat16 at D = 64, 80 or 128; ``"tf32x3"`` (``csrc/
+flash_attention_fwd_tf32x3.cu``: tensor cores in float32 by the 3xTF32
+split, GQA-packed rows, a cp.async ring) for float32 at those D; and
+``"simt"`` (``csrc/flash_attention_fwd.cu``: fp32 CUDA cores) for every
+other D.  At D = 80 (h2o-danube) the wgmma kernel pads the head dim to 128
+in shared memory, as the reference's wrapper pads it in HBM, and scales by
+the true D; the tf32x3 kernel takes 80 as it is (10 steps of 8).
 
 ``flash_attention`` takes the model layout ``[B, S, H, D]`` as the JAX
 entry point does.  On a CPU tensor it runs ``flash_attention_ref``; on a
@@ -51,37 +53,48 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal=causal, window=window, scale=scale)
 
 
-# the packed tensor-core kernel's tiles and head dims
-# (flash_attention_fwd_sm90.cu)
+# the packed tensor-core kernels' tiles (packed rows a block, keys a tile)
+# and head dims: bf16 (flash_attention_fwd_sm90.cu) and float32 by 3xTF32
+# (flash_attention_fwd_tf32x3.cu)
 ROWS, KEYS = 128, 64
+TF32_ROWS, TF32_KEYS = 64, 32
+TILES = {"wgmma": (ROWS, KEYS), "tf32x3": (TF32_ROWS, TF32_KEYS)}
 WGMMA_DIMS = (64, 80, 128)
-_SOURCES = {"simt": "flash_attention_fwd", "wgmma": "flash_attention_fwd_sm90"}
+TF32X3_DIMS = (64, 80, 128)
+_SOURCES = {"simt": "flash_attention_fwd", "wgmma": "flash_attention_fwd_sm90",
+            "tf32x3": "flash_attention_fwd_tf32x3"}
 
 
 def _variant(dtype: torch.dtype, D: int) -> str:
     """The kernel that serves ``dtype`` at head dim ``D``."""
-    return "wgmma" if dtype == torch.bfloat16 and D in WGMMA_DIMS else "simt"
+    if dtype == torch.bfloat16 and D in WGMMA_DIMS:
+        return "wgmma"
+    if dtype == torch.float32 and D in TF32X3_DIMS:
+        return "tf32x3"
+    return "simt"
 
 
 def _tile_plan(Sq: int, Sk: int, G: int, causal: bool,
-               window: Optional[int]):
-    """The packed kernel's walk, block by block for one (b, hk): packed
-    row R is (position R // G, head R % G of the group); a block holds
-    ROWS packed rows and visits key tiles of KEYS keys from the window's
+               window: Optional[int], variant: str = "wgmma"):
+    """The walk of a packed kernel (``variant`` "wgmma" or "tf32x3", tiles
+    from ``TILES``), block by block for one (b, hk): packed row R is
+    (position R // G, head R % G of the group); a block holds ``rows``
+    packed rows and visits key tiles of ``keys`` keys from the window's
     first tile to the causal diagonal of its last position, masking only
     the tiles that straddle Sk, the diagonal or the window edge.  Yields
     ``(r0, r1, [(k0, masked), ...])`` per block (rows r0..r1-1); the CUDA
     kernel computes the same."""
+    n_rows, keys = TILES[variant]
     rows = Sq * G
-    for r0 in range(0, rows, ROWS):
-        r1 = min(r0 + ROWS, rows)
+    for r0 in range(0, rows, n_rows):
+        r1 = min(r0 + n_rows, rows)
         p_lo, p_hi = r0 // G, (r1 - 1) // G
         hi = min(Sk, p_hi + 1) if causal else Sk
         lo = max(0, p_lo - window + 1) if window is not None else 0
-        lo = lo // KEYS * KEYS
+        lo = lo // keys * keys
         tiles = []
-        for k0 in range(lo, hi, KEYS):
-            full = (k0 + KEYS <= Sk and (not causal or k0 + KEYS - 1 <= p_lo)
+        for k0 in range(lo, hi, keys):
+            full = (k0 + keys <= Sk and (not causal or k0 + keys - 1 <= p_lo)
                     and (window is None or k0 > p_hi - window))
             tiles.append((k0, not full))
         yield r0, r1, tiles
@@ -137,7 +150,7 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if variant == "simt":
         head += (_DTYPES[q.dtype],)
     elif any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("flash_attention: the bfloat16 kernel needs "
+        raise ValueError(f"flash_attention: the {variant} kernel needs "
                          "16-byte aligned q, k, v")
     err = getattr(lib, name)(
         *head, q.device.index or 0,
@@ -161,4 +174,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention.launches = 0
-flash_attention.launches_by_variant = {"simt": 0, "wgmma": 0}
+flash_attention.launches_by_variant = {"simt": 0, "wgmma": 0, "tf32x3": 0}

@@ -15,10 +15,12 @@ empty table changes no launch:
   ``serve.kv_cache.PagedKVCache`` when it sizes the pool (the wrapper
   takes the page from the pool's shape);
 * ``ssm_scan`` (K4): ``chunk``, at most the kernels' 64-row score tile;
-* ``flash_attention`` (K1): none.  Its tiles (``ROWS, KEYS = 128, 64`` in
-  ``flash_attention/ops.py``) are compile-time constants of the CUDA
-  source, listed in ``COMPILED``: a CostDB record may name them, at
-  those values only.
+* ``flash_attention`` (K1): none.  The tiles of its packed tensor-core
+  kernels (``flash_attention/ops.py::TILES``: the bf16 kernel's ``ROWS,
+  KEYS = 128, 64``, the float32 3xTF32 kernel's ``TF32_ROWS, TF32_KEYS =
+  64, 32``) are compile-time constants of the CUDA sources, listed in
+  ``COMPILED``: a CostDB record under ``flash_attention`` may name either
+  kernel's set, at those values only.
 
 Devices are keyed by ``torch.cuda.get_device_name()`` (``"H100"`` on the
 card).  The table is filled by ``repro_torch.autotune.load_tuned_defaults``
@@ -36,10 +38,12 @@ BUILTIN_DEFAULTS: Dict[str, Dict[str, int]] = {
     "paged_attention": {"page_size": 128, "min_split_tiles": 8},
 }
 
-# knobs fixed when the kernel is compiled: a config may name them, at these
-# values only, and registering them changes no launch
-COMPILED: Dict[str, Dict[str, int]] = {
-    "flash_attention": {"rows": 128, "keys": 64},
+# knobs fixed when a kernel is compiled, one set per compiled kernel (K1:
+# the bf16 wgmma kernel's tiles, then the float32 tf32x3 kernel's): a
+# config may name one set's values only, and registering them changes no
+# launch
+COMPILED: Dict[str, Tuple[Dict[str, int], ...]] = {
+    "flash_attention": ({"rows": 128, "keys": 64}, {"rows": 64, "keys": 32}),
 }
 
 # the values each knob's kernel can take, inclusive (None: no upper limit)
@@ -108,19 +112,22 @@ def register_tuned(device_type: str, kernel: str,
     if known is None:
         raise KeyError(f"unknown kernel {kernel!r}; "
                        f"tunable: {sorted(BUILTIN_DEFAULTS)}")
-    fixed = COMPILED.get(kernel, {})
-    bad = set(config) - set(known) - set(fixed)
+    sets = COMPILED.get(kernel, ())
+    fixed = {knob for compiled in sets for knob in compiled}
+    bad = set(config) - set(known) - fixed
     if bad:
         raise KeyError(f"unknown knobs {sorted(bad)} for kernel {kernel!r}; "
                        f"tunable: {sorted(known)}")
+    named = {knob: int(v) for knob, v in config.items() if knob in fixed}
+    if named and not any(all(compiled.get(knob) == v
+                             for knob, v in named.items())
+                         for compiled in sets):
+        raise ValueError(f"{kernel} is compiled with "
+                         f"{' or '.join(map(str, sets))}, not {named}")
     tuned = {}
     for knob, value in config.items():
         value = int(value)
         if knob in fixed:
-            if value != fixed[knob]:
-                raise ValueError(
-                    f"{kernel}.{knob} is compiled as {fixed[knob]}, not "
-                    f"{value}")
             continue
         lo, hi = RANGES[(kernel, knob)]
         if value < lo or (hi is not None and value > hi):

@@ -307,8 +307,10 @@ def test_builtin_defaults_name_the_knobs_the_wrappers_read():
                             "min_split_tiles": decode_ops.MIN_SPLIT_TILES},
         "ssm_scan": {"chunk": scan_ops.MAX_CHUNK},
     }
-    assert tuning.COMPILED["flash_attention"] == {"rows": flash_ops.ROWS,
-                                                  "keys": flash_ops.KEYS}
+    assert tuning.COMPILED["flash_attention"] == tuple(
+        {"rows": rows, "keys": keys}
+        for rows, keys in (flash_ops.TILES["wgmma"],
+                           flash_ops.TILES["tf32x3"]))
     assert tuning.RANGES[("ssm_scan", "chunk")] == (1, scan_ops.MAX_CHUNK)
 
 
@@ -332,6 +334,16 @@ def test_register_resolve_clear_override(clean_tuning):
     assert tuning.current_device_type() is None       # no card here
 
 
+@pytest.mark.parametrize("config", [{"rows": 64, "keys": 32}, {"keys": 32},
+                                    {"rows": 128, "keys": 64}])
+def test_a_record_may_name_either_k1_kernels_tiles(config, clean_tuning):
+    """A CostDB record of K1 naming the float32 kernel's compiled tiles
+    is read as one naming the bf16 kernel's: accepted, no knob tuned."""
+    tuning.register_tuned("H100", "flash_attention", config)
+    with tuning.override_device_type("H100"):
+        assert tuning.tuned_config("flash_attention") == {}
+
+
 @pytest.mark.parametrize("kernel,config,error", [
     ("flash_attention", {"block_q": 128}, KeyError),      # a TPU knob
     ("decode_attention", {"block_c": 512}, KeyError),
@@ -341,6 +353,7 @@ def test_register_resolve_clear_override(clean_tuning):
     ("decode_attention", {"min_split_tiles": 0}, ValueError),
     ("paged_attention", {"page_size": 0}, ValueError),
     ("flash_attention", {"rows": 64, "keys": 64}, ValueError),
+    ("flash_attention", {"rows": 128, "keys": 32}, ValueError),  # mixed sets
 ])
 def test_register_tuned_refuses(kernel, config, error, clean_tuning):
     with pytest.raises(error):
