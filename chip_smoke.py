@@ -32,11 +32,13 @@ Phases (any failure exits non-zero before the result line):
    timed at n_split 1, 2, 4, 8 and the default at B=32 and B=8, 64 over
    8192 slots.  K2, on the same split-cache kernels, gets the same split
    cases over the paged layout (pages of 4 / 16 / 128) and the same split
-   sweep.  K4 has two kernels (``_variant``): the tensor-core kernel
-   (bfloat16 at D 64..512) runs through the wrapper at the CPU sweep's
-   shapes widened to D 64 / 128 / 256 and at D 512 (train, prefill and
-   long shapes), the CUDA-core kernel through its C entry beside it, both
-   with the final carry.  GQA groups: K3 and K2 at G = 7 and 5 (the
+   sweep.  K4 has three kernels (``_variant``): at D 64..512 the
+   tensor-core kernels ("mma" in bfloat16, "tf32x3" in float32: three TF32
+   products) run through the wrapper at the CPU sweep's shapes widened to
+   D 64 / 128 / 256 and at D 512 (train, prefill and long shapes), the
+   CUDA-core kernel ("simt") through its C entry beside them, all with the
+   final carry; a call at D 64..512 that takes "simt" fails the phase.
+   GQA groups: K3 and K2 at G = 7 and 5 (the
    7B / 14B configs, 28 / 4 and 40 / 8 heads) and above 8, G = 12 (48 / 4,
    starcoder2-15b) and 16 (64 / 4), D = 128, at one split and at splits
    forced above 1, one launch a call; K1 prefill at the 7B / 14B head
@@ -46,12 +48,12 @@ Phases (any failure exits non-zero before the result line):
    kernel, its plain version and ``scaled_dot_product_attention`` as a
    yardstick (for the paged kernel over the pre-gathered dense cache: the
    gather is not timed), and K1's and K4's CUDA-core kernels beside their
-   tensor-core ones (K1 in both dtypes), beside the least time the card
-   could take for the same work, at the B=32 shapes and the long shapes
-   (K1 also at the float32 train step's B=8 x 160).  The bound of the
-   float32 tensor-core kernel counts its operations at the TF32 peak over
-   3 (``PEAK_FLOPS["tf32x3"]``), of the CUDA-core kernel at the float32
-   CUDA-core peak.
+   tensor-core ones (both in both dtypes; K4's by pass too), beside the
+   least time the card could take for the same work, at the B=32 shapes
+   and the long shapes (K1 also at the float32 train step's B=8 x 160).
+   The bound of the float32 tensor-core kernels counts their operations
+   at the TF32 peak over 3 (``PEAK_FLOPS["tf32x3"]``), of the CUDA-core
+   kernels at the float32 CUDA-core peak (printed beside it).
    The autotuner (``autotune_phase``): a full ``run_sweep`` of the four
    kernels, H100 measured (every feasible config of every bucket through
    its wrapper, the knob passed explicitly, CUDA events, median of 20, L2
@@ -120,7 +122,7 @@ Phases (any failure exits non-zero before the result line):
    twice mid-run gives an uninterrupted run's tokens.
    Training: ``repro_torch.launch.train`` at
    full width with the launcher's setup (float32: xlstm-1.3b 3 steps, its
-   scans all on K4's CUDA-core kernel; qwen 2 steps with ``--schedule``,
+   scans all on K4's "tf32x3" kernel; qwen 2 steps with ``--schedule``,
    whose plan must split 16 devices into disjoint D_T / D_I with finite
    positive gamma, C_T and C_I), then timed and
    profiled GRPO steps of xlstm-1.3b on the published config (bfloat16,
@@ -189,8 +191,8 @@ Phases (any failure exits non-zero before the result line):
    steps fed the CPU's greedy tokens.  Paged: prefill in chunks of 16 over
    pages of 16 (so chunks with p0 > 0 run) + 8 paged decode steps with an
    inactive third slot.  Logits agree within 1e-3 of max |logit|.  xlstm:
-   forward, prefill carry and 8 decode steps (its scans on the CUDA-core
-   kernel); one train step of each family, loss and grad_norm within 1e-3.
+   forward, prefill carry and 8 decode steps (its scans on "tf32x3");
+   one train step of each family, loss and grad_norm within 1e-3.
    The 7B and 14B at full width cut to 2 layers, static path as above.
 5. The other model families (qwen2.5-3b, h2o-danube-1.8b, starcoder2-15b,
    yi-34b, internvl2-2b, qwen3-moe-235b-a22b, grok-1-314b, hymba-1.5b,
@@ -230,8 +232,9 @@ Phases (any failure exits non-zero before the result line):
    and qwen3-moe at full width and 1 layer: 2 K1 launches per layer a
    step, finite loss and grad norm, params moved.
 
-The line before the last is ``{"kernels": [...]}`` (six kernels: K1,
-K3, K2, K4 and K3's two head-dim passes); the last line is
+The line before the last is ``{"kernels": [...]}`` (eight records: K1
+and its float32 kernel, K3, K2, K4 and its float32 kernel, K3's two
+head-dim passes); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 from __future__ import annotations
@@ -1100,16 +1103,17 @@ def mlstm_plain(q, k, v, ig, fg, chunk, return_state=False):
 
 
 def mlstm_work(B, S, H, D, chunk, itemsize):
-    """(bytes, FLOPs) of one scan: q/k/v read and h written once over the
-    padded length, the float32 gates; per chunk and row 4 T^2 D + 4 T D^2
-    FLOPs (q k^T, scores v, q C, the C update).  ``q n_t`` needs no
-    ``[T, D]`` product: it is the row sum of the weighted scores plus
-    ``e^(a - m) q n``."""
-    Sp = -(-S // chunk) * chunk
+    """(bytes, FLOPs) this scan needs: q/k/v read and h written once over
+    the real length S (a short last chunk is not padded), the float32
+    gates; per row 4 S D^2 FLOPs (q C and the C update) and, per chunk of
+    T_c steps, 2 D T_c (T_c + 1) (the causal half of q k^T and of the
+    scores times v).  ``q n_t`` needs no ``[T, D]`` product: it is the row
+    sum of the weighted scores plus ``e^(a - m) q n``."""
     BH = B * H
-    n_bytes = itemsize * 4 * BH * Sp * D + 4 * 2 * BH * Sp
-    return n_bytes, BH * (Sp // chunk) * (4.0 * chunk ** 2 * D
-                                          + 4.0 * chunk * D ** 2)
+    n_bytes = itemsize * 4 * BH * S * D + 4 * 2 * BH * S
+    tri = sum(T * (T + 1) for T in
+              [chunk] * (S // chunk) + [S % chunk] * (S % chunk > 0))
+    return n_bytes, BH * (4.0 * S * D ** 2 + 2.0 * D * tri)
 
 
 def _pass_ms(fn, names, reps=5):
@@ -1162,27 +1166,31 @@ def _simt_scan(q, k, v, ig, fg, chunk, return_state=False):
 
 
 def ssm_kernel_phase(train_len):
-    """Hold both mLSTM scan kernels (K4: ``_variant`` picks "mma" for bf16
-    at D in MMA_D, "simt" otherwise) to the plain chunkwise version in
-    float32 and bfloat16, the final carry included; time the main-path and
-    long shapes, the CUDA-core kernel in bf16 beside the tensor-core one.
-    Returns its record of the result line."""
+    """Hold K4's three kernels (``_variant``: at D in MMA_D "mma" for bf16
+    and "tf32x3" for float32, "simt" otherwise) to the plain chunkwise
+    version in float32 and bfloat16, the final carry included, the
+    CUDA-core kernel beside each tensor-core call; time the main-path and
+    long shapes, the CUDA-core kernel and the two passes beside the
+    tensor-core kernels.  Returns the records of the result line: K4 (its
+    bf16 kernel first) and its float32 kernel."""
     import torch
     from repro_torch.kernels.ssm_scan.ops import _variant, mlstm_scan
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
     stats = {"checks": 0, "max_abs_err": 0.0}
+    kerr = {}          # worst error by (kernel, dtype)
     timings = {}
     chunk = 64
 
-    def check(what, got, want, dtype, shape):
+    def check(what, got, want, dtype, shape, name):
         _check("mlstm_scan", got, want, dtype, shape, stats, MLSTM_TOL)
-        say(f"  mlstm_scan {shape} {what} {dtype}: ok, max err "
-            f"{_max_err(got, want):.2e}")
+        err = _max_err(got, want)
+        kerr[(name, dtype)] = max(kerr.get((name, dtype), 0.0), err)
+        say(f"  mlstm_scan {shape} {what} {dtype}: ok, max err {err:.2e}")
 
     # the CPU test sweep (B, S, H, D, chunk), S = 50 the padding path, and
-    # the same at the D the tensor-core kernel is built for; then the
+    # the same at the D the tensor-core kernels are built for; then the
     # xlstm-1.3b train batch of the launcher (8 x 4 heads, S 160 padded to
     # 192), its prefill (S 33) and a long shape
     main = (8, train_len, 4, 512, chunk)
@@ -1197,6 +1205,12 @@ def ssm_kernel_phase(train_len):
         for dtype in ("float32", "bfloat16"):
             args = mlstm_case(B, S, H, D, dtype, gen)
             variant = _variant(args[0].dtype, D)
+            # the kernel each call must take, written out here
+            expect = ({"bfloat16": "mma", "float32": "tf32x3"}[dtype]
+                      if D in (64, 128, 256, 512) else "simt")
+            if variant != expect:
+                fail(f"mlstm_scan {shape} {dtype}: _variant gives {variant},"
+                     f" expected {expect}")
             before = dict(mlstm_scan.launches_by_variant)
             got = mlstm_scan(*args, chunk=T)
             if (mlstm_scan.launches_by_variant[variant]
@@ -1205,64 +1219,86 @@ def ssm_kernel_phase(train_len):
                      f"-> {mlstm_scan.launches_by_variant}, expected one "
                      f"{variant} launch")
             want = mlstm_plain(*args, T)
-            check(f"h ({variant})", got, want, dtype, shape)
-            if variant == "mma":
-                check("h (simt)", _simt_scan(*args, T), want, dtype, shape)
+            check(f"h ({variant})", got, want, dtype, shape, variant)
+            if variant != "simt":
+                check("h (simt)", _simt_scan(*args, T), want, dtype, shape,
+                      "simt")
             del got, want
             if shape in with_state:
                 h_ref, ref = mlstm_plain(*args, T, return_state=True)
                 runs = {variant: mlstm_scan(*args, chunk=T,
                                             return_state=True)}
-                if variant == "mma":
+                if variant != "simt":
                     runs["simt"] = _simt_scan(*args, T, return_state=True)
                 for name, (h, state) in runs.items():
-                    check(f"h with state ({name})", h, h_ref, dtype, shape)
+                    check(f"h with state ({name})", h, h_ref, dtype, shape,
+                          name)
                     for part, got, want in zip("Cnm", state, ref):
                         check(f"final {part} ({name})", got, want, dtype,
-                              shape)
+                              shape, name)
                 del runs, h_ref, ref
-            if shape in (main, long):
-                if dtype == "bfloat16" and variant != "mma":
-                    fail(f"mlstm_scan {shape} bf16 took {variant}")
+            if shape in (main, prefill, long):
                 n_bytes, flops = mlstm_work(B, S, H, D, T,
                                             args[0].element_size())
-                bound, by = _bound_ms(n_bytes, flops, dtype)
+                # the route's own peak: TF32 / 3 for the 3xTF32 kernel
+                bound, by = _bound_ms(n_bytes, flops, "tf32x3"
+                                      if variant == "tf32x3" else dtype)
                 t = dict(
                     ms=_time_ms(lambda: mlstm_scan(*args, chunk=T), flush),
                     plain_ms=_time_ms(lambda: mlstm_plain(*args, T), flush),
                     library_ms=None, bound_ms=bound, bound_by=by,
                     variant=variant)
-                if variant == "mma":
-                    t["simt_ms"] = _time_ms(lambda: _simt_scan(*args, T),
-                                            flush)
-                    t["passes_ms"] = _pass_ms(lambda: mlstm_scan(
-                        *args, chunk=T), ("mlstm_intra", "mlstm_carry"))
+                t["simt_ms"] = _time_ms(lambda: _simt_scan(*args, T), flush)
+                # the CUDA-core kernel's own bound: fp32 CUDA-core math in
+                # either dtype
+                t["simt_bound_ms"] = _bound_ms(n_bytes, flops, "float32")[0]
+                t["passes_ms"] = _pass_ms(
+                    lambda: mlstm_scan(*args, chunk=T),
+                    ("mlstm_scores",) * (variant == "tf32x3")
+                    + ("mlstm_intra", "mlstm_carry"))
                 timings[(shape, dtype)] = t
             del args
             torch.cuda.synchronize()
     for (shape, dtype), t in timings.items():
-        extra = (f", CUDA-core kernel {t['simt_ms']:.4f} ms, by pass "
-                 + ", ".join(f"{k} {v:.4f} ms" for k, v in
-                             t["passes_ms"].items())
-                 if "simt_ms" in t else "")
         say(f"  time mlstm_scan {shape} {dtype} ({t['variant']}): kernel "
             f"{t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
             f"({t['bound_by']}), plain {t['plain_ms']:.4f} ms, no single "
-            f"PyTorch call{extra}")
-    say(f"kernels: mlstm_scan (both kernels) holds to its plain version at "
-        f"every shape ({stats['checks']} checks)")
-    return dict(
-        route="cuda",
-        source="src/repro_torch/kernels/csrc/mlstm_scan_sm90.cu",
-        sources={"mma": "src/repro_torch/kernels/csrc/mlstm_scan_sm90.cu",
-                 "simt": "src/repro_torch/kernels/csrc/mlstm_scan.cu"},
-        replaces="src/repro/kernels/ssm_scan/kernel.py:87",
-        max_abs_err=stats["max_abs_err"], checks=stats["checks"],
-        library="none: no single PyTorch call computes the mLSTM scan",
-        **timings[(main, "bfloat16")],
-        float32=timings[(main, "float32")],
-        long=dict(shape=long, **timings[(long, "bfloat16")]),
-        long_float32=timings[(long, "float32")])
+            f"PyTorch call, CUDA-core kernel {t['simt_ms']:.4f} ms (its "
+            f"bound {t['simt_bound_ms']:.4f} ms), by pass " + ", ".join(
+                f"{k} {v:.4f} ms" for k, v in t["passes_ms"].items())
+            + f"; {CARD['card']}")
+    say(f"kernels: mlstm_scan (all three kernels) holds to its plain version"
+        f" at every shape ({stats['checks']} checks); worst max err "
+        + ", ".join(f"{name} {dtype} {e:.2e}" for (name, dtype), e in
+                    sorted(kerr.items())))
+    sources = {"mma": "src/repro_torch/kernels/csrc/mlstm_scan_sm90.cu",
+               "tf32x3": "src/repro_torch/kernels/csrc/mlstm_scan_tf32x3.cu",
+               "simt": "src/repro_torch/kernels/csrc/mlstm_scan.cu"}
+    return {
+        "mlstm_scan": dict(
+            route="cuda", source=sources["mma"], sources=sources,
+            replaces="src/repro/kernels/ssm_scan/kernel.py:87",
+            max_abs_err=stats["max_abs_err"], checks=stats["checks"],
+            max_abs_err_by_kernel={f"{name} {dtype}": e for (name, dtype), e
+                                   in sorted(kerr.items())},
+            library="none: no single PyTorch call computes the mLSTM scan",
+            **timings[(main, "bfloat16")],
+            float32=timings[(main, "float32")],
+            prefill=dict(shape=prefill, **timings[(prefill, "bfloat16")]),
+            long=dict(shape=long, **timings[(long, "bfloat16")]),
+            long_float32=timings[(long, "float32")]),
+        # K4's float32 kernel on its own line: the launcher's train batch,
+        # its prefill, then the long shape; launches are counted on the
+        # float32 paths in main()
+        "mlstm_scan_tf32x3": dict(
+            route="cuda", source=sources["tf32x3"],
+            replaces="src/repro/kernels/ssm_scan/kernel.py:87",
+            max_abs_err=kerr[("tf32x3", "float32")],
+            simt_max_abs_err=kerr[("simt", "float32")],
+            library="none: no single PyTorch call computes the mLSTM scan",
+            shape=main, **timings[(main, "float32")],
+            prefill=dict(shape=prefill, **timings[(prefill, "float32")]),
+            long=dict(shape=long, **timings[(long, "float32")]))}
 
 
 def flash_grad_phase():
@@ -3252,9 +3288,10 @@ def train_phase():
             say(f"{what} --schedule plan (8 H800 + 8 H20):\n"
                 + out["schedule"])
         scan_variants = _scan_variants()
-        if scan_variants != {"simt": counts["mlstm_scan"], "mma": 0}:
+        if scan_variants != {"simt": 0, "mma": 0,
+                             "tf32x3": counts["mlstm_scan"]}:
             fail(f"{what}: mlstm_scan launches by kernel {scan_variants}, "
-                 "expected every one on the CUDA-core kernel (float32)")
+                 "expected every one on the 3xTF32 kernel (float32, D 512)")
         # float32 at D 128: every K1 launch on the 3xTF32 kernel
         flash_variants = _expect_variants(
             what, {"tf32x3": counts["flash_attention_fwd"]})
@@ -3389,7 +3426,7 @@ def xlstm_step_phase():
         want = dict.fromkeys(counts, 0)
         want["mlstm_scan"] = 2 * cfg.n_layers      # forward + remat recompute
         variants = _scan_variants()
-        want_variants = {"simt": 0, "mma": want["mlstm_scan"]}
+        want_variants = {"simt": 0, "mma": want["mlstm_scan"], "tf32x3": 0}
         if counts != want or variants != want_variants or not (
                 math.isfinite(loss) and math.isfinite(gnorm)):
             fail(f"xlstm bf16 train step: launches {counts} by kernel "
@@ -4913,9 +4950,9 @@ def xlstm_teacher_forced_phase():
             lg_cpu, c_cpu = xlstm.decode_step(on_cpu, cfg, c_cpu, tok, pos)
     # one scan per layer for the forward and for the prefill, all float32
     variants = _scan_variants()
-    if variants != {"simt": 2 * cfg.n_layers, "mma": 0}:
+    if variants != {"simt": 0, "mma": 0, "tf32x3": 2 * cfg.n_layers}:
         fail(f"xlstm teacher-forced: mlstm_scan launches by kernel "
-             f"{variants}, expected {2 * cfg.n_layers} on the CUDA-core "
+             f"{variants}, expected {2 * cfg.n_layers} on the 3xTF32 "
              "kernel")
     say("xlstm teacher-forced card vs cpu (4 layers, float32, forward, "
         f"prefill + carry, {steps} decode steps): worst max |card - cpu| / "
@@ -4967,10 +5004,11 @@ def train_step_parity_phase():
                 key = ("mlstm_scan" if cfg.family == "ssm"
                        else "flash_attention_fwd")
                 if counts[key] != n_steps * cfg.n_layers or (
-                        key == "mlstm_scan" and _scan_variants()["mma"]):
+                        key == "mlstm_scan" and _scan_variants()["tf32x3"]
+                        != counts[key]):
                     fail(f"train step parity {arch}: launches {counts} (scan "
                          f"by kernel {_scan_variants()}), expected "
-                         f"{n_steps * cfg.n_layers} {key}, none on the bf16 "
+                         f"{n_steps * cfg.n_layers} {key}, all on the 3xTF32 "
                          "kernel")
         del card, params, state
         rel = [abs(a - b) / abs(b) for a, b in zip(*res)]
@@ -6061,7 +6099,7 @@ def main() -> None:
     records["paged_flash_decode"] = paged_kernel_phase(
         max(len(t.prompt_ids) for t in MathTaskGenerator(seed=0).batch(8)),
         128)
-    records["mlstm_scan"] = ssm_kernel_phase(160)
+    records.update(ssm_kernel_phase(160))
     resident = resident_check()
     for name in ("flash_decode", "paged_flash_decode"):
         records[name]["resident"] = resident[name]
@@ -6099,13 +6137,14 @@ def main() -> None:
     records["flash_attention_fwd_tf32x3"]["monitored_launches"] = (
         mon["trainer_k1_by_variant"]["tf32x3"])
     train = train_phase()
-    records["mlstm_scan"]["launches"] = train["xlstm-1.3b"][0]["mlstm_scan"]
+    # the launcher's float32 xlstm run: every scan on the 3xTF32 kernel
+    records["mlstm_scan_tf32x3"]["launches"] = records["mlstm_scan_tf32x3"][
+        "train_launches"] = train["xlstm-1.3b"][2]["tf32x3"]
     for name, rec in records.items():
-        # launches on the training path: xlstm's run for the scan, the
-        # dense run for the attention kernels
-        arch = "xlstm-1.3b" if name == "mlstm_scan" else ARCH
-        if name in train[arch][0]:
-            rec["train_launches"] = train[arch][0][name]
+        # launches on the dense training path for the attention kernels;
+        # K4's records count their own kernel's (above and below)
+        if name != "mlstm_scan" and name in train[ARCH][0]:
+            rec["train_launches"] = train[ARCH][0][name]
     records["flash_attention_fwd_tf32x3"]["train_launches"] = (
         train[ARCH][3]["tf32x3"])
     for arch, (_, summary, _, _) in train.items():
@@ -6113,13 +6152,15 @@ def main() -> None:
     step = xlstm_step_phase()
     say("xlstm train step summary " + json.dumps(step))
     # K4 by kernel over the training runs: the float32 launcher run and the
-    # published-config (bf16) step
+    # published-config (bf16) step; "simt" serves no D of xlstm-1.3b
     scan_by_variant = {v: train["xlstm-1.3b"][2][v]
                        + step["launches_by_variant"][v]
-                       for v in ("simt", "mma")}
-    if min(scan_by_variant.values()) < 1:
+                       for v in ("simt", "mma", "tf32x3")}
+    if min(scan_by_variant["mma"], scan_by_variant["tf32x3"]) < 1:
         fail(f"a K4 kernel was not launched on the training path: "
              f"{scan_by_variant}")
+    records["mlstm_scan"]["launches"] = records["mlstm_scan"][
+        "train_launches"] = step["launches_by_variant"]["mma"]
     records["mlstm_scan"]["launches_by_variant"] = scan_by_variant
     qstep = qwen_step_phase()
     say("qwen train step summary " + json.dumps(dict(qstep, **CARD)))

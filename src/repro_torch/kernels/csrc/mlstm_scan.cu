@@ -23,15 +23,17 @@
 // same sum without forming n_t.  At the xlstm-1.3b train shape (BH = 32,
 // D = 512) that is 32 x 16 = 512 blocks of about 108 KB, two per SM.
 //
-// Bound on the H100: per chunk and row 4 T^2 D + 4 T D^2 FLOPs (q k^T,
-// scores v, q C, the C update; 75.5 MFLOP per 64-step chunk and row at
-// D = 512) against 4 T D elements moved, so in bf16 the bytes and the
+// Bound on the H100: per chunk and row 2 T (T + 1) D + 4 T D^2 FLOPs
+// (the causal half of q k^T and of scores v, then q C and the C update;
+// 71.4 MFLOP per 64-step chunk and row at D = 512) against 4 T D elements moved, so in bf16 the bytes and the
 // tensor-core rate give about the same floor.  Products run on the fp32
 // CUDA cores with synchronous staging, and every value-column block
-// recomputes the [T, T] scores.  Since mlstm_scan_sm90.cu (the tensor
-// cores, an intra-chunk pass and a carry pass) serves bfloat16 at D = 64,
-// 128, 256 and 512, this kernel serves float32, whose 1e-4 tolerance rules
-// out bf16 and TF32 operands, and bfloat16 at other D.
+// recomputes the [T, T] scores.  Since the tensor-core kernels serve
+// D = 64, 128, 256 and 512 (mlstm_scan_sm90.cu bfloat16 with bf16
+// operands as two terms, mlstm_scan_tf32x3.cu float32 with three TF32
+// products: one TF32 product misses float32's 1e-4 over a 4096-step row,
+// tests/test_torch_ssm_tf32x3.py), this kernel serves every other D, in
+// either dtype.
 #include "common.cuh"
 
 namespace {

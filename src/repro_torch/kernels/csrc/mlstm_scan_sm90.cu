@@ -2,15 +2,16 @@
 // bfloat16 q/k/v at D = 64, 128, 256 or 512, as two passes.
 //
 // Replaces the Pallas TPU kernel repro/kernels/ssm_scan/kernel.py
-// ::mlstm_scan_kernel (body _mlstm_kernel) for bfloat16; float32 stays on
-// mlstm_scan.cu, whose 1e-4 tolerance rules out bf16 operands.  Same
+// ::mlstm_scan_kernel (body _mlstm_kernel) for bfloat16; float32, whose
+// 1e-4 tolerance rules out bf16 operands, goes to mlstm_scan_tf32x3.cu.  Same
 // semantics as mlstm_scan.cu, chunk for chunk: per chunk of T <= 64 steps
 // the gate cumsum b, the decay b_t - b_j + g_j (j <= t), the stabiliser
 // m_t, h = (P v + inter_t q C) / den_t with P = (q k^T) o e^(decay - m_t),
 // inter_t = e^(m + b_t - m_t), den_t = max(|rowsum(P)_t + inter_t q.n|,
 // e^(-m_t)), then C = sc C + (k o w_end)^T v, n likewise, m = m_new.
 //
-// Bound on the H100: per chunk and row 4 T^2 D + 4 T D^2 FLOPs against
+// Bound on the H100: per chunk and row 2 T (T + 1) D + 4 T D^2 FLOPs (the
+// causal half of q k^T and of P v, then q C and the C update) against
 // 4 T D elements moved; in bf16 the bytes and the tensor-core rate give
 // about the same floor, and at D = 512 the q C product and the C update
 // carry 4 T D^2 of the work, which is the tensor cores' to do.

@@ -1,23 +1,32 @@
-"""Chunked mLSTM scan: the hand-written Hopper kernel and its plain version.
+"""Chunked mLSTM scan: the hand-written Hopper kernels and their plain version.
 
 Replaces the Pallas TPU kernel ``repro/kernels/ssm_scan/kernel.py
-::mlstm_scan_kernel``.  Two kernels, chosen by ``_variant(dtype, D)``:
-``"mma"`` (``csrc/mlstm_scan_sm90.cu``: an intra-chunk pass and a carry
-pass, the products on the tensor cores) for bfloat16 at D in ``MMA_D``,
-and ``"simt"`` (``csrc/mlstm_scan.cu``: fp32 CUDA cores) for float32,
-whose 1e-4 tolerance rules out bf16 operands, and every other D.  Each
-header says what bounds it on the H100 and what the design does about
-the ``[D, D]`` carry that does not fit one SM's shared memory.
+::mlstm_scan_kernel``.  Three kernels, chosen by ``_variant(dtype, D)``:
+
+- ``"mma"`` (``csrc/mlstm_scan_sm90.cu``): bfloat16 at D in ``MMA_D``;
+- ``"tf32x3"`` (``csrc/mlstm_scan_tf32x3.cu``): float32 at D in ``MMA_D``;
+- ``"simt"`` (``csrc/mlstm_scan.cu``): either dtype at any other D.
+
+"mma" and "tf32x3" are an intra-chunk pass and a carry pass ("tf32x3"
+with the chunks' scores in a pass of their own ahead) with their
+products on the tensor cores: bf16 operands as two bf16 terms, float32
+ones as three TF32 products of hi / lo splits (one TF32 product misses
+float32's 1e-4 over a long row, ``tests/test_torch_ssm_tf32x3.py``);
+"simt" runs on the fp32 CUDA cores.  Each header says what bounds it on
+the H100 and what the design does about the ``[D, D]`` carry that does
+not fit one SM's shared memory.
 
 ``mlstm_scan`` takes the model layout ``q/k/v [B, S, H, D]``, ``ig/fg
-[B, S, H]`` as the JAX entry point does.  The "mma" kernel reads that
-layout in place, any S; for the "simt" kernel and the plain version the
-wrapper pads S to a chunk multiple (the pad steps leave the carry
+[B, S, H]`` as the JAX entry point does.  The tensor-core kernels read
+that layout in place, any S; for the "simt" kernel and the plain version
+the wrapper pads S to a chunk multiple (the pad steps leave the carry
 unchanged) and flattens to ``[B*H, S, D]``.  On a CPU tensor it runs
-``mlstm_chunkwise_ref``; on a CUDA tensor it launches a kernel (or
-raises) and counts the launch in ``mlstm_scan.launches`` and, per
-variant, in ``mlstm_scan.launches_by_variant`` (one count per call: the
-"mma" variant runs its two passes as two kernels).  It is an autograd
+``mlstm_chunkwise_ref``; on a CUDA tensor it launches the kernel
+``_variant`` names (or raises: a float32 call at D in ``MMA_D`` never
+takes "simt" or the plain version) and counts the launch in
+``mlstm_scan.launches`` and, per variant, in
+``mlstm_scan.launches_by_variant`` (one count per call: "mma" runs its
+two passes as two kernels, "tf32x3" its three as three).  It is an autograd
 function whose backward recomputes ``mlstm_chunkwise_ref`` under
 autograd: the reference has no
 backward kernel (Pallas cannot differentiate its kernel, so the JAX
@@ -44,15 +53,17 @@ from .ref import (mlstm_chunkwise_ref, mlstm_scan_ref,  # noqa: F401
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_D = 512            # the kernels' carry holds D <= 512
 MAX_CHUNK = 64         # rows of the kernels' [T, T] score tile
-MMA_D = (64, 128, 256, 512)   # the D the tensor-core kernel is built for
-_SOURCES = {"simt": "mlstm_scan", "mma": "mlstm_scan_sm90"}
+MMA_D = (64, 128, 256, 512)   # the D the tensor-core kernels are built for
+_TENSOR_CORE = {torch.bfloat16: "mma", torch.float32: "tf32x3"}
+_SOURCES = {"simt": "mlstm_scan", "mma": "mlstm_scan_sm90",
+            "tf32x3": "mlstm_scan_tf32x3"}
 
 __all__ = ["mlstm_scan", "mlstm_chunkwise_ref", "mlstm_scan_ref"]
 
 
 def _variant(dtype: torch.dtype, D: int) -> str:
     """The kernel that serves ``dtype`` at head dim ``D``."""
-    return "mma" if dtype == torch.bfloat16 and D in MMA_D else "simt"
+    return _TENSOR_CORE.get(dtype, "simt") if D in MMA_D else "simt"
 
 
 def _lib(variant: str) -> ctypes.CDLL:
@@ -61,7 +72,8 @@ def _lib(variant: str) -> ctypes.CDLL:
     fn = getattr(lib, name)
     if fn.argtypes is None:
         # simt: 9 pointers, (BH, S, D, chunk), scale, dtype, device;
-        # mma: 11 pointers (two scratch), (B, S, H, D, chunk), scale, device
+        # mma and tf32x3: 11 pointers (two scratch), (B, S, H, D, chunk),
+        # scale, device
         simt = variant == "simt"
         fn.argtypes = ([ctypes.c_void_p] * (9 if simt else 11)
                        + [ctypes.c_int] * (4 if simt else 5) + [ctypes.c_float]
@@ -107,11 +119,12 @@ def _scan_flat(q, k, v, ig, fg, chunk: int, return_state: bool = False):
     return (h, state) if return_state else h
 
 
-def _scan_mma(q, k, v, ig, fg, chunk: int, return_state: bool = False):
-    """The tensor-core kernel on the model layout, in place: q/k/v
-    [B, S, H, D] bfloat16 with D in MMA_D, ig/fg [B, S, H] float32, any S
-    (the kernel's short last chunk stands for the padded one) ->
-    h [B, S, H, D] (and the final carry, flat [B*H, ...])."""
+def _scan_tc(q, k, v, ig, fg, chunk: int, return_state: bool = False):
+    """The tensor-core kernel of q's dtype ("mma" for bfloat16, "tf32x3"
+    for float32) on the model layout, in place: q/k/v [B, S, H, D] with D
+    in MMA_D, ig/fg [B, S, H] float32, any S (the kernel's short last chunk
+    stands for the padded one) -> h [B, S, H, D] (and the final carry, flat
+    [B*H, ...])."""
     B, S, H, D = q.shape
     if k.shape != q.shape or v.shape != q.shape or ig.shape != (B, S, H) \
             or fg.shape != (B, S, H):
@@ -123,29 +136,34 @@ def _scan_mma(q, k, v, ig, fg, chunk: int, return_state: bool = False):
                          f"(needs chunk <= {MAX_CHUNK}, B*H <= 65535)")
     q, k, v, ig, fg = (x.contiguous() for x in (q, k, v, ig, fg))
     _check_inputs(q, k, v, ig, fg)
+    variant = _variant(q.dtype, D)
     if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("mlstm_scan: the bfloat16 kernel needs 16-byte "
+        raise ValueError("mlstm_scan: the tensor-core kernels need 16-byte "
                          "aligned q, k, v")
     h = torch.empty_like(q)
     state = _empty_state(B * H, D, q.device) if return_state else None
-    # the intra-chunk pass's output: P as hi and lo bf16 planes
-    # [B*H, chunks, 2, 64, 64] and (inter, den, w_end, sc) fp32
-    # [B*H, chunks, 4, 64]
+    # what the passes hand on: P [B*H, chunks, 64, 64] (bf16 hi and lo
+    # planes for "mma", fp32 for "tf32x3": the same bytes) and (inter, den,
+    # w_end, sc) fp32 [B*H, chunks, 4, 64]; "tf32x3" adds its score pass's
+    # sums fp32 [B*H, chunks, D + 4]
     n_chunks = -(-S // chunk)
-    p_scratch = torch.empty(B * H * n_chunks * 2 * MAX_CHUNK * MAX_CHUNK,
-                            dtype=torch.bfloat16, device=q.device)
-    s_scratch = torch.empty(B * H * n_chunks * 4 * MAX_CHUNK,
+    planes = 2 if variant == "mma" else 1
+    p_scratch = torch.empty(B * H * n_chunks * planes * MAX_CHUNK * MAX_CHUNK,
+                            dtype=q.dtype, device=q.device)
+    per_chunk = 4 * MAX_CHUNK + (D + 4 if variant == "tf32x3" else 0)
+    s_scratch = torch.empty(B * H * n_chunks * per_chunk,
                             dtype=torch.float32, device=q.device)
-    lib = _lib("mma")
-    err = lib.mlstm_scan_sm90(
+    name = _SOURCES[variant]
+    lib = _lib(variant)
+    err = getattr(lib, name)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), ig.data_ptr(),
         fg.data_ptr(), h.data_ptr(), *_state_ptrs(state),
         p_scratch.data_ptr(), s_scratch.data_ptr(), B, S, H, D, chunk,
         1.0 / math.sqrt(D), q.device.index or 0,
         torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(lib, "mlstm_scan_sm90", err)
+    _build.check(lib, name, err)
     mlstm_scan.launches += 1
-    mlstm_scan.launches_by_variant["mma"] += 1
+    mlstm_scan.launches_by_variant[variant] += 1
     mlstm_scan.last_chunk = chunk
     return (h, state) if return_state else h
 
@@ -192,8 +210,8 @@ def _on_flat(fn, q, k, v, ig, fg, chunk: int, return_state: bool = False):
 def _forward(q, k, v, ig, fg, chunk: int, return_state: bool = False):
     """The kernel ``_variant`` picks on a CUDA tensor, the plain version on
     a CPU one; the model layout in and out (the state flat)."""
-    if q.is_cuda and _variant(q.dtype, q.shape[3]) == "mma":
-        return _scan_mma(q, k, v, ig, fg, chunk, return_state)
+    if q.is_cuda and _variant(q.dtype, q.shape[3]) != "simt":
+        return _scan_tc(q, k, v, ig, fg, chunk, return_state)
     return _on_flat(_scan_flat, q, k, v, ig, fg, chunk, return_state)
 
 
@@ -229,5 +247,5 @@ def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 mlstm_scan.launches = 0
-mlstm_scan.launches_by_variant = {"simt": 0, "mma": 0}
+mlstm_scan.launches_by_variant = {"simt": 0, "mma": 0, "tf32x3": 0}
 mlstm_scan.last_chunk = None

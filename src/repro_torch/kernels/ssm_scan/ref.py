@@ -9,8 +9,9 @@ chunk the recurrence is a decay-masked ``[T, T]`` product, across chunks
 the ``(C, n, m)`` carry (true state = state * e^m) moves on.  It is what
 the kernels compute, chunk for chunk, and what their backward recomputes.
 ``mlstm_two_pass_ref`` is the same arithmetic split as the tensor-core
-kernel splits it: an intra-chunk pass, then a carry pass over blocks of
-value columns.
+kernels split it: an intra-chunk pass, then a carry pass over blocks of
+value columns, with the bf16 kernel's operand roundings or (``tf32``) the
+float32 kernel's TF32 products.
 """
 from __future__ import annotations
 
@@ -29,6 +30,32 @@ State = Tuple[Tensor, Tensor, Tensor]
 def log_sigmoid(x: Tensor) -> Tensor:
     """``min(x, 0) - log1p(e^{-|x|})``: stable, and 0 at the pad value."""
     return torch.clamp(x, max=0.0) - torch.log1p(torch.exp(-x.abs()))
+
+
+def to_tf32(x: Tensor, nearest: bool = True) -> Tensor:
+    """float32 cut to TF32 (10 mantissa bits) by bit mask: to nearest, ties
+    away from zero, as ``cvt.rna.tf32.f32``, or (``nearest`` False)
+    truncated, as ``mma.sync`` reads a .tf32 operand's bits."""
+    bits = x.contiguous().view(torch.int32)
+    if nearest:
+        bits = bits + 0x1000
+    return (bits & ~0x1FFF).view(torch.float32)
+
+
+def tf32_product(a: Tensor, b: Tensor, terms: int = 2,
+                 lo_nearest: bool = False) -> Tensor:
+    """``a @ b`` as the float32 tensor-core kernels give it to the tensor
+    cores: with ``terms`` 2 three TF32 products of the splits ``hi =
+    to_tf32(x)`` (to nearest) and ``lo = x - hi``, small ones first (``lo(a)
+    hi(b) + hi(a) lo(b) + hi(a) hi(b)``); with 1 the single product
+    ``hi(a) hi(b)``.  ``csrc/mlstm_scan_tf32x3.cu`` passes lo as it is and
+    ``mma.sync`` truncates it to TF32; ``csrc/flash_attention_fwd_tf32x3.cu``
+    rounds lo to nearest as well (``lo_nearest``)."""
+    ah, bh = to_tf32(a), to_tf32(b)
+    if terms == 1:
+        return ah @ bh
+    al, bl = to_tf32(a - ah, lo_nearest), to_tf32(b - bh, lo_nearest)
+    return al @ bh + ah @ bl + ah @ bh
 
 
 def zero_state(BH: int, D: int, device) -> State:
@@ -143,9 +170,11 @@ def mlstm_chunkwise_ref(q: Tensor, k: Tensor, v: Tensor, ig: Tensor,
 
 def mlstm_two_pass_ref(q: Tensor, k: Tensor, v: Tensor, ig: Tensor,
                        fg: Tensor, chunk: int = 64, dv: int = 64,
-                       return_state: bool = False, terms: int = 2):
-    """The two passes of ``csrc/mlstm_scan_sm90.cu`` in plain PyTorch, on
-    the flat layout (q/k/v [BH, S, D], ig/fg [BH, S]).
+                       return_state: bool = False, terms: int = 2,
+                       tf32: bool = False):
+    """The two passes of ``csrc/mlstm_scan_sm90.cu`` (and, with ``tf32``,
+    of ``csrc/mlstm_scan_tf32x3.cu``) in plain PyTorch, on the flat layout
+    (q/k/v [BH, S, D], ig/fg [BH, S]).
 
     Intra-chunk pass, row by row over its chunks, in fp32: the gate cumsum
     b, the stabiliser m_t, ``P = (q k^T) o e^(dmat - m_t)``, ``inter_t``,
@@ -157,9 +186,14 @@ def mlstm_two_pass_ref(q: Tensor, k: Tensor, v: Tensor, ig: Tensor,
     gives the tensor cores in bfloat16 are rounded so here too: P, the copy
     of C in ``q C`` and ``v o w_end``, each as ``terms`` bf16 terms (the
     kernel's two: ``hi = bf16(x)``, ``lo = bf16(x - hi)``); C itself stays
-    fp32.  Returns h [BH, S, D] in q's dtype (and the final fp32
-    ``(C, n, m)``)."""
+    fp32.  With float32 inputs and ``tf32``, every product (q k^T, P v,
+    q C and the C update) is ``tf32_product(a, b, terms)``, the float32
+    kernel's three TF32 products at ``terms`` 2, and 1 / sqrt(D) scales
+    the products' results as there (q is not scaled).  Returns h [BH, S,
+    D] in q's dtype (and the final fp32 ``(C, n, m)``)."""
     BH, S, D = q.shape
+    if tf32 and q.dtype != torch.float32:
+        raise ValueError("mlstm_two_pass_ref: tf32 takes float32 inputs")
 
     def operand(x: Tensor) -> Tensor:
         if q.dtype == torch.float32:
@@ -167,8 +201,14 @@ def mlstm_two_pass_ref(q: Tensor, k: Tensor, v: Tensor, ig: Tensor,
         hi = x.to(q.dtype).float()
         return hi if terms == 1 else hi + (x - hi).to(q.dtype).float()
 
+    def mm(a: Tensor, b: Tensor) -> Tensor:
+        return tf32_product(a, b, terms) if tf32 else a @ b
+
+    # the bf16 kernel scales q; the tf32x3 kernel scales each product
+    scale = 1.0 / math.sqrt(D)
+    post = scale if tf32 else 1.0
     q, k, v, ig, fg = pad_to_chunk(q, k, v, ig, fg, chunk)
-    qf = q.float() * (1.0 / math.sqrt(D))
+    qf = q.float() * (1.0 if tf32 else scale)
     kf, vf = k.float(), v.float()
     T = chunk
     tri = torch.ones((T, T), dtype=torch.bool, device=q.device).tril()
@@ -183,10 +223,10 @@ def mlstm_two_pass_ref(q: Tensor, k: Tensor, v: Tensor, ig: Tensor,
         dmat = torch.where(tri, dmat, torch.full_like(dmat, NEG))
         alpha = m[:, None] + b
         m_t = torch.maximum(alpha, torch.amax(dmat, dim=-1))
-        P = (qf[:, sl] @ kf[:, sl].transpose(1, 2)) * torch.exp(
+        P = mm(qf[:, sl], kf[:, sl].transpose(1, 2)) * post * torch.exp(
             dmat - m_t[:, :, None])
         inter = torch.exp(alpha - m_t)
-        qn = torch.sum(qf[:, sl] * n[:, None, :], dim=-1)
+        qn = torch.sum(qf[:, sl] * n[:, None, :], dim=-1) * post
         den = torch.maximum(torch.abs(P.sum(dim=-1) + inter * qn),
                             torch.exp(-m_t))
         b_end = b[:, -1]
@@ -207,10 +247,10 @@ def mlstm_two_pass_ref(q: Tensor, k: Tensor, v: Tensor, ig: Tensor,
         for i, (P, inter, den, w, sc) in enumerate(scratch):
             sl = slice(i * T, (i + 1) * T)
             vc = vf[:, sl, cols]
-            h[:, sl, cols] = (P @ vc + inter[:, :, None]
-                              * (qf[:, sl] @ operand(C))) / den[:, :, None]
+            h[:, sl, cols] = (mm(P, vc) + (inter * post)[:, :, None]
+                              * mm(qf[:, sl], operand(C))) / den[:, :, None]
             C = (sc[:, None, None] * C
-                 + kf[:, sl].transpose(1, 2) @ operand(vc * w[:, :, None]))
+                 + mm(kf[:, sl].transpose(1, 2), operand(vc * w[:, :, None])))
         C_out[:, :, cols] = C
     h = h[:, :S].to(q.dtype)
     return (h, (C_out, n, m)) if return_state else h

@@ -8,10 +8,11 @@ mantissa bits, ties away from zero) and takes each product as ``lo(a) hi(b)
 + hi(a) lo(b) + hi(a) hi(b)`` in fp32, in both S = Q K^T and O += P V, with
 an fp32 online softmax over the key tiles of its own plan
 (``ops._tile_plan(..., "tf32x3")``: 64 packed rows a block, 32 keys a
-tile).  ``tf32x3_walk`` does the same with TF32 rounding by bit mask.  Held
-to JAX ``attention_ref`` at the reference's float32 tolerance (2e-5), it
-passes; with one TF32 product (``hi(a) hi(b)``) it fails that tolerance,
-so the test tells the two apart.  The kernel itself is held to the plain
+tile).  ``tf32x3_walk`` does the same with TF32 rounding by bit mask
+(``ssm_scan/ref.py::to_tf32`` and ``tf32_product``).  Held to JAX
+``attention_ref`` at the reference's float32 tolerance (2e-5), it passes;
+with one TF32 product (``hi(a) hi(b)``) it fails that tolerance, so the
+test tells the two apart.  The kernel itself is held to the plain
 version on the card by ``chip_smoke.py::kernels_phase``.
 """
 import math
@@ -23,39 +24,26 @@ import torch
 
 from repro.kernels.flash_attention.ref import attention_ref as jax_attention_ref
 from repro_torch.kernels.flash_attention.ops import TILES, _tile_plan
+from repro_torch.kernels.ssm_scan.ref import tf32_product, to_tf32
 
 NEG_INF = -1e30
 LOG2E = 1.4426950408889634
 TOL = dict(atol=2e-5, rtol=2e-5)
 
 
-def tf32(x: torch.Tensor) -> torch.Tensor:
-    """float32 rounded to TF32 (10 mantissa bits), to nearest, ties away
-    from zero, as ``cvt.rna.tf32.f32``."""
-    bits = x.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
-
-
-def product(a: torch.Tensor, b: torch.Tensor, split: bool) -> torch.Tensor:
-    """a @ b on the tensor cores: three TF32 products of the split
-    operands (small ones first) or, with ``split`` False, one."""
-    ah, bh = tf32(a), tf32(b)
-    if not split:
-        return ah @ bh
-    al, bl = tf32(a - ah), tf32(b - bh)
-    return al @ bh + ah @ bl + ah @ bh
-
-
 def tf32x3_walk(q, k, v, causal, window, split=True):
     """The kernel's arithmetic in float32: per (b, hk) and per block of its
     plan, S over each visited key tile (zeros past Sk), masks only on the
     tiles the plan marks, the online softmax with log2(e) folded into the
-    scale, and O += P V; a row with nothing attended gives 0."""
+    scale, and O += P V; a row with nothing attended gives 0.  Its
+    products are ``ssm_scan/ref.py::tf32_product`` with both halves rounded
+    to nearest, as this kernel splits them."""
     B, Sq, H, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     G = H // Hkv
     keys = TILES["tf32x3"][1]
     scale_log2 = (1.0 / math.sqrt(D)) * LOG2E
+    terms = 2 if split else 1
     pad = -(-Sk // keys) * keys + keys
     kz = torch.zeros(B, pad, Hkv, D)
     vz = torch.zeros(B, pad, Hkv, D)
@@ -73,7 +61,7 @@ def tf32x3_walk(q, k, v, causal, window, split=True):
                 acc = torch.zeros(len(R), D)
                 for k0, masked in tiles:
                     j = torch.arange(k0, k0 + keys)
-                    s = product(qb, kz[b, j, hk].T, split)
+                    s = tf32_product(qb, kz[b, j, hk].T, terms, True)
                     if masked:
                         ok = (j < Sk)[None].expand_as(s)
                         if causal:
@@ -88,8 +76,8 @@ def tf32x3_walk(q, k, v, causal, window, split=True):
                                     torch.zeros_like(x), x)
                     l = l * corr + x.sum(dim=1)
                     m = m_new
-                    acc = acc * corr[:, None] + product(x, vz[b, j, hk],
-                                                        split)
+                    acc = acc * corr[:, None] + tf32_product(
+                        x, vz[b, j, hk], terms, True)
                 out[b, p, h] = acc / torch.clamp(l, min=1e-30)[:, None]
     return out
 
@@ -128,15 +116,15 @@ def _jax_ref(q, k, v, causal, window):
 def test_tf32_rounding_by_bit_mask():
     x = torch.tensor([1.0, 1.0 + 2 ** -11, 1.0 + 2 ** -10, 1.0 + 3 * 2 ** -11,
                       -(1.0 + 2 ** -11), 3.0e-3, 0.0])
-    got = tf32(x)
+    got = to_tf32(x)
     # ties (a half unit of the 10th bit) go away from zero
     assert got.tolist()[:5] == [1.0, 1.0 + 2 ** -10, 1.0 + 2 ** -10,
                                 1.0 + 2 ** -9, -(1.0 + 2 ** -10)]
     assert (got.view(torch.int32) & 0x1FFF).eq(0).all()
     # hi + lo keeps 21 of float32's 24 bits and more
     y = torch.randn(4096, generator=torch.Generator().manual_seed(0))
-    hi = tf32(y)
-    lo = tf32(y - hi)
+    hi = to_tf32(y)
+    lo = to_tf32(y - hi)
     assert float(((hi + lo - y).abs() / y.abs()).max()) < 2 ** -21
 
 

@@ -134,13 +134,17 @@ def test_two_terms_hold_where_one_drifts():
     (torch.bfloat16, 512, "mma"), (torch.bfloat16, 256, "mma"),
     (torch.bfloat16, 128, "mma"), (torch.bfloat16, 64, "mma"),
     (torch.bfloat16, 32, "simt"), (torch.bfloat16, 96, "simt"),
-    (torch.bfloat16, 500, "simt"), (torch.float32, 512, "simt"),
-    (torch.float32, 64, "simt"), (torch.float16, 512, "simt"),
+    (torch.bfloat16, 500, "simt"), (torch.float32, 512, "tf32x3"),
+    (torch.float32, 64, "tf32x3"), (torch.float32, 256, "tf32x3"),
+    (torch.float32, 128, "tf32x3"), (torch.float32, 32, "simt"),
+    (torch.float32, 96, "simt"), (torch.float16, 512, "simt"),
 ])
 def test_variant(dtype, D, want):
-    """bf16 at the D the tensor-core kernel is built for takes it; float32
-    keeps the CUDA-core kernel (its 1e-4 tolerance rules out bf16
-    operands), as does every other D."""
+    """At the D the tensor-core kernels are built for, bf16 takes "mma" and
+    float32 "tf32x3" (three TF32 products: one misses float32's 1e-4,
+    tests/test_torch_ssm_tf32x3.py); every other D and dtype keeps the
+    CUDA-core kernel."""
     assert ops._variant(dtype, D) == want
     assert want == "simt" or D in ops.MMA_D
-    assert set(ops.mlstm_scan.launches_by_variant) == {"simt", "mma"}
+    assert set(ops.mlstm_scan.launches_by_variant) == {"simt", "mma",
+                                                        "tf32x3"}
