@@ -27,12 +27,16 @@ Phases (any failure exits non-zero before the result line):
    that empties the early splits, ring layouts over 1 and 4 splits,
    groups of 5..8, D 64 / 80 / 128 and C not a multiple of the tile (each
    call on the block body ``_decode_body`` names, read from the
-   wrapper's ``launches_by_variant``: the tensor cores for bfloat16 at
-   D 64 / 80 / 128, the CUDA cores otherwise), and is
-   timed at n_split 1, 2, 4, 8 and the default at B=32 and B=8, 64 over
-   8192 slots.  K2, on the same split-cache kernels, gets the same split
-   cases over the paged layout (pages of 4 / 16 / 128) and the same split
-   sweep.  K4 has three kernels (``_variant``): at D 64..512 the
+   wrapper's ``launches_by_variant``: the tensor cores at D 64 / 80 /
+   128, "mma" for bfloat16 and "tf32x3", three TF32 products, for
+   float32, a float32 call there on "core" failing the phase; the CUDA
+   cores otherwise), and is timed at n_split 1, 2, 4, 8 and the default
+   at B=32 and B=8, 64 over 8192 slots, in float32 with the CUDA-core
+   body beside it at the count the rule gives that body
+   (``CORE_PINNED_SPLITS``), the float32 defaults held to
+   ``TF32X3_PINNED_SPLITS``.  K2, on the same split-cache kernels, gets
+   the same split cases over the paged layout (pages of 4 / 16 / 128) and
+   the same split sweep.  K4 has three kernels (``_variant``): at D 64..512 the
    tensor-core kernels ("mma" in bfloat16, "tf32x3" in float32: three TF32
    products) run through the wrapper at the CPU sweep's shapes widened to
    D 64 / 128 / 256 and at D 512 (train, prefill and long shapes), the
@@ -232,6 +236,12 @@ Phases (any failure exits non-zero before the result line):
    and qwen3-moe at full width and 1 layer: 2 K1 launches per layer a
    step, finite loss and grad norm, params moved.
 
+On every serve, train and teacher-forced path above, K3's and K2's
+launches since the counts were set to 0 are read by block body
+(``_expect_decode_bodies``): float32 at D 64 / 80 / 128 all on the 3xTF32
+body, bfloat16 there all on the mma body, none elsewhere; the K3 and K2
+records carry them by path (``launches_by_body``).
+
 The line before the last is ``{"kernels": [...]}`` (eight records: K1
 and its float32 kernel, K3, K2, K4 and its float32 kernel, K3's two
 head-dim passes); the last line is
@@ -348,6 +358,13 @@ def _check(name, got, want, dtype, shape, stats, tols=TOL):
              f"(allowed {bound:.3e}), finite={finite}")
 
 
+def _by_body(errs, body, dtype, got, want):
+    """Keep the worst |kernel - plain| of K3's or K2's block ``body`` in
+    ``dtype`` in ``errs`` under "body dtype"."""
+    key = f"{body} {dtype}"
+    errs[key] = max(errs.get(key, 0.0), _max_err(got, want))
+
+
 def _time_ms(fn, flush, reps=20):
     """Median ms of ``reps`` launches by CUDA events, L2 flushed before
     each, after 3 warm-up launches (the autotuner's timer)."""
@@ -429,12 +446,12 @@ def paged_work(B, H, Hkv, D, page, maxp, lens, itemsize):
     return n_bytes, 4.0 * D * H * attended
 
 
-def _rule(name, args, kw=None):
+def _rule(name, args, kw=None, body=None):
     """(body, resident(Gc), groups, n_split) of K3's (``name``
     "flash_decode") or K2's launch on ``args`` (the wrapper's positional
-    arguments, ``kw`` its keywords): the body ``_decode_body`` names, the
-    blocks an SM holds of it (the card's query), the head groups and the
-    split count of the one rule."""
+    arguments, ``kw`` its keywords): the body ``_decode_body`` names (or
+    ``body``), the blocks an SM holds of it (the card's query), the head
+    groups and the split count of the one rule."""
     from repro_torch.kernels import tuning
     from repro_torch.kernels.decode_attention.ops import (
         _aligned, _decode_body, _launch_groups, _launch_splits, _resident,
@@ -446,7 +463,7 @@ def _rule(name, args, kw=None):
     B, H, D = q.shape
     Hkv = k.shape[2]
     aligned = _aligned(q, k, v)
-    body = _decode_body(q.dtype, D, aligned)
+    body = body or _decode_body(q.dtype, D, aligned)
     n_sm = _sm_count(q.device)
     res = _resident(name, q.device, q.dtype, D, body, aligned)
     if name == "flash_decode":
@@ -464,6 +481,29 @@ def _rule(name, args, kw=None):
     return body, res, groups, _paged_splits(B, Hkv, D, maxp, page, window,
                                             n_sm, res, H // Hkv, None, body,
                                             groups, max_len)
+
+
+def _core_at_rule(name, args, kw):
+    """K3's (``name`` "flash_decode") or K2's CUDA-core body on ``args``
+    at the split count and head groups the rule gives that body, held to
+    CORE_PINNED_SPLITS at the pinned shapes: (a call that launches it
+    uncounted, its split count)."""
+    from repro_torch.kernels.decode_attention import ops
+    from repro_torch.kernels.paged_attention import ops as pops
+    kw = kw or {}
+    q = args[0]
+    _, _, groups, n = _rule(name, args, kw, body="core")
+    window, scale = kw.get("window"), q.shape[2] ** -0.5
+    launcher = ops._launch if name == "flash_decode" else pops._launch
+    shape = (tuple(q.shape[:2]) + (args[1].shape[2], q.shape[2])
+             + ((args[1].shape[1],) if name == "flash_decode"
+                else (args[1].shape[1], args[3].shape[1])))
+    want = CORE_PINNED_SPLITS.get((name, shape))
+    if want is not None and n != want:
+        fail(f"{name} {shape} float32: the rule gives the CUDA-core body "
+             f"{n} splits, pinned {want}")
+    return (lambda: launcher(*args, window, scale, n, "core",
+                             groups[0])[0]), n
 
 
 def _forced(name, args, kw, n_split):
@@ -492,17 +532,21 @@ def paged_kernel_phase(prompt_len, new_tokens):
     main-path and long shapes.  Returns its record of the result line."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.decode_attention.ops import _decode_body
+    from repro_torch.kernels.decode_attention.ops import (MMA_DIMS,
+                                                          _decode_body)
     from repro_torch.kernels.paged_attention.ops import (
         paged_decode_attention, paged_decode_attention_ref)
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
     stats = {"checks": 0, "max_abs_err": 0.0}
+    perr = {}      # the worst error by (body, dtype)
     timings = {}
 
     def check(what, got, want, dtype, shape):
         _check("paged_flash_decode", got, want, dtype, shape, stats)
+        _by_body(perr, _decode_body(getattr(torch, dtype), shape[3], True),
+                 dtype, got, want)
         say(f"  paged_flash_decode {shape} {what} {dtype}: ok, max err "
             f"{_max_err(got, want):.2e}")
 
@@ -580,6 +624,8 @@ def paged_kernel_phase(prompt_len, new_tokens):
         for dtype in ("float32", "bfloat16"):
             args = paged_case(*shape, lens, dtype, gen)
             body = _decode_body(args[0].dtype, D, True)
+            if dtype == "float32" and D in MMA_DIMS and body != "tf32x3":
+                fail(f"paged_flash_decode {shape} float32: body {body}")
             if force is not None:
                 got, n_split = _forced("paged_flash_decode", args,
                                        dict(window=window), force)
@@ -601,14 +647,16 @@ def paged_kernel_phase(prompt_len, new_tokens):
     # and the long shape
     cap = prompt_len + new_tokens
     main = (32, 12, 2, 128, 128, -(-cap // 128))
+    mid = (8, 12, 2, 128, 128, 64)
     long = (64, 12, 2, 128, 128, 64)
     main_lens = torch.randint(prompt_len, cap + 1, (32,), generator=gen,
                               device="cuda").tolist()
-    for shape in (main, long):
+    for shape in (main, mid, long):
         B, H, Hkv, D, page, maxp = shape
         lens = main_lens if shape == main else [8192] * B
         for dtype in ("float32", "bfloat16"):
             args = paged_case(*shape, lens, dtype, gen)
+            body = _decode_body(args[0].dtype, D, True)
             check("lengths " + ("mixed" if shape == main else "8192"),
                   paged_decode_attention(*args),
                   paged_decode_attention_ref(*args), dtype, shape)
@@ -620,18 +668,24 @@ def paged_kernel_phase(prompt_len, new_tokens):
                     < lengths[:, None])[:, None, None]
             qt = q[:, :, None]
             n_bytes, flops = paged_work(*shape, lens, q.element_size())
-            bound, by = _bound_ms(n_bytes, flops, dtype)
+            bound, by = _bound_ms(n_bytes, flops, "tf32x3" if body ==
+                                  "tf32x3" else dtype)
             # the engine's call: the longest length as the host knows it
             kw = dict(max_len=max(lens))
-            timings[(shape, dtype)] = dict(
+            t = timings[(shape, dtype)] = dict(
                 ms=_time_ms(lambda: paged_decode_attention(*args, **kw),
                             flush),
                 plain_ms=_time_ms(lambda: paged_decode_attention_ref(*args),
                                   flush),
                 library_ms=_time_ms(lambda: F.scaled_dot_product_attention(
                     qt, kd, vd, attn_mask=mask, enable_gqa=True), flush),
-                bound_ms=bound, bound_by=by,
+                bound_ms=bound, bound_by=by, body=body,
                 n_split=_rule("paged_flash_decode", args, kw)[3])
+            if dtype == "float32":
+                # the CUDA-core body beside it, at its own count
+                core, t["core_n_split"] = _core_at_rule(
+                    "paged_flash_decode", args, kw)
+                t["core_ms"] = _time_ms(core, flush)
             if paged_decode_attention.last_n_split != timings[
                     (shape, dtype)]["n_split"]:
                 fail(f"paged_flash_decode {shape} {dtype}: launched "
@@ -644,7 +698,9 @@ def paged_kernel_phase(prompt_len, new_tokens):
             f"{t['bound_ms']:.4f} ms ({t['bound_by']}), plain "
             f"{t['plain_ms']:.4f} ms, sdpa over the pre-gathered cache "
             f"(gather not timed) {t['library_ms']:.4f} ms, n_split "
-            f"{t['n_split']}")
+            f"{t['n_split']}, body {t['body']}"
+            + (f", CUDA-core body {t['core_ms']:.4f} ms at n_split "
+               f"{t['core_n_split']}" if "core_ms" in t else ""))
 
     # the split count against time: n_split forced, and the default
     split_sweep = {}
@@ -661,8 +717,8 @@ def paged_kernel_phase(prompt_len, new_tokens):
                         n_split=_rule("paged_flash_decode", args, kw)[3],
                         ms=_time_ms(lambda: paged_decode_attention(
                             *args, **kw), flush))
-                    _hold_core_pin("paged_flash_decode", shape, dtype,
-                                   row["default"]["n_split"])
+                    _hold_pin("paged_flash_decode", shape, dtype,
+                              row["default"]["n_split"])
                     continue
                 n = _forced("paged_flash_decode", args, kw, force)[1]
                 row[str(n)] = dict(n_split=n, ms=_time_ms(
@@ -677,32 +733,36 @@ def paged_kernel_phase(prompt_len, new_tokens):
             del args
             torch.cuda.synchronize()
     say(f"kernels: paged_flash_decode holds to its plain version at every "
-        f"shape ({stats['checks']} checks)")
+        f"shape ({stats['checks']} checks); worst max err by body {perr}")
     return dict(
         route="cuda",
         source="src/repro_torch/kernels/csrc/paged_flash_decode.cu",
         replaces="src/repro/kernels/paged_attention/kernel.py:116",
         max_abs_err=stats["max_abs_err"], checks=stats["checks"],
+        max_abs_err_by_body=perr,
         library="scaled_dot_product_attention over the pre-gathered dense "
                 "cache (gather not timed)",
         **timings[(main, "bfloat16")],
         long=dict(shape=long, **timings[(long, "bfloat16")]),
         float32=timings[(main, "float32")],
         long_float32=dict(shape=long, **timings[(long, "float32")]),
+        mid=dict(shape=mid, **timings[(mid, "bfloat16")]),
+        mid_float32=dict(shape=mid, **timings[(mid, "float32")]),
         split_sweep=split_sweep)
 
 
 def resident_check():
-    """The blocks an SM holds of K3's and K2's tensor-core body (the
+    """The blocks an SM holds of K3's and K2's tensor-core bodies (the
     card's occupancy query through ``ops._resident``, which the split
-    rule counts a launch against) at D 64 / 80 / 128, in a group of 8
-    rows and of 16, and of the CUDA-core body in bf16 and float32 at D
-    128; the tensor-core body's must be ``ops.H100_RESIDENT``, the
-    numbers the CPU models of the card count with.  Returns {kernel:
+    rule counts a launch against) at D 64 / 80 / 128, the bf16 one in a
+    group of 8 rows and of 16, the float32 one in groups of 6 and 8, and
+    of the CUDA-core body in bf16 and float32 at D 128; the tensor-core
+    bodies' must be ``ops.H100_RESIDENT`` and ``ops.H100_RESIDENT_TF32X3``,
+    the numbers the CPU models of the card count with.  Returns {kernel:
     {instantiation: blocks}}."""
     import torch
-    from repro_torch.kernels.decode_attention.ops import (H100_RESIDENT,
-                                                          _resident)
+    from repro_torch.kernels.decode_attention.ops import (
+        H100_RESIDENT, H100_RESIDENT_TF32X3, _resident)
     dev = torch.device("cuda", torch.cuda.current_device())
     out = {}
     for name in ("flash_decode", "paged_flash_decode"):
@@ -715,6 +775,15 @@ def resident_check():
                     fail(f"{name}: {got} blocks an SM of the tensor-core "
                          f"body at D {D}, Gc {gc}; H100_RESIDENT says "
                          f"{H100_RESIDENT[D]}")
+        for D in (64, 80, 128):
+            res = _resident(name, dev, torch.float32, D, "tf32x3", True)
+            for gc in (6, 8):
+                rec[f"tf32x3 D={D} Gc={gc}"] = got = res(gc)
+                if got != H100_RESIDENT_TF32X3[D]:
+                    fail(f"{name}: {got} blocks an SM of the float32 "
+                         f"tensor-core body at D {D}, Gc {gc}; "
+                         f"H100_RESIDENT_TF32X3 says "
+                         f"{H100_RESIDENT_TF32X3[D]}")
         for dtype in (torch.bfloat16, torch.float32):
             res = _resident(name, dev, dtype, 128, "core", True)
             for gc in (1, 6, 8):
@@ -870,7 +939,8 @@ def gqa_phase(prompt_len, new_tokens):
     28 / 4), 5 (14B, 40 / 8), 12 (starcoder2-15b, 48 / 4) and 16
     (qwen3-moe, 64 / 4), D = 128, in float32 and bfloat16 at one split and
     at splits forced above 1 (head groups must keep their merge tickets
-    apart: float32 runs G 12 / 16 in two groups on the CUDA cores), held
+    apart: float32 runs G 12 / 16 in two groups of 8 rows on the 3xTF32
+    body), held
     to the plain versions; bf16 at G = 9, 12 and 16 on the tensor cores
     in one head group (``_one_group_checks``); K1 prefill at the 7B and
     14B head counts; bf16 times at G = 12 and 16 at the serve, main and
@@ -1396,7 +1466,7 @@ def kernels_phase(prompt_len, new_tokens):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention.ops import (
-        _decode_body, decode_attention, decode_attention_ref)
+        MMA_DIMS, _decode_body, decode_attention, decode_attention_ref)
     from repro_torch.kernels.flash_attention.ops import (
         _variant, flash_attention, flash_attention_ref)
 
@@ -1404,6 +1474,7 @@ def kernels_phase(prompt_len, new_tokens):
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
     fstats = {"checks": 0, "max_abs_err": 0.0}
     dstats = {"checks": 0, "max_abs_err": 0.0}
+    derr = {}      # K3's worst error by (body, dtype)
     # K1's worst error by (kernel, dtype) over the sweep and the shapes
     kerr = {}
     timings = {}
@@ -1505,6 +1576,7 @@ def kernels_phase(prompt_len, new_tokens):
     # -- flash decode (K3)
     serve_d = (8, 12, 2, 128, prompt_len + 32)
     main_d = (32, 12, 2, 128, prompt_len + new_tokens)
+    mid_d = (8, 12, 2, 128, 8192)
     long_d = (64, 12, 2, 128, 8192)
     # (shape, window, forced n_split, valid lengths: "full", "one" or
     # ragged)
@@ -1513,7 +1585,7 @@ def kernels_phase(prompt_len, new_tokens):
                ((3, 6, 3, 20, 17), None, None, "ragged"),
                ((4, 4, 2, 16, 40), 6, None, "ragged"),
                (serve_d, None, None, "full"), (main_d, None, None, "full"),
-               (long_d, None, None, "full")]
+               (mid_d, None, None, "full"), (long_d, None, None, "full")]
     # most splits empty: one valid slot of 8192, n_split forced
     dcases += [((2, 12, 2, 128, 8192), None, n, "one") for n in (1, 2, 7)]
     # a window that empties the early splits
@@ -1530,6 +1602,8 @@ def kernels_phase(prompt_len, new_tokens):
             q, k, v, q_pos, k_pos = decode_case(*shape, valid, dtype, gen)
             args, kw = (q, k, v, q_pos, k_pos), dict(window=window)
             body = _decode_body(q.dtype, D, True)
+            if dtype == "float32" and D in MMA_DIMS and body != "tf32x3":
+                fail(f"flash_decode {shape} float32: body {body}")
             if force is not None:
                 # forced through the uncounted launcher
                 got, n_split = _forced("flash_decode", args, kw, force)
@@ -1544,18 +1618,20 @@ def kernels_phase(prompt_len, new_tokens):
                          f"one {body} launch")
             want = decode_attention_ref(*args, **kw)
             _check("flash_decode", got, want, dtype, shape, dstats)
+            _by_body(derr, body, dtype, got, want)
             say(f"  flash_decode {shape} window={window} n_split="
                 f"{n_split} {lens} {dtype} ({body}): ok, max err "
                 f"{_max_err(got, want):.2e}")
-            if shape in (main_d, long_d):
+            if shape in (main_d, mid_d, long_d):
                 qt = q[:, :, None]                   # [B, H, 1, D]
                 kt, vt = (x.transpose(1, 2).contiguous() for x in (k, v))
                 mask = ((k_pos >= 0) & (k_pos <= q_pos[:, None]))[
                     :, None, None]
                 n_bytes, flops = decode_work(*shape, valid,
                                              q.element_size())
-                bound, by = _bound_ms(n_bytes, flops, dtype)
-                timings[("decode", shape, dtype)] = dict(
+                bound, by = _bound_ms(n_bytes, flops, "tf32x3" if body ==
+                                      "tf32x3" else dtype)
+                t = timings[("decode", shape, dtype)] = dict(
                     ms=_time_ms(lambda: decode_attention(*args, **kw),
                                 flush),
                     plain_ms=_time_ms(lambda: decode_attention_ref(
@@ -1564,7 +1640,12 @@ def kernels_phase(prompt_len, new_tokens):
                         lambda: F.scaled_dot_product_attention(
                             qt, kt, vt, attn_mask=mask, enable_gqa=True),
                         flush),
-                    bound_ms=bound, bound_by=by, n_split=n_split)
+                    bound_ms=bound, bound_by=by, n_split=n_split, body=body)
+                if dtype == "float32":
+                    # the CUDA-core body beside it, at its own count
+                    core, t["core_n_split"] = _core_at_rule(
+                        "flash_decode", args, kw)
+                    t["core_ms"] = _time_ms(core, flush)
             del q, k, v, got, want, args
             torch.cuda.synchronize()
     # SWA ring layouts: valid slots wrap around the ring (row 0) or are a
@@ -1586,6 +1667,7 @@ def kernels_phase(prompt_len, new_tokens):
                 got, n_split = _forced("flash_decode", args, kw, force)
             want = decode_attention_ref(*args, **kw)
             _check("flash_decode", got, want, dtype, "ring", dstats)
+            _by_body(derr, _decode_body(q.dtype, D, True), dtype, got, want)
             say(f"  flash_decode ring C={C} D={D} window={window} n_split="
                 f"{n_split} {dtype}: ok, max err {_max_err(got, want):.2e}")
     # the split count against time: n_split forced, and the default
@@ -1600,8 +1682,8 @@ def kernels_phase(prompt_len, new_tokens):
                     row["default"] = dict(
                         n_split=_rule("flash_decode", args)[3],
                         ms=_time_ms(lambda: decode_attention(*args), flush))
-                    _hold_core_pin("flash_decode", shape, dtype,
-                                   row["default"]["n_split"])
+                    _hold_pin("flash_decode", shape, dtype,
+                              row["default"]["n_split"])
                     continue
                 n = _forced("flash_decode", args, {}, force)[1]
                 row[str(n)] = dict(n_split=n, ms=_time_ms(
@@ -1616,8 +1698,11 @@ def kernels_phase(prompt_len, new_tokens):
             torch.cuda.synchronize()
 
     for (kind, shape, dtype), t in sorted(timings.items(), key=str):
-        extra = "".join(f", {key} {t[key]}" for key in ("variant", "n_split")
-                        if key in t)
+        extra = "".join(f", {key} {t[key]}" for key in ("variant", "n_split",
+                                                       "body") if key in t)
+        if "core_ms" in t:
+            extra += (f", CUDA-core body {t['core_ms']:.4f} ms at n_split "
+                      f"{t['core_n_split']}")
         if "simt_ms" in t:
             extra += (f", CUDA-core kernel {t['simt_ms']:.4f} ms (its bound "
                       f"{t['simt_bound_ms']:.4f} ms)")
@@ -1625,7 +1710,8 @@ def kernels_phase(prompt_len, new_tokens):
             f"{t['bound_ms']:.4f} ms ({t['bound_by']}), plain "
             f"{t['plain_ms']:.4f} ms, sdpa {t['library_ms']:.4f} ms{extra}")
     say("kernels: both hold to their plain versions at every shape "
-        f"({fstats['checks']} flash, {dstats['checks']} decode checks)")
+        f"({fstats['checks']} flash, {dstats['checks']} decode checks); "
+        f"flash_decode's worst max err by body {derr}")
     flash = timings[("flash", main_f, "bfloat16")]
     f32 = {key: timings[("flash", shape, "float32")]
            for key, shape in (("main", main_f), ("long", long_f),
@@ -1667,10 +1753,13 @@ def kernels_phase(prompt_len, new_tokens):
             source="src/repro_torch/kernels/csrc/flash_decode.cu",
             replaces="src/repro/kernels/decode_attention/kernel.py:90",
             max_abs_err=dstats["max_abs_err"], checks=dstats["checks"],
+            max_abs_err_by_body=derr,
             **timings[("decode", main_d, "bfloat16")],
             float32=timings[("decode", main_d, "float32")],
             long=dict(shape=long_d, **timings[("decode", long_d, "bfloat16")]),
             long_float32=timings[("decode", long_d, "float32")],
+            mid=dict(shape=mid_d, **timings[("decode", mid_d, "bfloat16")]),
+            mid_float32=timings[("decode", mid_d, "float32")],
             split_sweep=split_sweep),
     }
     return records
@@ -1725,6 +1814,30 @@ def _expect_variants(what, want):
 
 def _read_counts():
     return {name: fn.launches for name, fn in _wrappers().items()}
+
+
+# K3's and K2's launches by block body on the paths that hold them
+# (_expect_decode_bodies), for the kernels line
+DECODE_BODIES = {}
+
+
+def _expect_decode_bodies(what, body):
+    """K3's and K2's launches by block body since the last _reset_counts():
+    every one on ``body``, the body ``_decode_body`` names for the path's
+    dtype and head dim on aligned tensors ("tf32x3" for float32 at D 64 /
+    80 / 128, "mma" for bf16 there), none on another.  Kept in
+    DECODE_BODIES under ``what``; returns {kernel: launches by body}."""
+    got = {}
+    for name in ("flash_decode", "paged_flash_decode"):
+        fn = _wrappers()[name]
+        by = dict(fn.launches_by_variant)
+        if by != {b: fn.launches * (b == body) for b in by}:
+            fail(f"{what}: {name} launches by body {by}, expected all "
+                 f"{fn.launches} on {body}")
+        got[name] = by
+    DECODE_BODIES[what] = got
+    say(f"{what}: K3 / K2 launches by body {got}")
+    return got
 
 
 def _expect_counts(what, n_layers, decode_steps, counts):
@@ -2025,6 +2138,7 @@ def serve_phase():
     # float32 weights at D 128: the 3xTF32 kernel
     variants = {"serve.run": _expect_variants(
         "serve.run", {"tf32x3": n_layers})}
+    _expect_decode_bodies("serve.run", "tf32x3")
     _check_rollouts("serve.run", out["rollouts"], 259, 32)
     say(f"serve.run: {out['tokens']} tokens in {out['seconds']:.3f} s "
         f"({out['tok_per_s']:.1f} tok/s, host clock, weight fetch included)")
@@ -2049,6 +2163,7 @@ def serve_phase():
                    counts)
     variants["generate"] = _expect_variants(
         "generate bf16 B=32", {"simt": 0, "wgmma": cfg.n_layers})
+    _expect_decode_bodies("generate bf16 B=32", "mma")
     _check_rollouts("generate bf16 B=32", rollouts, cfg.vocab, 128)
     n_tok = sum(len(r.completion_ids) for r in rollouts)
     gen = dict(tokens=n_tok, seconds=dt, tok_per_s=n_tok / dt,
@@ -2121,6 +2236,7 @@ def paged_serve_phase():
     counts = _read_counts()
     _expect_paged_counts("serve.run --engine paged", n_layers,
                          out["decode_steps"], counts)
+    _expect_decode_bodies("serve.run --engine paged", "tf32x3")
     _check_rollouts("serve.run --engine paged", out["rollouts"], 259, 32)
     say(f"serve.run --engine paged: {out['tokens']} tokens in "
         f"{out['seconds']:.3f} s ({out['tok_per_s']:.1f} tok/s, host clock, "
@@ -2136,6 +2252,7 @@ def paged_serve_phase():
     counts = _read_counts()
     _expect_paged_counts("serve.run --engine paged --turns 2", n_layers,
                          out["decode_steps"], counts)
+    _expect_decode_bodies("serve.run --engine paged --turns 2", "tf32x3")
     _check_rollouts("serve.run --turns 2", out["rollouts"], 259, 32)
     if out["radix_hit_tokens"] <= 0:
         fail(f"serve.run --turns 2: radix_hit_tokens = "
@@ -2170,6 +2287,7 @@ def paged_serve_phase():
                     / len(tasks))
     what = "generate_groups bf16 8 tasks x 8 slots=32"
     _expect_paged_counts(what, cfg.n_layers, m["decode_steps"], counts)
+    _expect_decode_bodies(what, "mma")
     # the engine hands K2 the longest row (at most prompt + 128 slots, two
     # pages): every launch at the pinned count
     by_splits = dict(_wrappers()["paged_flash_decode"].launches_by_splits)
@@ -2657,6 +2775,7 @@ def monitor_phase():
     bare, bm, bcounts, bdt = serve()
     _expect_paged_counts(f"{what} (bare)", cfg.n_layers, bm["decode_steps"],
                          bcounts)
+    _expect_decode_bodies(f"{what} (bare)", "mma")
     tr, mon = Tracer(meta={"phase": "monitor"}), HealthMonitor()
     seen, sm, scounts, sdt = serve(monitor=mon, tracer=tr)
     if [r.completion_ids for r in seen] != [r.completion_ids for r in bare]:
@@ -2710,6 +2829,7 @@ def monitor_phase():
     decode_steps = trainer.engine.stats.decode_steps - steps0
     _trainer_counts("monitored trainer (1 + 2 steps)", tcfg.n_layers, 3,
                     decode_steps, counts)
+    _expect_decode_bodies("monitored trainer (1 + 2 steps)", "tf32x3")
     k1_variants = _expect_variants("monitored trainer (1 + 2 steps)",
                                    {"tf32x3": tcfg.n_layers * 3})
     hist = list(trainer.history)
@@ -3019,6 +3139,7 @@ def big_serve_phase(arch):
     counts = _read_counts()
     _expect_counts(what, cfg.n_layers, m["decode_steps"], counts)
     _expect_variants(what, {"simt": 0, "wgmma": cfg.n_layers})
+    _expect_decode_bodies(what, "mma")
     _check_rollouts(what, rollouts, cfg.vocab, 32)
     n_tok = sum(len(r.completion_ids) for r in rollouts)
     out["static"] = dict(
@@ -3073,6 +3194,7 @@ def big_serve_phase(arch):
     what = f"{arch} generate_groups bf16 2 tasks x 8 slots=8"
     counts = _read_counts()
     _expect_paged_counts(what, cfg.n_layers, m["decode_steps"], counts)
+    _expect_decode_bodies(what, "mma")
     _check_rollouts(what, rollouts, cfg.vocab, 32)
     if len(rollouts) != 16 or m["forks"] < 1:
         fail(f"{what}: {len(rollouts)} rollouts, forks {m['forks']}: "
@@ -3281,6 +3403,7 @@ def train_phase():
         counts = _read_counts()
         what = f"train.run " + " ".join(argv[:4])
         _expect_train_counts(what, family, out["n_layers"], out, counts)
+        _expect_decode_bodies(what, "tf32x3")
         if "--schedule" in argv:
             if not out["schedule"]:
                 fail(f"{what} --schedule: run() returned no plan")
@@ -4796,6 +4919,7 @@ def teacher_forced_phase(arch=ARCH, n_layers=4):
     for i, t in enumerate(tasks):
         toks[i, plen - len(t.prompt_ids):] = t.prompt_ids
     steps, worst = 8, 0.0
+    _reset_counts()
     with torch.inference_mode():
         lg_gpu, c_gpu = transformer.prefill(
             on_card, cfg, torch.from_numpy(toks).cuda(), max_len=plen + steps)
@@ -4816,6 +4940,9 @@ def teacher_forced_phase(arch=ARCH, n_layers=4):
                                                     tok.cuda(), pos.cuda())
             lg_cpu, c_cpu = transformer.decode_step(on_cpu, cfg, c_cpu, tok,
                                                     pos)
+    what = f"teacher-forced {arch} ({n_layers} layers, float32)"
+    _expect_counts(what, n_layers, steps, _read_counts())
+    _expect_decode_bodies(what, "tf32x3")
     say(f"teacher-forced card vs cpu ({arch}, {n_layers} layers, float32, "
         f"prefill + {steps} decode steps): worst max |card - cpu| / max "
         f"|cpu| = {worst:.2e} <= 1e-3")
@@ -4860,6 +4987,7 @@ def paged_teacher_forced_phase():
                  f" = {rel:.3e} > 1e-3")
 
     last = []
+    _reset_counts()
     with torch.no_grad():
         for s, prompt in enumerate(prompts):
             for p0 in range(0, len(prompt), chunk):
@@ -4887,6 +5015,9 @@ def paged_teacher_forced_phase():
                 pos.to(d), active.to(d))[0] for d, p in params.items()}
             compare(f"decode step {t}", out["cuda"][:2], out["cpu"][:2])
             logits = out["cpu"]
+    what = "paged teacher-forced (4 layers, float32)"
+    _expect_paged_counts(what, cfg.n_layers, steps, _read_counts())
+    _expect_decode_bodies(what, "tf32x3")
     say(f"paged teacher-forced card vs cpu (4 layers, float32, prefill in "
         f"chunks of {chunk} at p0 = {offsets} over pages of {page}, {steps} "
         f"decode steps, one inactive slot): worst max |card - cpu| / max "
@@ -5055,9 +5186,20 @@ CORE_PINNED_SPLITS = {
     ("paged_flash_decode", (64, 12, 2, 128, 128, 64)): 3}
 
 
-def _hold_core_pin(name, shape, dtype, n_split):
-    """Fail unless the float32 count at a pinned sweep shape is the pin."""
-    want = CORE_PINNED_SPLITS.get((name, tuple(shape)))
+# and the float32 tensor-core body's, which float32 takes at D 128
+TF32X3_PINNED_SPLITS = {
+    ("flash_decode", (32, 12, 2, 128, 161)): 1,
+    ("flash_decode", (8, 12, 2, 128, 8192)): 8,
+    ("flash_decode", (64, 12, 2, 128, 8192)): 1,
+    ("paged_flash_decode", (32, 12, 2, 128, 128, 2)): 1,
+    ("paged_flash_decode", (8, 12, 2, 128, 128, 64)): 8,
+    ("paged_flash_decode", (64, 12, 2, 128, 128, 64)): 1}
+
+
+def _hold_pin(name, shape, dtype, n_split):
+    """Fail unless the float32 count (on the 3xTF32 body) at a pinned
+    sweep shape is the pin."""
+    want = TF32X3_PINNED_SPLITS.get((name, tuple(shape)))
     if dtype == "float32" and want is not None and n_split != want:
         fail(f"{name} {shape} float32: the rule gives {n_split} splits, "
              f"pinned {want}")
@@ -5478,6 +5620,7 @@ def family_teacher_forced_phase(arch, n_layers, B, S, steps, smoke=False):
     import torch
     from repro_torch.bridge import params_from_jax
     from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.kernels.decode_attention.ops import _decode_body
     from repro_torch.models.api import get_model
 
     cfg = (get_smoke_config(arch) if smoke else get_config(arch)).replace(
@@ -5528,6 +5671,7 @@ def family_teacher_forced_phase(arch, n_layers, B, S, steps, smoke=False):
             "paged_flash_decode": 0, "mlstm_scan": 0}
     if counts != want:
         fail(f"{what}: kernel launches {counts}, expected {want}")
+    _expect_decode_bodies(what, _decode_body(torch.float32, cfg.hd, True))
     say(f"{what}, prefill + {steps} decode steps: worst max |card - cpu| / "
         f"max |cpu| = {worst:.2e} <= 1e-3, greedy tokens identical; "
         f"launches {counts}")
@@ -5996,8 +6140,9 @@ def families_launcher_phase():
     and of qwen3-moe's smoke config.  Exact kernel launches, rollouts in
     range, finite losses and grad norms.  Returns the summaries."""
     import torch
-    from repro_torch.configs import get_config
+    from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.data.tasks import Tokenizer
+    from repro_torch.kernels.decode_attention.ops import _decode_body
     from repro_torch.launch import serve, train
 
     out = {}
@@ -6014,6 +6159,8 @@ def families_launcher_phase():
             _expect_paged_counts(what, n_layers, r["decode_steps"], counts)
         else:
             _expect_counts(what, n_layers, r["decode_steps"], counts)
+        _expect_decode_bodies(what, _decode_body(
+            torch.float32, get_config(arch).hd, True))
         _check_rollouts(what, r["rollouts"], vocab, 32)
         out[what] = dict(tokens=r["tokens"], seconds=r["seconds"],
                          tok_per_s=r["tok_per_s"],
@@ -6032,6 +6179,8 @@ def families_launcher_phase():
         counts = _read_counts()
         _expect_train_counts(what, get_config(arch).family, r["n_layers"], r,
                              counts)
+        _expect_decode_bodies(what, _decode_body(torch.float32, (
+            get_smoke_config(arch) if smoke else get_config(arch)).hd, True))
         hist = r["steps"]
         if len(hist) != 2 or not all(
                 math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
@@ -6210,6 +6359,19 @@ def main() -> None:
     xlstm_teacher_forced_phase()
     train_step_parity_phase()
     families(records, prompt_len)
+    # K3's and K2's launches by block body on every path that held them
+    # (_expect_decode_bodies): float32 at D 64 / 80 / 128 all on the 3xTF32
+    # body, bf16 there all on the mma body
+    for name in ("flash_decode", "paged_flash_decode"):
+        paths = {what: got[name] for what, got in DECODE_BODIES.items()
+                 if sum(got[name].values())}
+        records[name]["launches_by_body"] = paths
+        records[name]["float32_launches"] = f32 = sum(
+            by["tf32x3"] for by in paths.values())
+        if f32 < 1:
+            fail(f"{name}: no launch on the float32 tensor-core body on a "
+                 f"float32 path ({paths})")
+        say(f"{name}: launches by body on its paths {json.dumps(paths)}")
     kernels = [dict(name=name, **rec) for name, rec in records.items()]
     for k in kernels:
         if not all(math.isfinite(k[key]) for key in

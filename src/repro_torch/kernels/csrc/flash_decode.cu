@@ -19,7 +19,9 @@
 // splits merge in the same launch (last-block ticket).  bf16 at D = 64, 80
 // or 128 scores and sums on the tensor cores (mma.sync, up to 16 heads as
 // the rows of an m16 tile: one group, one read of the cache, for G <= 16);
-// float32 and other D on the CUDA cores, in groups of up to 8 heads.  The
+// float32 there likewise, each product three TF32 mma.sync of hi / lo
+// splits, in groups of up to 8 heads; other D on the CUDA cores, in groups
+// of up to 8 heads.  The
 // TPU's sequential cache axis becomes the split's tile loop, and its VMEM
 // (acc, m, l) carry becomes registers.  A slot's position is read before its row, and a slot that
 // is not attended is never read.
@@ -66,13 +68,13 @@ struct DenseRows {
 // the slots it attended, -1e30 where none (a caller that attends one
 // row's cache in several launches, e.g. a context split over ranks,
 // merges their outputs by it).  dtype 0 = float32,
-// 1 = bfloat16.  body 0 = the CUDA-core body, 1 = the tensor-core body
-// (bf16 at D 64 / 80 / 128 with 16-byte aligned k, v and 4-byte aligned
-// q; refused otherwise).  NG: the head groups, Gc = ceil(G / NG) heads
-// each, chosen by the caller (decode_attention/ops.py::_head_groups; at
-// most 16 heads a group on the tensor-core body, 8 on the CUDA-core one,
-// refused otherwise).  window < 0 means no window.  With n_split > 1:
-// part_acc float32
+// 1 = bfloat16.  body 0 = the CUDA-core body, 1 = the bf16 tensor-core
+// body, 2 = the float32 one (3xTF32); both tensor-core bodies at D 64 / 80
+// / 128 with 16-byte aligned k, v and 4-byte aligned q, refused otherwise.
+// NG: the head groups, Gc = ceil(G / NG) heads each, chosen by the caller
+// (decode_attention/ops.py::_head_groups; at most 16 heads a group on the
+// bf16 tensor-core body, 8 on the others, refused otherwise).  window < 0
+// means no window.  With n_split > 1: part_acc float32
 // [B, Hkv, NG, n_split, Gc, D], part_ml float32 [B, Hkv, NG, n_split, Gc, 2]
 // and counters int32 [B * Hkv * NG], all 0 before the first launch (each
 // launch leaves them 0); launches sharing counters must run in stream

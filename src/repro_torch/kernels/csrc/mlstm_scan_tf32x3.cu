@@ -103,7 +103,8 @@
 //   apart), so P v and q C meet only in fp32.
 // Splits.  Every operand is fp32 and is split in registers where it is
 //   loaded: q, k and P per warp, C^T's accumulators once per slice, and
-//   v o w_end once per chunk into hi / lo planes read by ldmatrix.
+//   v o w_end once per chunk into hi / lo planes read by ldmatrix
+//   (sm90.cuh::split_tf32_bits).
 #include <cstdint>
 #include <initializer_list>
 
@@ -156,22 +157,11 @@ __device__ __forceinline__ void stage_slice(float* dst, int ld,
   }
 }
 
-// x = hi + lo as .tf32 operands: hi = tf32(x), to nearest, ties away from
-// zero (cvt.rna's rounding, by bit mask), and lo = x - hi (exact) as it
-// is: mma reads the top 19 bits of a .tf32 operand and drops the low 13,
-// so lo enters truncated to TF32 (ssm_scan/ref.py::tf32_product models
-// both).
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
 template <int N>
 __device__ __forceinline__ void split(const float (&x)[N], uint32_t (&hi)[N],
                                       uint32_t (&lo)[N]) {
 #pragma unroll
-  for (int i = 0; i < N; ++i) split_tf32(x[i], hi[i], lo[i]);
+  for (int i = 0; i < N; ++i) sm::split_tf32_bits(x[i], hi[i], lo[i]);
 }
 
 // The A fragment of rows r0 .. r0 + 15, columns c0 .. c0 + 7 of an fp32
@@ -603,7 +593,7 @@ mlstm_carry_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
     for (int i = tid; i < kT * kDV; i += kThreads) {
       const int t = i % kT, col = i / kT;
       uint32_t hi, lo;
-      split_tf32(v_s[t * kLdV + col] * sca_s[2 * kT + t], hi, lo);
+      sm::split_tf32_bits(v_s[t * kLdV + col] * sca_s[2 * kT + t], hi, lo);
       vwh_s[col * kLdP + t] = __uint_as_float(hi);
       vwl_s[col * kLdP + t] = __uint_as_float(lo);
     }
@@ -625,7 +615,7 @@ mlstm_carry_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
           ldmatrix_a(a, p_s, 16 * mt, 8 * kk);
 #pragma unroll
           for (int e = 0; e < 4; ++e)
-            split_tf32(__uint_as_float(a[e]), ah[e], al[e]);
+            sm::split_tf32_bits(__uint_as_float(a[e]), ah[e], al[e]);
 #pragma unroll
           for (int n = 0; n < 2; ++n) {
             const float* vc = v_s + (8 * kk + t4) * kLdV + 16 * rb + 8 * n + g;

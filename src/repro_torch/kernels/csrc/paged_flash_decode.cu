@@ -29,13 +29,14 @@
 // its layout's fetch, read a tile ahead of the copy, so a tile of 16 slots
 // may span pages of any size.  bf16 at D = 64, 80 or 128 scores and sums
 // on the tensor cores (mma.sync, one group of up to 16 heads, so a page's
-// K/V rows are read once for G <= 16), other cases on the CUDA cores
-// (groups of up to 8); both stream the pool with cp.async several tiles
-// deep and merge the splits in the same launch.  The host picks n_split
-// (ops._num_splits) from B, Hkv, the head groups, the blocks an SM holds
-// (paged_flash_decode_resident) and the slots a row can reach: the table
-// width, or the longest length where the caller knows it on the host (the
-// lengths on the card are never read back).
+// K/V rows are read once for G <= 16), float32 there too (three TF32
+// mma.sync of hi / lo splits a product, groups of up to 8), other cases
+// on the CUDA cores (groups of up to 8); all stream the pool with cp.async
+// several tiles deep and merge the splits in the same launch.  The host
+// picks n_split (ops._num_splits) from B, Hkv, the head groups, the blocks
+// an SM holds (paged_flash_decode_resident) and the slots a row can reach:
+// the table width, or the longest length where the caller knows it on the
+// host (the lengths on the card are never read back).
 #include "split_decode.cuh"
 
 namespace {
@@ -77,14 +78,14 @@ struct PagedRows {
 // q [B, Hkv*G, D], k_pages/v_pages [P, page, Hkv, D], tables [B, maxp] and
 // lengths [B] (int32), o [B, Hkv*G, D]; all contiguous; any G >= 1.
 // dtype 0 = float32, 1 = bfloat16; body and NG (the head groups) as
-// flash_decode's (0 = CUDA cores, groups of up to 8 heads; 1 = tensor
-// cores, up to 16).  window < 0 means no window.  n_split
-// is at most the tiles of maxp * page slots; with n_split > 1, the merge
-// scratch of flash_decode.cu (per head group: part_acc float32
-// [B, Hkv, NG, n_split, Gc, D], part_ml float32 [B, Hkv, NG, n_split, Gc, 2]
-// and counters int32 [B * Hkv * NG]), 0 before the launch and left 0 by it
-// (shared with flash_decode: launches must run in stream order).  Returns
-// cudaGetLastError() of the launch.
+// flash_decode's (0 = CUDA cores, groups of up to 8 heads; 1 = bf16 tensor
+// cores, up to 16; 2 = float32 tensor cores, up to 8).  window < 0 means no
+// window.  n_split is at most the tiles of maxp * page slots; with n_split
+// > 1, the merge scratch of flash_decode.cu (per head group: part_acc
+// float32 [B, Hkv, NG, n_split, Gc, D], part_ml float32 [B, Hkv, NG,
+// n_split, Gc, 2] and counters int32 [B * Hkv * NG]), 0 before the launch
+// and left 0 by it (shared with flash_decode: launches must run in stream
+// order).  Returns cudaGetLastError() of the launch.
 extern "C" int paged_flash_decode(const void* q, const void* k_pages,
                                   const void* v_pages, const void* tables,
                                   const void* lengths, void* o,

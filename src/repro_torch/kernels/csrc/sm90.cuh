@@ -218,6 +218,17 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(x - __uint_as_float(hi)));
 }
 
+// The same split without cvt.rna, which compiles to a sequence with NaN
+// and infinity cases: hi = tf32(x), to nearest, ties away from zero, by
+// bit mask, and lo = x - hi (exact) as it is: mma reads the top 19 bits
+// of a .tf32 operand and drops the low 13, so lo enters truncated to TF32
+// (ssm_scan/ref.py::tf32_product models both).
+__device__ __forceinline__ void split_tf32_bits(float x, uint32_t& hi,
+                                                uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
 // c[16 x 8] += a[16 x 8] * b[8 x 8], tf32 in, fp32 accumulate, in the
 // fragments of the PTX ISA's m16n8k8 .row.col layout: lane (g = l / 4,
 // t4 = l % 4) holds a {(g, t4), (g + 8, t4), (g, t4 + 4), (g + 8, t4 + 4)},

@@ -8,19 +8,20 @@
 // head group hg of KV head hk's G query heads: NG groups of Gc = ceil(G /
 // NG) heads (the last may hold fewer).  The caller chooses NG by one rule
 // (kernels/decode_attention/ops.py::_head_groups): NG = ceil(G / limit),
-// the limit being at most the body's, kMmaMaxG = 16 heads on the tensor
-// cores (the m16 tile's rows) and kMaxG = 8 on the CUDA cores; the
-// tensor-core body takes 16 where its one-group grid fills the SMs and 8
-// where it does not (a 16-row block walks a tile more slowly, and idle
-// SMs make a second group's reread cheaper than that).  dispatch refuses
+// the limit being at most the body's, kMmaMaxG = 16 heads on the bf16
+// tensor-core body (the m16 tile's rows) and kMaxG = 8 on the float32 one
+// and on the CUDA cores; the bf16 tensor-core body takes 16 where its
+// one-group grid fills the SMs and 8 where it does not (a 16-row block
+// walks a tile more slowly, and idle SMs make a second group's reread
+// cheaper than that).  dispatch refuses
 // a group the body cannot serve.  With one group every K/V tile of a (row,
 // KV head, split) is read from HBM once for all G heads, as the TPU kernel
 // reads a KV block once for its (1, 1, G, D) q block; with NG groups each
 // group's blocks read it again (K/V bytes times NG).  The run is the row's
 // whole cache for the dense layout and the slots the mask can reach for
-// the paged one.  Two block bodies; the caller names the one it wants
+// the paged one.  Three block bodies; the caller names the one it wants
 // (Launch::body, chosen by kernels/decode_attention/ops.py::_decode_body),
-// and dispatch refuses the tensor-core body where it cannot serve:
+// and dispatch refuses a tensor-core body where it cannot serve:
 //
 // decode_block_mma (bf16, D = 64, 80 or 128, 16-byte aligned K/V and
 //   4-byte aligned q): each of the 4 warps takes every
@@ -39,17 +40,25 @@
 //   body keeps up with HBM.  At D = 80 a staged row is 176 bytes, 11
 //   pieces of 16 (an odd count, as 9 at D 64 and 17 at D 128), QK^T takes
 //   5 k16 steps and P V 10 n8 tiles in pairs.
-// decode_block (float32, and bf16 at other D): a row group of W lanes (W a
-//   power of two, at most 32) owns one slot at a time; lane ch holds the
-//   pieces ch, ch + W, ... (16 bytes each where D allows, else 1 element)
-//   of the G query rows and of its accumulators, and a score is W partial
+// decode_block_tf32x3 (float32, D = 64, 80 or 128, the same alignment):
+//   decode_block_mma's walk with 8 warps, each on half tiles, every
+//   product three TF32 mma.sync m16n8k8 of hi / lo splits (float32 is
+//   held to 2e-5, which one TF32 product misses), groups of up to 8
+//   heads: rows 8..15 of the m16 tile carry the A operand's lo halves, so
+//   a k8 step costs two mma, not three.  A float32 row is twice a bf16
+//   one, so a ring of 3 stages a warp holds one block an SM at D 80 and
+//   128, two at D 64.
+// decode_block (bf16 and float32 at other D, or unaligned): a row group
+//   of W lanes (W a power of two, at most 32) owns one slot at a time;
+//   lane ch holds the pieces ch, ch + W, ... (16 bytes each where D
+//   allows, else 1 element) of the G query rows and of its accumulators,
+//   and a score is W partial
 //   dots reduced with xor shuffles.  Each thread copies with cp.async
 //   exactly the pieces it will read, kCoreStages - 1 tiles ahead, so the
 //   tile loop needs no barrier.  Its groups stay at 8 heads: a lane keeps
 //   every head's query piece and float32 accumulators in registers, so
-//   16 heads would double them, and it is not the speed path (float32,
-//   held to the plain version at 2e-5, and bf16 at head dims or
-//   alignments the tensor cores do not take).
+//   16 heads would double them, and it is not the speed path (head dims
+//   or alignments the tensor cores do not take).
 //
 // In both, a slot's position (or whatever the layout reads first) is
 // fetched a tile ahead of its copy, only attended slots are copied, and a
@@ -90,6 +99,10 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 16;          // cache slots per tile
 constexpr int kCoreStages = 4;     // decode_block: tiles staged per thread
 constexpr int kMmaStages = 3;      // decode_block_mma: tiles staged per warp
+constexpr int kTf32x3Warps = 8;    // decode_block_tf32x3: warps a block
+constexpr int kTf32x3Stages = 3;   // decode_block_tf32x3: half tiles
+                                   // staged per warp
+constexpr int kHalfTile = kTile / 2;
 constexpr int kMaxSlots = kTile / (kThreads / 32);  // per row group (W = 32)
 constexpr int kMaxG = 8;           // heads of a group, CUDA-core body
 constexpr int kMmaMaxG = 16;       // heads of a group, tensor-core body (the
@@ -140,8 +153,8 @@ __device__ __forceinline__ float log_sum_exp(float m, float l) {
 // threads call it.  Thread g < Gw first turns head g's column of m_s into
 // the owners' weights exp2(m_r - M) and leaves M and L = sum_r l_r w_r in
 // l_s rows 1 and 0 (RG >= 2), so each element of o costs RG loads and
-// FMAs, not RG exponentials.
-template <typename T>
+// FMAs, not RG exponentials.  kBlock: the block's threads.
+template <typename T, int kBlock = kThreads>
 __device__ __forceinline__ void finish(
     const float* a_s, float* m_s, float* l_s, int* last, int RG, int G,
     int Gw, int D, T* __restrict__ o_head, float* __restrict__ lse_head,
@@ -161,7 +174,7 @@ __device__ __forceinline__ void finish(
     l_s[G + tid] = mx;
   }
   __syncthreads();
-  for (int i = tid; i < Gw * D; i += kThreads) {
+  for (int i = tid; i < Gw * D; i += kBlock) {
     const int g = i / D, d = i - g * D;
     float A = 0.f;
     for (int r = 0; r < RG; ++r)
@@ -187,7 +200,7 @@ __device__ __forceinline__ void finish(
   __syncthreads();
   if (!*last) return;
   __threadfence();
-  for (int i = tid; i < Gw * D; i += kThreads) {
+  for (int i = tid; i < Gw * D; i += kBlock) {
     const int g = i / D;
     float mx = kNegInf;
     for (int s = 0; s < n_split; ++s)
@@ -784,6 +797,262 @@ __device__ __forceinline__ void decode_block_mma(
                split, n_split);
 }
 
+// -------------------------------------------- float32 tensor-core body
+// Staged rows of decode_block_tf32x3, in floats: K rows 16 mod 32 (the
+// float4 loads of S = Q K^T hit every bank once), V rows D + 4, 4 mod 16
+// (the float2 loads of P V likewise).
+__host__ __device__ constexpr int tf32x3_ld_k(int D) {
+  return D + (48 - D % 32) % 32;
+}
+__host__ __device__ constexpr int tf32x3_ld_v(int D) { return D + 4; }
+// one stage: K then V of a warp's half tile, floats
+__host__ __device__ constexpr int tf32x3_stage(int D) {
+  return kHalfTile * (tf32x3_ld_k(D) + tf32x3_ld_v(D));
+}
+
+inline size_t tf32x3_smem_bytes(int G, int D) {
+  const size_t stages = sizeof(float) * (size_t)kTf32x3Warps *
+                        kTf32x3Stages * tf32x3_stage(D);
+  const size_t merge = merge_bytes(kTf32x3Warps, G, D);
+  return stages > merge ? stages : merge;
+}
+
+// float32 body; D = 64, 80 or 128; a group of G = 1..8 heads.  The walk
+// is decode_block_mma's with 8 warps on half tiles: warp w takes slots
+// 8 (w / 4) .. + 7 of every 4th tile of the split from tile w % 4, so a
+// tile's two halves run on two warps at once (a float32 warp does twice a
+// bf16 warp's work a slot, and a ring of float32 stages holds one block
+// an SM at D 128), each through its own ring of kTf32x3Stages stages
+// (16-byte cp.async, unattended slots zero-filled and never read; a
+// slot's position or page id fetched two half tiles ahead of its copy).
+// Every product is three TF32 products of hi / lo splits, and the m16
+// tile's rows 8..15 carry the lo halves of the A operand: rows 0..7 are
+// hi(q) (hi(p)) of heads 0..7, rows 8..15 lo(q) (lo(p)) of the same heads,
+// so one mma with hi(B) gives hi(a) hi(b) in rows 0..7 and lo(a) hi(b) in
+// rows 8..15 of one accumulator (a lane holds both for the same columns),
+// and one with lo(B) gives hi(a) lo(b) in rows 0..7: two mma a k8 step,
+// not three.  The k order inside a step is free, as in
+// flash_attention_fwd_tf32x3.cu: in S = Q K^T lane (g, t4) takes dims
+// 4 t4 .. 4 t4 + 3 of each 16 as one float4 of K row g for two k8 steps;
+// in O += P V the k index is the two slots S's accumulator gives the lane
+// (P goes into the A fragment as it is), and column g of the n8 tiles
+// 2 m, 2 m + 1 is dims 16 m + 2 g, + 1 (one float2 of a V row), so a
+// lane's O holds dims 16 m + 4 t4 .. + 3 of head g.  Rounding: the tensor
+// cores' fp32 sums are not rounded to nearest, so no accumulator runs
+// across half tiles: S's small products have their own accumulators and
+// meet the large ones in fp32, and each half tile's P V is summed from
+// zero and folded into O with the softmax correction by one fp32 fma.
+// Arguments as decode_block_mma's, float32.
+template <int D, typename Layout>
+__device__ __forceinline__ void decode_block_tf32x3(
+    const Layout& lay, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ q_head,
+    float* __restrict__ o_head, float* __restrict__ lse_head,
+    float* __restrict__ part_acc, float* __restrict__ part_ml,
+    int* __restrict__ counter, int C, int G, float scale_log2, int split,
+    int n_split, unsigned char* smem) {
+  constexpr int S = kTf32x3Stages;
+  constexpr int kLdK = tf32x3_ld_k(D), kLdV = tf32x3_ld_v(D);
+  constexpr int kStage = tf32x3_stage(D);      // floats
+  constexpr int kPieces = D / 4;               // 16-byte pieces a row
+  constexpr int kCopies = kHalfTile * kPieces / 32;
+  constexpr int kN = D / 8;                    // n8 tiles of O
+  constexpr int kRuns = 4;                     // accumulators of S a kind
+  static_assert(D % 16 == 0 && kHalfTile * kPieces % 32 == 0,
+                "whole pairs of k8 steps and whole copies");
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int half = kHalfTile * (warp / kWarps);  // first slot of a tile
+  int t_lo, t_hi;
+  split_tiles(C, split, n_split, t_lo, t_hi);
+  t_lo += warp % kWarps;                       // every 4th tile
+  float* ring = reinterpret_cast<float*>(smem) + (size_t)warp * S * kStage;
+
+  // lane l < kHalfTile fetches slot half + l of tile t
+  auto fetch_tile = [&](int t) {
+    return lane < kHalfTile && t < t_hi
+               ? lay.fetch(t * kTile + half + lane)
+               : kEmptyPos;
+  };
+  // the first S + 1 tiles' fetches go out before Q is read, so the two
+  // reads' latencies overlap
+  int fetched[S + 1];
+#pragma unroll
+  for (int i = 0; i <= S; ++i) fetched[i] = fetch_tile(t_lo + kWarps * i);
+
+  // Q as the A fragment of S = Q K^T, split once: qa[d16][h][.] is the k8
+  // step of dims 16 d16 + 4 t4 + 2 h (k t4) and + 1 (k t4 + 4): a0 / a2
+  // hi(q) of head g, a1 / a3 lo(q) (zero past G)
+  uint32_t qa[D / 16][2][4];
+#pragma unroll
+  for (int d16 = 0; d16 < D / 16; ++d16)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float x =
+            g < G ? q_head[(size_t)g * D + 16 * d16 + 4 * t4 + 2 * h + e]
+                  : 0.f;
+        sm90::split_tf32_bits(x, qa[d16][h][2 * e], qa[d16][h][2 * e + 1]);
+      }
+  // O of head g: acc[n][e] is dim 16 (n / 2) + 4 t4 + 2 e + n % 2
+  float acc[kN][2];
+#pragma unroll
+  for (int n = 0; n < kN; ++n) acc[n][0] = acc[n][1] = 0.f;
+  float m = kNegInf, l = 0.f;
+
+  // u: this warp's u-th tile; f: its slot's fetched value
+  auto issue_tile = [&](int u, int f) {
+    const int t = t_lo + kWarps * u;
+    const int slot = t * kTile + half + lane;
+    const unsigned ok = __ballot_sync(
+        0xffffffffu, lane < kHalfTile && t < t_hi && lay.attended(slot, f));
+    const long long off = lane < kHalfTile ? lay.offset(slot, f) : 0;
+    if (ok) {
+      float* ks = ring + (u % S) * kStage;
+      float* vs = ks + kHalfTile * kLdK;
+#pragma unroll
+      for (int i = 0; i < kCopies; ++i) {
+        const int idx = lane + 32 * i, c = idx / kPieces, pc = idx % kPieces;
+        const long long row = __shfl_sync(0xffffffffu, off, c);
+        const bool copy = (ok >> c) & 1;
+        const long long src = copy ? row + pc * 4 : 0;
+        cp_async_16_or_zero(ks + c * kLdK + pc * 4, k + src, copy);
+        cp_async_16_or_zero(vs + c * kLdV + pc * 4, v + src, copy);
+      }
+    }
+    sm90::cp_async_commit();
+    return ok;
+  };
+
+  unsigned ok[S];
+#pragma unroll
+  for (int i = 0; i < S - 1; ++i) ok[i] = issue_tile(i, fetched[i]);
+  // the fetched values of the next two tiles to issue
+  int f_next = fetched[S - 1], f_after = fetched[S];
+  for (int u = 0; t_lo + kWarps * u < t_hi; ++u) {
+    __syncwarp();                  // stage (u - 1) % S is read: refill it
+    ok[S - 1] = issue_tile(u + S - 1, f_next);
+    f_next = f_after;
+    f_after = fetch_tile(t_lo + kWarps * (u + S + 1));
+    sm90::cp_async_wait<S - 1>();
+    __syncwarp();                  // the warp's copies of tile u landed
+    const unsigned ok_t = ok[0];
+#pragma unroll
+    for (int i = 0; i < S - 1; ++i) ok[i] = ok[i + 1];
+    if (!ok_t) continue;
+    const float* ks = ring + (u % S) * kStage;
+    const float* vs = ks + kHalfTile * kLdK;
+
+    // S = Q K^T over the half tile's 8 slots, lane (g, t4) holding slots
+    // 2 t4 and 2 t4 + 1: big[r] takes hi(k) (rows 0..7 hi(q) hi(k), rows
+    // 8..15 lo(q) hi(k)), small[r] lo(k) (rows 0..7 hi(q) lo(k)), the k16
+    // steps dealt round kRuns accumulators of each kind so that no chain of
+    // dependent mma is longer than D / 64 k16 steps
+    float big[kRuns][4] = {}, small[kRuns][4] = {};
+#pragma unroll
+    for (int d16 = 0; d16 < D / 16; ++d16) {
+      // B (k t4, n g), (k t4 + 4, n g) of the two k8 steps: K[g] at dims
+      // c, c + 1, then c + 2, c + 3
+      const float4 kv = *reinterpret_cast<const float4*>(
+          ks + g * kLdK + 16 * d16 + 4 * t4);
+      const float kx[4] = {kv.x, kv.y, kv.z, kv.w};
+      uint32_t bh[4], bl[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sm90::split_tf32_bits(kx[e], bh[e], bl[e]);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        sm90::mma_m16n8k8_tf32(small[d16 % kRuns], qa[d16][h], bl[2 * h],
+                               bl[2 * h + 1]);
+        sm90::mma_m16n8k8_tf32(big[d16 % kRuns], qa[d16][h], bh[2 * h],
+                               bh[2 * h + 1]);
+      }
+    }
+    // head g's scores: the large product, then the two small ones
+    float sc[2];
+    float mx = m;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float hh = 0.f, lh = 0.f, hl = 0.f;
+#pragma unroll
+      for (int r = 0; r < kRuns; ++r) {
+        hh += big[r][e];
+        lh += big[r][2 + e];
+        hl += small[r][e];
+      }
+      sc[e] = (ok_t >> (2 * t4 + e)) & 1 ? (hh + (lh + hl)) * scale_log2
+                                         : kNegInf;
+      mx = fmaxf(mx, sc[e]);
+    }
+    // online softmax of head g over the quad's 8 slots
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float corr = exp2f(m - mx);
+    // P as the A fragment of O = P V: (g, k t4) = slot 2 t4 and (g, k
+    // t4 + 4) = slot 2 t4 + 1, hi in a0 / a2, lo in a1 / a3
+    uint32_t pa[4];
+    float sum = 0.f;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      // everything masked so far: exp(NEG - NEG) = 1 must not count
+      const float p = mx == kNegInf ? 0.f : exp2f(sc[e] - mx);
+      sum += p;
+      sm90::split_tf32_bits(p, pa[2 * e], pa[2 * e + 1]);
+    }
+    l = l * corr + sum;
+    m = mx;
+    // O = O * corr + P V, n8 tiles 2 mm and 2 mm + 1 at a time: B (k t4,
+    // n g) = V[slot 2 t4][dim 16 mm + 2 g (+ 1)], k t4 + 4 the next slot;
+    // rows 0..7 of pv sum hi(p) lo(v) + hi(p) hi(v), rows 8..15 lo(p) lo(v)
+    // + lo(p) hi(v)
+#pragma unroll
+    for (int mm = 0; mm < kN / 2; ++mm) {
+      const float* vr = vs + 2 * t4 * kLdV + 16 * mm + 2 * g;
+      const float2 va = *reinterpret_cast<const float2*>(vr);
+      const float2 vn = *reinterpret_cast<const float2*>(vr + kLdV);
+      const float vx[2][2] = {{va.x, vn.x}, {va.y, vn.y}};
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        uint32_t bh[2], bl[2];
+        sm90::split_tf32_bits(vx[p][0], bh[0], bl[0]);
+        sm90::split_tf32_bits(vx[p][1], bh[1], bl[1]);
+        float pv[4] = {0.f, 0.f, 0.f, 0.f};
+        sm90::mma_m16n8k8_tf32(pv, pa, bl[0], bl[1]);
+        sm90::mma_m16n8k8_tf32(pv, pa, bh[0], bh[1]);
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          acc[2 * mm + p][e] =
+              fmaf(acc[2 * mm + p][e], corr, pv[e] + pv[2 + e]);
+      }
+    }
+  }
+  sm90::cp_async_wait<0>();
+  __syncthreads();                 // the stages are free: merge the warps
+
+  constexpr int RG = kTf32x3Warps;
+  float* a_s = reinterpret_cast<float*>(smem);        // [RG][G][D]
+  float* m_s = a_s + (size_t)RG * G * D;              // [RG][G]
+  float* l_s = m_s + RG * G;                          // [RG][G]
+  l += __shfl_xor_sync(0xffffffffu, l, 1);
+  l += __shfl_xor_sync(0xffffffffu, l, 2);
+  if (g < G) {
+#pragma unroll
+    for (int mm = 0; mm < kN / 2; ++mm)
+      *reinterpret_cast<float4*>(a_s + ((size_t)warp * G + g) * D + 16 * mm +
+                                 4 * t4) =
+          make_float4(acc[2 * mm][0], acc[2 * mm + 1][0], acc[2 * mm][1],
+                      acc[2 * mm + 1][1]);
+    if (t4 == 0) {
+      m_s[warp * G + g] = m;
+      l_s[warp * G + g] = l;
+    }
+  }
+  __syncthreads();
+  finish<float, 32 * RG>(a_s, m_s, l_s, reinterpret_cast<int*>(l_s + RG * G),
+                         RG, G, G, D, o_head, lse_head, part_acc, part_ml,
+                         counter, split, n_split);
+}
+
 // ------------------------------------------------------ kernels, launch
 // A cache layout for the launch: rows.at(b, hk, C) returns the Layout of
 // row b, KV head hk, and sets C to the number of slots of the row's run,
@@ -828,6 +1097,27 @@ decode_mma_kernel(const Rows rows, const __nv_bfloat16* __restrict__ q,
                                part_ml + grp.blk * n_split * Gc * 2,
                                counters + grp.blk, C, grp.Gw, scale_log2,
                                split, n_split, smem);
+}
+
+template <typename Rows, int D>
+__global__ void __launch_bounds__(32 * kTf32x3Warps)
+decode_tf32x3_kernel(const Rows rows, const float* __restrict__ q,
+                     const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o,
+                     float* __restrict__ lse, float* __restrict__ part_acc,
+                     float* __restrict__ part_ml, int* __restrict__ counters,
+                     int G, int NG, int Gc, float scale_log2) {
+  const int split = blockIdx.x, n_split = gridDim.x;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Group grp = head_group(G, NG, Gc, D);
+  int C;
+  const auto lay = rows.at(blockIdx.z, grp.hk, C);
+  decode_block_tf32x3<D>(lay, k, v, q + grp.head0, o + grp.head0,
+                         lse ? lse + grp.head0 / D : nullptr,
+                         part_acc + grp.blk * n_split * Gc * D,
+                         part_ml + grp.blk * n_split * Gc * 2,
+                         counters + grp.blk, C, grp.Gw, scale_log2, split,
+                         n_split, smem);
 }
 
 // Gc, the heads of a full group, is the template's G.
@@ -876,13 +1166,14 @@ cudaError_t with_group(int G, F&& f) {
 // not null, float32 [B, Hkv * G]: each head's log-sum-exp of its scaled
 // scores over the slots it attended (-1e30 where none), so that launches
 // over disjoint runs of one row's cache can be merged by the caller.
-// body: kBodyCore (decode_block) or kBodyMma (decode_block_mma).
+// body: kBodyCore (decode_block), kBodyMma (decode_block_mma) or
+// kBodyTf32x3 (decode_block_tf32x3).
 // resident, when not null, asks for no launch: the kernel the launch would
 // run is chosen as for a launch, and the blocks of it that one SM holds at
 // once (cudaOccupancyMaxActiveBlocksPerMultiprocessor, at its threads and
 // dynamic shared memory) are written there; aligned then stands for the
 // pointers (k and v 16-byte aligned, q 4-byte aligned).
-constexpr int kBodyCore = 0, kBodyMma = 1;
+constexpr int kBodyCore = 0, kBodyMma = 1, kBodyTf32x3 = 2;
 
 struct Launch {
   const void *q, *k, *v;
@@ -896,19 +1187,31 @@ struct Launch {
   bool aligned = false;
 };
 
-// Launch kernel over the grid of a, or with a.resident only count the
-// blocks of it an SM holds.
+// Launch kernel over the grid of a with threads a block, or with
+// a.resident only count the blocks of it an SM holds.
 template <typename Kernel, typename... Args>
-cudaError_t launch_or_count(Kernel kernel, size_t smem, const Launch& a,
-                            Args... args) {
+cudaError_t launch_or_count(Kernel kernel, int threads, size_t smem,
+                            const Launch& a, Args... args) {
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   if (a.resident)
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(a.resident, kernel,
-                                                         kThreads, smem);
-  kernel<<<dim3(a.n_split, a.Hkv * a.NG, a.B), kThreads, smem, a.stream>>>(
+                                                         threads, smem);
+  kernel<<<dim3(a.n_split, a.Hkv * a.NG, a.B), threads, smem, a.stream>>>(
       args...);
   return cudaGetLastError();
+}
+
+template <typename Rows, int D>
+cudaError_t launch_tf32x3(const Rows& rows, const Launch& a) {
+  const int NG = a.NG, Gc = (a.G + NG - 1) / NG;
+  return launch_or_count(
+      decode_tf32x3_kernel<Rows, D>, 32 * kTf32x3Warps,
+      tf32x3_smem_bytes(Gc, D), a, rows, static_cast<const float*>(a.q),
+      static_cast<const float*>(a.k), static_cast<const float*>(a.v),
+      static_cast<float*>(a.o), static_cast<float*>(a.lse),
+      static_cast<float*>(a.part_acc), static_cast<float*>(a.part_ml),
+      static_cast<int*>(a.counters), a.G, NG, Gc, a.scale * kLog2e);
 }
 
 template <typename Rows, typename T, int VEC, int NC, bool WIDE = false>
@@ -917,7 +1220,8 @@ cudaError_t launch_core(const Rows& rows, const Launch& a, int W) {
   const size_t smem = core_smem_bytes(sizeof(T), Gc, a.D, W);
   return with_group(Gc, [&](auto g) {
     return launch_or_count(
-        decode_kernel<Rows, T, decltype(g)::value, VEC, NC, WIDE>, smem, a,
+        decode_kernel<Rows, T, decltype(g)::value, VEC, NC, WIDE>, kThreads,
+        smem, a,
         rows, static_cast<const T*>(a.q), static_cast<const T*>(a.k),
         static_cast<const T*>(a.v), static_cast<T*>(a.o),
         static_cast<float*>(a.lse), static_cast<float*>(a.part_acc),
@@ -935,7 +1239,7 @@ cudaError_t launch_mma(const Rows& rows, const Launch& a) {
   auto kernel = Gc > 8 ? decode_mma_kernel<Rows, D, true>
                        : decode_mma_kernel<Rows, D, false>;
   return launch_or_count(
-      kernel, smem, a, rows, static_cast<const bf16*>(a.q),
+      kernel, kThreads, smem, a, rows, static_cast<const bf16*>(a.q),
       static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
       static_cast<bf16*>(a.o), static_cast<float*>(a.lse),
       static_cast<float*>(a.part_acc), static_cast<float*>(a.part_ml),
@@ -943,8 +1247,9 @@ cudaError_t launch_mma(const Rows& rows, const Launch& a) {
 }
 
 // Whether NG groups of G heads are a partition the body serves: Gc =
-// ceil(G / NG) heads at most the body's limit (kMmaMaxG on the tensor
-// cores, kMaxG on the CUDA cores), and no group empty.
+// ceil(G / NG) heads at most the body's limit (kMmaMaxG on the bf16
+// tensor-core body, kMaxG on the float32 one, whose rows 8..15 carry the
+// lo halves, and on the CUDA cores), and no group empty.
 inline bool groups_served(int G, int NG, int body) {
   if (G < 1 || NG < 1 || NG > G) return false;
   const int Gc = (G + NG - 1) / NG;
@@ -954,7 +1259,8 @@ inline bool groups_served(int G, int NG, int body) {
 
 // The body the launch names: the tensor cores for bf16 at D = 64, 80 or
 // 128 with 16-byte aligned K/V and 4-byte aligned q, in groups of up to
-// 16 heads; the CUDA cores at any D and dtype, in groups of up to 8, with
+// 16 heads, and for float32 at those D and alignments (3xTF32) in groups
+// of up to 8; the CUDA cores at any D and dtype, in groups of up to 8, with
 // 16-byte pieces where D and the cache's alignment allow them and a row
 // fits 32 lanes, one element a piece where not.  A launch a body cannot
 // serve (its dtype, D, alignment or head groups) is refused, never sent
@@ -975,6 +1281,16 @@ cudaError_t dispatch(const Rows& rows, const Launch& a) {
         if (D == 64) return launch_mma<Rows, 64>(rows, a);
         if (D == 80) return launch_mma<Rows, 80>(rows, a);
         if (D == 128) return launch_mma<Rows, 128>(rows, a);
+      }
+    }
+    return cudaErrorInvalidValue;
+  }
+  if (a.body == kBodyTf32x3) {
+    if constexpr (std::is_same<T, float>::value) {
+      if (aligned && q_aligned) {
+        if (D == 64) return launch_tf32x3<Rows, 64>(rows, a);
+        if (D == 80) return launch_tf32x3<Rows, 80>(rows, a);
+        if (D == 128) return launch_tf32x3<Rows, 128>(rows, a);
       }
     }
     return cudaErrorInvalidValue;

@@ -14,18 +14,20 @@ JAX entry point does.  On a CPU tensor it runs ``decode_attention_ref``; on
 a CUDA tensor it launches the kernel (or raises) and counts the launch in
 ``decode_attention.launches`` and, per block body, in
 ``decode_attention.launches_by_variant``: ``_decode_body`` names the body
-(``"mma"``, the tensor cores, for bfloat16 at D = 64, 80 or 128 on aligned
-tensors; ``"core"``, the CUDA cores, otherwise) and the C entry launches
-that one or refuses.  The kernel needs no padding of D or C (the
+(on aligned tensors at D = 64, 80 or 128 the tensor cores: ``"mma"`` for
+bfloat16, ``"tf32x3"`` for float32, each product three TF32 products of
+hi / lo splits; ``"core"``, the CUDA cores, otherwise) and the C entry
+launches that one or refuses.  The kernel needs no padding of D or C (the
 TPU wrapper padded D to 128 and C to ``block_c``), and takes any group of
 ``G = H / Hkv`` query heads in one launch, as ``_head_groups`` cuts
 them: groups of up to ``GROUP_LIMIT[body]`` heads, 8 on the CUDA-core
-body (each head's float32 accumulators in a lane's registers; float32 is
-held to 2e-5 there, and bf16 at D 64 / 80 / 128 never takes it) and 16
-on the tensor-core body (all 16 rows of its m16 tile, so each K/V tile
-is read from HBM once for G <= 16, as the TPU kernel reads it once for
-its G heads) where the one-group launch fills the card or its K/V read
-dominates; elsewhere (short rows on idle SMs) the tensor-core body keeps
+body (each head's float32 accumulators in a lane's registers) and on the
+float32 tensor-core body (rows 8..15 of its m16 tile carry the lo halves
+of the split operands) and 16 on the bf16 tensor-core body (all 16 rows
+of its m16 tile, so each K/V tile is read from HBM once for G <= 16, as
+the TPU kernel reads it once for its G heads) where the one-group launch
+fills the card or its K/V read dominates; elsewhere (short rows on idle
+SMs) the bf16 tensor-core body keeps
 groups of 8, which measured faster there.
 Launches are also counted by the head groups the C entry was given, in
 ``decode_attention.launches_by_groups``.
@@ -60,30 +62,35 @@ from .ref import (decode_attention_ref, decode_scores_ref,
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # query heads a block serves, by body (split_decode.cuh kMaxG, kMmaMaxG)
-GROUP_LIMIT = {"core": 8, "mma": 16}
+GROUP_LIMIT = {"core": 8, "mma": 16, "tf32x3": 8}
 TILE = 16              # cache slots per tile (split_decode.cuh kTile)
 MIN_SPLIT_TILES = 8    # tiles a split holds at least, by default
 # splits a (row, KV head, head group) takes at most, by body; past
 # EVERY_COUNT only multiples of MERGE_UNROLL (whole rounds of the merge)
-MAX_SPLITS = {"mma": 16, "core": 64}
+MAX_SPLITS = {"mma": 16, "core": 64, "tf32x3": 16}
 EVERY_COUNT = 16
 WARPS, THREADS = 4, 128     # a block of split_decode.cuh (kWarps, kThreads)
 # the split rule's cost model (_num_splits), fit to sweeps of every split
-# count on the H100 (PERF.md; the tensor-core body in bf16, the CUDA-core
+# count on the H100 (PERF.md; each body in its own dtype, the CUDA-core
 # body in float32), in a tile step: the time a walker (WALKERS) takes for
 # one tile.  By body: the tiles a block walks at once (each warp of the
-# tensor-core body its own, every WARPS-th tile of the split; the
-# CUDA-core body's row groups each tile together); the share of the
-# blocks an SM holds that streams at full rate (1: the CUDA-core body
+# bf16 tensor-core body its own, every WARPS-th tile of the split, and
+# each pair of warps of the float32 one; the CUDA-core body's row groups
+# each tile together); the share of the blocks an SM holds that streams
+# at full rate (1: the CUDA-core body
 # never streams faster than its blocks walk); a block's own cost (its
 # prologue and finish); and a merge's cost per round of dependent reads
 # of the partials (the split loop unrolled MERGE_UNROLL deep), beside a
 # fixed MERGE_STEPS.  A 16-row block's second softmax row a lane costs a
-# tile as much as WIDE_DIMS more head dims would.
-WALKERS = {"mma": WARPS, "core": 1}
-STREAM_SHARE = {"mma": 0.4, "core": 1.0}
-BLOCK_STEPS = {"mma": 0.0, "core": 4.0}
-MERGE_READ_STEPS = {"mma": 0.5, "core": 0.2}
+# tile as much as WIDE_DIMS more head dims would.  FULL_RATE_BLOCKS caps
+# the blocks an SM holds as the rule counts them: two blocks of the
+# float32 tensor-core body on one SM (D 64) walk no faster than one
+# (its float32 split sweep, PERF.md §6).
+WALKERS = {"mma": WARPS, "core": 1, "tf32x3": WARPS}
+STREAM_SHARE = {"mma": 0.4, "core": 1.0, "tf32x3": 1.0}
+BLOCK_STEPS = {"mma": 0.0, "core": 4.0, "tf32x3": 8.0}
+MERGE_READ_STEPS = {"mma": 0.5, "core": 0.2, "tf32x3": 0.3}
+FULL_RATE_BLOCKS = {"tf32x3": 1}
 MERGE_STEPS = 4.0
 MERGE_UNROLL = 4
 WIDE_DIMS = 32
@@ -91,8 +98,9 @@ LONG_TILES = 64        # tiles a SM walks from which one head group of 16
                        # pays on the tensor cores (_head_groups)
 N_SM = 132             # the H100's SMs
 MAX_D = 256            # K3's kernel (split_decode.cuh kMaxD)
-MMA_DIMS = (64, 80, 128)   # the tensor-core body's head dims
-BODIES = {"core": 0, "mma": 1}   # split_decode.cuh kBodyCore / kBodyMma
+MMA_DIMS = (64, 80, 128)   # the tensor-core bodies' head dims
+# split_decode.cuh kBodyCore / kBodyMma / kBodyTf32x3
+BODIES = {"core": 0, "mma": 1, "tf32x3": 2}
 PV_TILE = 32           # slots a tile of decode_softmax_pv (decode_hd.cu)
 PV_CHUNK = 64          # dims a block of decode_softmax_pv serves
 MIN_PV_TILES = 4       # tiles a split of decode_softmax_pv holds at least
@@ -121,7 +129,8 @@ def _num_splits(B: int, Hkv: int, tiles: int, n_sm: int, resident: int,
     of the launch's ``B * Hkv`` (row, KV head or head group) pairs, the
     ``tiles`` of TILE slots a row walks, the card's ``n_sm`` SMs, the
     blocks of the body launched that an SM holds at once (``resident``,
-    ``_resident`` on the card), the least tiles of a split, the heads a
+    ``_resident`` on the card, counted as at most
+    ``FULL_RATE_BLOCKS[body]``), the least tiles of a split, the heads a
     block serves (``rows``), D and the block ``body``.
 
     It takes the count of least modelled cost, in tile steps: a split of
@@ -147,6 +156,7 @@ def _num_splits(B: int, Hkv: int, tiles: int, n_sm: int, resident: int,
     if resident < 1:
         raise ValueError(f"resident = {resident}: an SM holds no block")
     pairs = B * Hkv
+    resident = min(resident, FULL_RATE_BLOCKS.get(body, resident))
     work = 1.0 + WIDE_DIMS / D if rows > GROUP_LIMIT["core"] else 1.0
     walkers = WALKERS[body]
     stream = pairs * tiles * work / (walkers * STREAM_SHARE[body] * resident
@@ -180,13 +190,19 @@ def _wave_splits(B: int, units: int, C: int, n_sm: int, waves: float,
 
 def _decode_body(dtype: torch.dtype, D: int, aligned: bool) -> str:
     """The block body of ``csrc/split_decode.cuh`` that serves a launch
-    (K3's and K2's): ``"mma"`` (``decode_block_mma``, the tensor cores) for
-    bfloat16 at D = 64, 80 or 128 when ``aligned`` (k and v 16-byte
-    aligned, q 4-byte aligned, ``_aligned``), else ``"core"``
-    (``decode_block``, the CUDA cores).  The wrappers pass it to the C
-    entry, whose ``dispatch`` refuses ``"mma"`` where it cannot serve."""
-    return ("mma" if dtype == torch.bfloat16 and D in MMA_DIMS and aligned
-            else "core")
+    (K3's and K2's): at D = 64, 80 or 128 when ``aligned`` (k and v
+    16-byte aligned, q 4-byte aligned, ``_aligned``) the tensor cores,
+    ``"mma"`` (``decode_block_mma``) for bfloat16 and ``"tf32x3"``
+    (``decode_block_tf32x3``, three TF32 products of hi / lo splits) for
+    float32; else ``"core"`` (``decode_block``, the CUDA cores).  The
+    wrappers pass it to the C entry, whose ``dispatch`` refuses a
+    tensor-core body where it cannot serve."""
+    if D in MMA_DIMS and aligned:
+        if dtype == torch.bfloat16:
+            return "mma"
+        if dtype == torch.float32:
+            return "tf32x3"
+    return "core"
 
 
 def _aligned(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
@@ -263,12 +279,18 @@ def _launch_splits(B: int, H: int, Hkv: int, D: int, C: int, n_sm: int,
 # paged_flash_decode_resident return there (chip_smoke.py checks them);
 # the CPU models of the card (autotune.space) count with them
 H100_RESIDENT = {64: 4, 80: 3, 128: 2}
+# and of the float32 tensor-core body (8 warps, a float32 ring of 3 half
+# tiles each: 114 KB at D 64, 126 KB at D 80, 212 KB at D 128), at any
+# group
+H100_RESIDENT_TF32X3 = {64: 2, 80: 1, 128: 1}
 
 
-def _h100_resident(D: int):
-    """``resident(Gc)`` of the tensor-core body at D on the H100, from
-    H100_RESIDENT, for the models that count a launch off the card."""
-    return lambda gc: H100_RESIDENT[D]
+def _h100_resident(D: int, body: str = "mma"):
+    """``resident(Gc)`` of a tensor-core body (``"mma"`` or ``"tf32x3"``)
+    at D on the H100, from H100_RESIDENT or H100_RESIDENT_TF32X3, for the
+    models that count a launch off the card."""
+    table = H100_RESIDENT_TF32X3 if body == "tf32x3" else H100_RESIDENT
+    return lambda gc: table[D]
 
 
 _RESIDENT: Dict[tuple, int] = {}   # per (entry, device, instantiation)
@@ -450,10 +472,11 @@ def _count(wrapper, body: str, groups, n_split: int) -> None:
 def _launch(q, k, v, q_pos, k_pos, window, scale, n_split, body, ng,
             return_lse=False):
     """One launch of ``flash_decode.cu`` with the given split count, body
-    (``"mma"`` or ``"core"``) and ``ng`` head groups (``_cut``), on inputs
-    ``decode_attention`` has checked; not counted (chip_smoke.py times the
-    CUDA-core body and other groups through it).  Returns ``(o, lse or
-    None, (NG, Gc))``, the groups as the C entry was given them."""
+    (``"mma"``, ``"tf32x3"`` or ``"core"``) and ``ng`` head groups
+    (``_cut``), on inputs ``decode_attention`` has checked; not counted
+    (chip_smoke.py times the CUDA-core body and other groups through it).
+    Returns ``(o, lse or None, (NG, Gc))``, the groups as the C entry was
+    given them."""
     B, H, D = q.shape
     C, Hkv = k.shape[1], k.shape[2]
     G = H // Hkv
@@ -477,7 +500,7 @@ def _launch(q, k, v, q_pos, k_pos, window, scale, n_split, body, ng,
 
 
 decode_attention.launches = 0
-decode_attention.launches_by_variant = {"mma": 0, "core": 0}
+decode_attention.launches_by_variant = {"mma": 0, "tf32x3": 0, "core": 0}
 decode_attention.launches_by_groups = {}     # head groups NG -> launches
 decode_attention.launches_by_splits = {}     # n_split -> launches
 decode_attention.last_n_split = None

@@ -14,11 +14,12 @@ over the longest length where the caller gives it (``max_len``).
 the JAX entry point does.  On a CPU tensor it runs
 ``paged_decode_attention_ref``; on a CUDA tensor it launches the kernel (or
 raises) and counts the launch in ``paged_decode_attention.launches`` and,
-per block body (K3's ``_decode_body``: ``"mma"`` or ``"core"``), in
-``paged_decode_attention.launches_by_variant``, and by head groups (K3's
-``_head_groups``: one group of up to 16 heads on the tensor-core body
-where that launch fills the card or its K/V read dominates, so a page's
-K/V rows are read once for G <= 16; groups of up to 8 elsewhere), in
+per block body (K3's ``_decode_body``: ``"mma"``, ``"tf32x3"`` or
+``"core"``), in ``paged_decode_attention.launches_by_variant``, and by
+head groups (K3's ``_head_groups``: one group of up to 16 heads on the
+bf16 tensor-core body where that launch fills the card or its K/V read
+dominates, so a page's K/V rows are read once for G <= 16; groups of up
+to 8 elsewhere), in
 ``paged_decode_attention.launches_by_groups``.  As in the reference wrapper, table ids are clamped into ``[0, P-1]`` (the
 kernel clamps each id it reads), and the scale is that of the true D: the
 kernel needs no padding of D.  Its knob is the split rule's
@@ -192,9 +193,10 @@ def paged_decode_attention(
 def _launch(q, k_pages, v_pages, block_tables, lengths, window, scale,
             n_split, body, ng):
     """One launch of ``paged_flash_decode.cu`` with the given split count,
-    body (``"mma"`` or ``"core"``) and ``ng`` head groups (``_cut``), on
-    inputs ``paged_decode_attention`` has checked; not counted
-    (chip_smoke.py times the CUDA-core body and other groups through it).
+    body (``"mma"``, ``"tf32x3"`` or ``"core"``) and ``ng`` head groups
+    (``_cut``), on inputs ``paged_decode_attention`` has checked; not
+    counted (chip_smoke.py times the CUDA-core body and other groups
+    through it).
     Returns ``(o, (NG, Gc))``, the groups as the C entry was given them."""
     B, H, D = q.shape
     P, page, Hkv, _ = k_pages.shape
@@ -216,7 +218,8 @@ def _launch(q, k_pages, v_pages, block_tables, lengths, window, scale,
 
 
 paged_decode_attention.launches = 0
-paged_decode_attention.launches_by_variant = {"mma": 0, "core": 0}
+paged_decode_attention.launches_by_variant = {"mma": 0, "tf32x3": 0,
+                                              "core": 0}
 paged_decode_attention.launches_by_groups = {}   # head groups -> launches
 paged_decode_attention.launches_by_splits = {}   # n_split -> launches
 paged_decode_attention.last_n_split = None

@@ -57,8 +57,12 @@ def _f32(x) -> np.ndarray:
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("aligned", [True, False])
 def test_decode_body(D, dtype, aligned):
-    want = ("mma" if dtype == torch.bfloat16 and D in (64, 80, 128)
-            and aligned else "core")
+    """Aligned tensors at D 64 / 80 / 128 take a tensor-core body, "mma"
+    in bfloat16 and "tf32x3" (three TF32 products) in float32; the rest
+    the CUDA-core body."""
+    tensor_cores = D in (64, 80, 128) and aligned
+    want = (("mma" if dtype == torch.bfloat16 else "tf32x3")
+            if tensor_cores else "core")
     assert decode_ops._decode_body(dtype, D, aligned) == want
 
 
@@ -80,12 +84,15 @@ def test_h100_resident_follows_the_head_dim(D, rows16, want):
 
 def test_variants_agree_on_the_head_dims():
     """K1's wgmma kernel and the decode mma body serve the same bf16 head
-    dims, so a config runs its prefill and its decode both on the tensor
-    cores or neither."""
+    dims, and K1's and the decode's float32 tensor-core kernels the same
+    float32 ones, so a config runs its prefill and its decode both on the
+    tensor cores or neither."""
     assert tuple(WGMMA_DIMS) == tuple(decode_ops.MMA_DIMS) == (64, 80, 128)
     for D in range(8, 257, 8):
         assert (_variant(torch.bfloat16, D) == "wgmma") == (
             decode_ops._decode_body(torch.bfloat16, D, True) == "mma")
+        assert (_variant(torch.float32, D) == "tf32x3") == (
+            decode_ops._decode_body(torch.float32, D, True) == "tf32x3")
 
 
 def test_aligned_reads_the_pointers():
@@ -105,7 +112,7 @@ def test_decode_wrappers_count_by_body_and_not_on_cpu():
     """Both decode wrappers carry a count per body; a CPU call runs the
     plain version and counts nothing."""
     for fn in (decode_attention, paged_decode_attention):
-        assert set(fn.launches_by_variant) == {"mma", "core"}
+        assert set(fn.launches_by_variant) == {"mma", "tf32x3", "core"}
     before = [(fn.launches, dict(fn.launches_by_variant))
               for fn in (decode_attention, paged_decode_attention)]
     q = torch.randn(1, 4, 80, dtype=torch.bfloat16)

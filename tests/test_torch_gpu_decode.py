@@ -24,7 +24,12 @@ row (``max_len``, which moves only the split count) still does.
 Tolerance: 2e-5 in float32, 5e-2 in bfloat16
 (``tests/test_kernels.py::_tol``); bfloat16 against the float32 plain
 version also row by row (``BF16_ROW_TOL``, as ``chip_smoke.py`` holds
-it).  ``chip_smoke.py`` runs the same cases.
+it).  float32 at D 64 / 80 / 128 runs on the 3xTF32 tensor-core body
+("tf32x3", groups of up to 8 heads): through the wrappers and, beside
+the CUDA-core body, through ``_launch`` at 1 and 3 splits, dense and
+paged, with and without a window; the body refuses a group of 12,
+bfloat16, D 96 and a k at a 4-byte offset.  ``chip_smoke.py`` runs the
+same cases.
 """
 import pytest
 import torch
@@ -323,3 +328,66 @@ def test_paged_max_len_moves_only_the_count(dtype):
             B, Hkv, D, maxp, page, None, n_sm, resident, H // Hkv, None,
             body, max_len=max_len)
     assert outs[1, "n"] == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [64, 80, 128])
+@pytest.mark.parametrize("H", [12, 24])
+@pytest.mark.parametrize("window", [None, 30])
+@pytest.mark.parametrize("paged", [False, True])
+def test_float32_tensor_core_body(D, H, window, paged):
+    """float32 at D 64 / 80 / 128 on aligned tensors: the wrapper launches
+    the 3xTF32 body ("tf32x3", one counted launch, no "core" launch), G 6
+    in one head group and G 12 in two, and the body and the CUDA-core body
+    launched at 1 and 3 splits through ``_launch`` on the same inputs all
+    hold to the plain version at 2e-5."""
+    _need_gpu()
+    Hkv = 2
+    if paged:
+        args = _paged_case(3, H, Hkv, D, 16, 40, torch.float32, D + H)
+        wrapper, plain = paged_decode_attention, paged_decode_attention_ref
+        launch = paged_ops._launch
+    else:
+        args = _dense_case(3, 700, H, Hkv, D, torch.float32, D * H)
+        wrapper, plain = decode_attention, decode_attention_ref
+        launch = decode_ops._launch
+    assert _decode_body(torch.float32, D, _aligned(*args[:3])) == "tf32x3"
+    before = dict(wrapper.launches_by_variant)
+    got = wrapper(*args, window=window)
+    assert wrapper.launches_by_variant == dict(
+        before, tf32x3=before["tf32x3"] + 1)
+    assert wrapper.last_groups == _cut(H // Hkv, -(-(H // Hkv) // 8))
+    want = plain(*args, window=window)
+    outs = [got]
+    for body in ("tf32x3", "core"):
+        for n_split in (1, 3):
+            outs.append(launch(*args, window, D ** -0.5, n_split, body,
+                               wrapper.last_groups[0])[0])
+    torch.cuda.synchronize()
+    for out in outs:
+        torch.testing.assert_close(out, want, **_tol(torch.float32))
+
+
+@pytest.mark.gpu
+def test_float32_tensor_core_body_refusals():
+    """The 3xTF32 body serves float32 at D 64 / 80 / 128 on aligned
+    tensors in groups of up to 8 heads; a launch asking it for one group of
+    12, for bfloat16, for D 96 or for a k at a 4-byte offset is refused,
+    never sent elsewhere."""
+    _need_gpu()
+    args = _dense_case(3, 700, 48, 4, 128, torch.float32, 6)
+    with pytest.raises(RuntimeError, match="flash_decode"):
+        _launch_in(False, args, 1, "tf32x3", 1)
+    bf16 = _dense_case(3, 700, 12, 2, 128, torch.bfloat16, 7)
+    with pytest.raises(RuntimeError, match="flash_decode"):
+        _launch_in(False, bf16, 1, "tf32x3", 1)
+    d96 = _dense_case(3, 700, 12, 2, 96, torch.float32, 8)
+    with pytest.raises(RuntimeError, match="flash_decode"):
+        decode_ops._launch(*d96, None, 96 ** -0.5, 1, "tf32x3", 1)
+    q, k, v, q_pos, k_pos = _dense_case(3, 700, 12, 2, 128, torch.float32, 9)
+    shifted = torch.empty(k.numel() + 1, device="cuda")[1:].view_as(k)
+    shifted.copy_(k)
+    assert not _aligned(q, shifted, v)
+    assert _decode_body(torch.float32, 128, _aligned(q, shifted, v)) == "core"
+    with pytest.raises(RuntimeError, match="flash_decode"):
+        _launch_in(False, (q, shifted, v, q_pos, k_pos), 1, "tf32x3", 1)

@@ -74,6 +74,16 @@ CORE_PINNED = {
     ("paged_flash_decode", (32, 12, 2, 128, 128, 2)): 2,
     ("paged_flash_decode", (8, 12, 2, 128, 128, 64)): 24,
     ("paged_flash_decode", (64, 12, 2, 128, 128, 64)): 3}
+# and the float32 tensor-core body (3xTF32, which float32 at D 64 / 80 /
+# 128 takes), one block an SM at D 128 (the H100's query,
+# ``ops.H100_RESIDENT_TF32X3``), at the same shapes
+TF32X3_PINNED = {
+    ("flash_decode", (32, 12, 2, 128, 161)): 1,
+    ("flash_decode", (8, 12, 2, 128, 8192)): 8,
+    ("flash_decode", (64, 12, 2, 128, 8192)): 1,
+    ("paged_flash_decode", (32, 12, 2, 128, 128, 2)): 1,
+    ("paged_flash_decode", (8, 12, 2, 128, 128, 64)): 8,
+    ("paged_flash_decode", (64, 12, 2, 128, 128, 64)): 1}
 
 
 def _count(kernel, B, H, Hkv, D, where, body="mma", res=None):
@@ -115,6 +125,29 @@ def test_pinned_float32_counts_on_the_cuda_core_body(name, shape):
     assert got == ((1, H // Hkv), CORE_PINNED[name, shape])
 
 
+@pytest.mark.parametrize("name,shape", sorted(TF32X3_PINNED))
+def test_pinned_float32_counts_on_the_tensor_core_body(name, shape):
+    """float32 at D 128 on the 3xTF32 body: its 8 warps walk a tile in
+    halves, one block an SM, so the rule keeps one split wherever the
+    (row, KV head) pairs are 64 or more and the rows short (the 1.5B
+    serve and paged steps, B 64 x 8192), and splits B 8 x 8192 in 8; it
+    counts the blocks an SM holds at most as ``FULL_RATE_BLOCKS``."""
+    res = ops._h100_resident(128, "tf32x3")
+    assert res(6) == ops.H100_RESIDENT_TF32X3[128] == 1
+    if name == "flash_decode":
+        B, H, Hkv, D, C = shape
+        got = _count("K3", B, H, Hkv, D, C, "tf32x3", res)
+    else:
+        B, H, Hkv, D, page, maxp = shape
+        max_len = 161 if maxp == 2 else maxp * page
+        got = _count("K2", B, H, Hkv, D, (maxp, page, None, max_len),
+                     "tf32x3", res)
+    assert got == ((1, H // Hkv), TF32X3_PINNED[name, shape])
+    # two resident blocks count as one
+    assert _count("K3", 8, 12, 2, 64, 8192, "tf32x3", lambda gc: 2) == \
+        _count("K3", 8, 12, 2, 64, 8192, "tf32x3", lambda gc: 1)
+
+
 def test_smoke_pins_the_same_counts():
     """``chip_smoke.py`` holds the card's launches to these counts."""
     spec = importlib.util.spec_from_file_location("chip_smoke",
@@ -125,6 +158,7 @@ def test_smoke_pins_the_same_counts():
     for name, n_split in smoke.PINNED_SPLITS.items():
         assert PINNED[name][1][1] == n_split, name
     assert smoke.CORE_PINNED_SPLITS == CORE_PINNED
+    assert smoke.TF32X3_PINNED_SPLITS == TF32X3_PINNED
 
 
 @pytest.mark.parametrize("B,G,Hkv,D,maxp,page,window", [

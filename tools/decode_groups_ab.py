@@ -28,21 +28,24 @@ tables):
   every B in 1, 2, 4, 8, 16, 32, 64 and C in 65, 161, 512, 1024, 2048,
   4096, 8192.
 
-With ``--dtype float32`` the same shapes run on the CUDA-core body (the
-tensor-core body serves bfloat16 only), and ``--grid`` is instead G 6
-(Hkv 2) at D 128 and 64 and G 12 (Hkv 4) at D 128, at every B above and
-C in 161, 512, 1024, 2048, 4096, 8192.
+With ``--dtype float32`` the same shapes run on the body
+``_decode_body`` names for float32 (the float32 tensor-core body
+``"tf32x3"`` at D 64 / 80 / 128, where the tree has one; the CUDA-core
+body otherwise), and ``--grid`` is instead G 6 (Hkv 2) at D 128 and 64
+and G 12 (Hkv 4) at D 128, at every B above and C in 161, 512, 1024,
+2048, 4096, 8192.
 
 Each record holds the wrapper's time, split count, head groups and the
-blocks an SM holds of its body at those groups.  At G > 8 on the
+blocks an SM holds of its body at those groups.  At G > 8 on the bf16
 tensor-core body the same body is also timed in one head group and in
 two (uncounted ``_launch``, each at the split count the tree's rule takes
 for those groups).  With ``--splits`` every split count from 1 to
 min(tiles, 16) is timed too (in float32 also every multiple of 4 up to
 64), through the uncounted ``_launch``, at the wrapper's head groups
 (``split_ms``), and at G > 8 on the tensor-core body in one group and in
-two (``split_ms_by_groups``); each tree's line then says in how many
-cells the pick is within 5% of the fastest count at its groups.
+two (``split_ms_by_groups``), each cell's body named (``body``); each
+tree's line then says in how many cells the pick is within 5% of the
+fastest count at its groups.
 
 Each time is the median of 50 launches (20 for a split count), L2
 flushed before each (``autotune.bench.time_on_device``).  Prints one JSON
@@ -97,8 +100,7 @@ PAGE = 128
 REPS = 50
 SPLIT_REPS = 20
 # the split counts a sweep times: every count up to 16, and in float32
-# (the CUDA-core body, whose rule may take up to 64) the multiples of 4
-# beyond
+# (whose bodies' rules may take more) the multiples of 4 beyond, to 64
 SPLIT_COUNTS = {torch.bfloat16: range(1, 17),
                 torch.float32: list(range(1, 17)) + list(range(20, 65, 4))}
 EMPTY = -(2 ** 30)
@@ -195,13 +197,14 @@ def _child_time(grid: bool, splits: bool, dtype: torch.dtype) -> dict:
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
     dev = torch.device("cuda", torch.cuda.current_device())
     out = {}
-    wide = dtype == torch.bfloat16     # the tensor-core body's G > 8 groups
-    grid = (GRID if wide else GRID_F32) if grid else []
+    grid = (GRID if dtype == torch.bfloat16 else GRID_F32) if grid else []
     for cell in SHAPES + DENSE + PAGED + grid:
         name, B, H, Hkv, D, C, window, rows = cell
         G, scale = H // Hkv, 1.0 / math.sqrt(D)
         maxp = -(-C // PAGE)
         body = ops._decode_body(dtype, D, True)
+        # the bf16 tensor-core body's G > 8 groups
+        wide = body == "mma"
         for kernel, (args, kw) in _cases(*cell, gen, dtype).items():
             wrapper = (ops.decode_attention if kernel == "K3"
                        else pops.paged_decode_attention)
@@ -210,7 +213,7 @@ def _child_time(grid: bool, splits: bool, dtype: torch.dtype) -> dict:
             call()
             rec = {"ms": time_on_device(call, flush, REPS) * 1e3,
                    "n_split": wrapper.last_n_split,
-                   "head_groups": wrapper.last_groups[0]}
+                   "head_groups": wrapper.last_groups[0], "body": body}
             ng = rec["head_groups"]
             if hasattr(ops, "_resident"):
                 entry = ("flash_decode" if kernel == "K3"
@@ -282,9 +285,9 @@ def _compare(runs) -> dict:
 def _pool(paths) -> list:
     """The cells of the ``--splits`` runs in ``paths``: per (dtype, cell)
     its shape, body and the blocks an SM holds of it (as the run recorded
-    them, else ``ops.H100_RESIDENT``), its split times at each grouping
-    (the mean over every tree timed) and each tree's picks (head groups,
-    count, the wrapper's time)."""
+    them, else the H100's table of the body), its split times at each
+    grouping (the mean over every tree timed) and each tree's picks (head
+    groups, count, the wrapper's time)."""
     from repro_torch.kernels.decode_attention import ops
     named = {c[0]: c for c in SHAPES + DENSE + PAGED}
     cells = {}
@@ -297,13 +300,15 @@ def _pool(paths) -> list:
                 B, H, Hkv, D, C = (int(x) for x in
                                    key[key.index("(") + 1:-1].split(","))
                 name = key[3:key.index(" (")]
+                body = rec.get("body",
+                               ops._decode_body(DTYPES[dtype], D, True))
+                table = (getattr(ops, "H100_RESIDENT_TF32X3", {})
+                         if body == "tf32x3" else ops.H100_RESIDENT)
                 cell = cells.setdefault((dtype, key), dict(
                     kernel=key[:2], shape=(B, H, Hkv, D, C),
                     window_rows=named[name][6:] if name in named
-                    else (None, None),
-                    body=ops._decode_body(DTYPES[dtype], D, True),
-                    resident=ops.H100_RESIDENT.get(D), times={},
-                    picks={}))
+                    else (None, None), body=body, resident=table.get(D),
+                    times={}, picks={}))
                 if "resident" in rec:
                     cell["resident"] = rec["resident"]
                 for g, sweep in rec["split_ms_by_groups"].items():
@@ -376,7 +381,12 @@ FIT_GRID = {"mma": {"STREAM_SHARE": (0.3, 0.4, 0.5, 0.6),
                     "MERGE_READ_STEPS": (0.25, 0.5, 0.75, 1.0)},
             "core": {"BLOCK_STEPS": (0.0, 2.0, 4.0, 8.0),
                      "MERGE_STEPS": (1.0, 2.0, 4.0, 6.0),
-                     "MERGE_READ_STEPS": (0.1, 0.2, 0.3, 0.5)}}
+                     "MERGE_READ_STEPS": (0.1, 0.2, 0.3, 0.5)},
+            # MERGE_STEPS is every body's: the float32 tensor-core body's
+            # own constants only
+            "tf32x3": {"STREAM_SHARE": (0.4, 0.6, 0.8, 1.0),
+                       "BLOCK_STEPS": (0.0, 2.0, 4.0, 8.0),
+                       "MERGE_READ_STEPS": (0.1, 0.2, 0.3, 0.5)}}
 
 
 def _whole_waves(B, Hkv, tiles, n_sm, resident, min_tiles, rows, D,
@@ -457,7 +467,7 @@ def main() -> None:
         return
     if args.replay:
         cells = _pool(args.replay)
-        for body in ("mma", "core"):
+        for body in ("mma", "tf32x3", "core"):
             mine = [c for c in cells if c["body"] == body]
             if mine:
                 print(json.dumps(dict(body=body, **_score(mine))))
