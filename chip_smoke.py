@@ -3965,7 +3965,7 @@ def _hd_passes(q, k, v, qp, kp, m, window=None, body=None):
 def _hd_bodies(q, k, v, m):
     """Each pass's bodies at m slices of the head dim, the wrapper's
     choice first: the ring (csrc/decode_hd.cu's cp.async rings, where
-    16-byte copies fit the slice; pass 1's in bfloat16 only) and PR 22's
+    16-byte copies fit the slice, in either dtype) and the first design's
     ("simt") everywhere."""
     from repro_torch.kernels.decode_attention import ops
     qs, ks, vs = (x.chunk(m, -1)[0] for x in (q, k, v))
@@ -3998,15 +3998,22 @@ def _hd_case_check(what, q, k, v, qp, kp, m, window, dtype, shape, stats):
     wrapper takes a ring body, through PR 22's bodies directly, held to
     the plain version and (D <= 256) to K3 over the whole head dim; each
     body of each pass (``_hd_bodies``) on its own held to its plain
-    version.  The wrappers must take the ring wherever it fits
-    (``launches_by_variant``).  Pass 1 writes float32 scores from the same
-    operands as its plain version, so it is held at the float32 tolerance
-    in either dtype; in bfloat16, pass 2 and the whole decode are also held
-    row by row to the float32 plain version (``_hd_bf16_rows``)."""
+    version.  The wrappers must take the ring wherever 16-byte copies fit
+    the slice, in either dtype (``launches_by_variant``; every case here
+    fits a ring in shared memory).  Pass 1 writes float32 scores from the
+    same operands as its plain version, so it is held at the float32
+    tolerance in either dtype; in bfloat16, pass 2 and the whole decode are
+    also held row by row to the float32 plain version
+    (``_hd_bf16_rows``)."""
     from repro_torch.kernels.decode_attention import ops
     s1, s2 = stats
     scale = q.shape[-1] ** -0.5
     bodies = _hd_bodies(q, k, v, m)
+    ring = (q.shape[-1] // m * q.element_size()) % 16 == 0
+    for n, b in bodies.items():
+        if b[0] != ("ring" if ring else "simt"):
+            fail(f"{what} m={m} {dtype}: {n} takes the {b[0]} body, expected "
+                 f"{'the ring' if ring else 'simt'}")
     want = ops.decode_attention_ref(q, k, v, qp, kp, window=window)
     want32 = (ops.decode_attention_ref(q.float(), k.float(), v.float(), qp,
                                        kp, window=window)
@@ -4399,6 +4406,7 @@ def hd_phase(prompt_len):
             checks_by_body=stats[i]["checks_by_body"],
             **main["bfloat16"]["m2"][name], shape=(32, 12, 2, 128,
                                                    prompt_len + 128), m=2,
+            float32=main["float32"]["m2"][name],
             main=main, long=dict(shape=(64, 12, 2, 128, 8192), **long),
             mutation_check=mutation if i == 1 else None)
     return records
@@ -4414,7 +4422,10 @@ def hd_decode_phase():
     2 x 28 launches of each pass and none of K3, logits within 5e-2 of max
     |logit|, and the decode ms per step beside K3's.  Then float32 at the
     published width cut to 2 layers: the two greedy decodes give the same
-    tokens."""
+    tokens.  Then float32 at the published depth (28 layers, seed 0's
+    weights), the routed decode fed K3's greedy tokens: each step 2 x 28
+    launches of each pass on the ring body, logits within 1e-3 of max
+    |logit| of K3's, the decode ms per step beside K3's."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -4465,15 +4476,14 @@ def hd_decode_phase():
             plocal.decode_attention = k3
         return torch.stack(out), logits, ms, counts
 
-    def expect(what, counts, L, hd, bf16=True):
+    def expect(what, counts, L, hd):
         n = m * L if hd else 0
         want = {"flash_attention_fwd": 0, "flash_decode": 0 if hd else L,
                 "paged_flash_decode": 0, "mlstm_scan": 0,
                 "decode_scores": n, "decode_softmax_pv": n,
-                # the 1.5B's Dl 64 takes each pass's ring body (pass 1's in
-                # bfloat16 only)
-                "decode_scores by variant": dict(ring=n, simt=0) if bf16
-                else dict(ring=0, simt=n),
+                # the 1.5B's Dl 64 takes each pass's ring body, in either
+                # dtype
+                "decode_scores by variant": dict(ring=n, simt=0),
                 "decode_softmax_pv by variant": dict(ring=n, simt=0)}
         for t, c in enumerate(counts):
             if c != want:
@@ -4530,9 +4540,9 @@ def hd_decode_phase():
     params = transformer.init(0, cfg, "cuda")
     with torch.inference_mode():
         tok_k3, lg_k3, _, c_k3 = decode(params, cfg)
-        expect("K3 decode (f32, 2 layers)", c_k3, 2, False, False)
+        expect("K3 decode (f32, 2 layers)", c_k3, 2, False)
         tok_hd, lg_hd, _, c_hd = decode(params, cfg, hd=True)
-        expect("head-dim split decode (f32, 2 layers)", c_hd, 2, True, False)
+        expect("head-dim split decode (f32, 2 layers)", c_hd, 2, True)
     if not torch.equal(tok_k3, tok_hd):
         fail("head-dim split decode (f32, 2 layers): greedy tokens differ "
              "from K3's")
@@ -4543,7 +4553,42 @@ def hd_decode_phase():
     say(f"head-dim split decode (f32, published width, 2 layers, B=32, "
         f"{steps} greedy steps each): tokens identical to K3's; worst max "
         f"|hd - K3| / max |K3| logits {rel32:.2e}")
-    del params
+    del params, lg_k3, lg_hd
+    torch.cuda.empty_cache()
+
+    cfg = get_config(ARCH).replace(dtype="float32")
+    L = cfg.n_layers
+    params = transformer.init(0, cfg, "cuda")
+    with torch.inference_mode():
+        tok_k3, lg_k3, ms_k3, c_k3 = decode(params, cfg)
+        expect("K3 decode (f32)", c_k3, L, False)
+        _, lg_hd, ms_hd, c_hd = decode(params, cfg, feed=tok_k3, hd=True)
+        expect("head-dim split decode (f32)", c_hd, L, True)
+    worst = 0.0
+    for t, (a, b) in enumerate(zip(lg_hd, lg_k3)):
+        rel = float((a - b).abs().max() / b.abs().max())
+        worst = max(worst, rel)
+        if not (torch.isfinite(a).all() and rel <= 1e-3):
+            fail(f"head-dim split decode (f32) step {t}: max |hd - K3| / max "
+                 f"|K3| = {rel:.3e} > 1e-3")
+    launches = {n: sum(c[n] for c in c_hd) for n in _hd_wrappers()}
+    by_variant = {n: {b: sum(c[f"{n} by variant"][b] for c in c_hd)
+                      for b in ("ring", "simt")} for n in _hd_wrappers()}
+    out["f32"] = dict(
+        layers=L, batch=32, prompt=plen, steps=steps, m=m,
+        worst_rel_logits=worst,
+        decode_ms_median=statistics.median(ms_hd[1:]),
+        k3_decode_ms_median=statistics.median(ms_k3[1:]),
+        decode_ms=ms_hd, k3_decode_ms=ms_k3, launches=launches,
+        launches_by_variant=by_variant)
+    say(f"head-dim split decode, qwen-distill-1.5b published config (f32, "
+        f"{L} layers, B=32, {steps} new tokens, K3's greedy tokens fed), "
+        f"m={m} slices: {launches} launches ({m} x {L} of each a step; by "
+        f"body {by_variant}), worst max |hd - K3| / max |K3| logits "
+        f"{worst:.2e} <= 1e-3; decode {out['f32']['decode_ms_median']:.2f} "
+        f"ms a step (median of {steps - 1}, host clock) against K3's "
+        f"{out['f32']['k3_decode_ms_median']:.2f} ms; {CARD['card']}")
+    del params, lg_k3, lg_hd
     torch.cuda.empty_cache()
     return out
 
@@ -6326,6 +6371,9 @@ def main() -> None:
         records[name]["launches"] = n
         records[name]["launches_by_variant"] = (
             hd["bf16"]["launches_by_variant"][name])
+        records[name]["float32_launches"] = hd["f32"]["launches"][name]
+        records[name]["float32_launches_by_variant"] = (
+            hd["f32"]["launches_by_variant"][name])
     # the timer's repair: K3 whole at the main decode shape read in phase 2
     # and again inside parallel_phase (hd_phase)
     k3_first = records["flash_decode"]["ms"]

@@ -29,21 +29,39 @@
 // needs some 16-32 KB in flight at every moment, so both passes are built
 // around a ring of shared-memory stages filled by 16-byte cp.async:
 //
-// Pass 1, "ring" (scores_ring_kernel): persistent blocks (2 an SM, 256
-//   threads) walk the (row, run of TS slots) tiles, tile blockIdx.x +
-//   i * gridDim.x.  A tile's K rows [TS, Hkv, Dl] for every KV head, with
-//   its row's q [H, Dl], go into stage i % 3 of a 3-stage ring (TS sized so
-//   a stage holds <= 16 KB of K), so 2 tiles are in flight while one is
-//   used and a tile's score stores overlap the next tiles' copies; one
-//   barrier a tile.  Staged rows are padded to an odd number of
-//   16-byte pieces (no bank conflicts for ldmatrix or float4 reads).  bf16:
-//   S^T = Q K^T on the tensor cores (mma.sync m16n8k16: Q's 16 head rows
-//   of a KV head as A, loaded once a tile, K's slots as B through
-//   ldmatrix; bf16 products are exact in fp32, the sums fp32).  The
-//   scores go out along C, 16 bytes a lane: neighbouring lanes swap a pair
-//   so each holds 4 slots of a head.  bfloat16 only: float32 dots on the
-//   CUDA cores cost some 40 instructions a slot in this layout, and
-//   PR 22's body takes float32 faster.
+// Pass 1, "ring" (scores_ring_kernel): persistent blocks walk the (row,
+//   run of TS slots) tiles, tile blockIdx.x + i * gridDim.x.  A tile's K
+//   rows [TS, Hkv, Dl] for every KV head (one contiguous run of a rank's
+//   slice), with its row's q [H, Dl], go into stage i % S of the block's
+//   ring (TS sized so a stage holds <= 16 KB of K), so S - 1 tiles are in
+//   flight while one is used and a tile's score stores overlap the next
+//   tiles' copies; one barrier a tile.  bf16: 256 threads, 2 blocks an
+//   SM, S = 3; staged rows are padded to an odd number of 16-byte pieces
+//   (no bank conflicts for ldmatrix); S^T = Q K^T on the tensor cores
+//   (mma.sync m16n8k16: Q's 16 head rows of a KV head as A, loaded once a
+//   tile, K's slots as B through ldmatrix; bf16 products are exact in
+//   fp32, the sums fp32).  The scores go out along C, 16 bytes a lane:
+//   neighbouring lanes swap a pair so each holds 4 slots of a head.
+//   float32: 128 threads, up to 4 blocks an SM, S = 2 (its products hold
+//   a warp longer, and more, smaller blocks keep more tiles in flight
+//   while they run; the bf16 shape measured slower on the H100).  Every
+//   product is three TF32 mma.sync m16n8k8 of hi / lo splits (float32 is
+//   held to 2e-5, which one TF32 product misses),
+//   with decode_block_tf32x3's layout (split_decode.cuh): a warp's row
+//   group of up to 8 heads holds hi(q) in rows 0..7 of the m16 tile and
+//   lo(q) in rows 8..15, so one mma with hi(K) gives hi.hi and lo.hi for
+//   the same slots and one with lo(K) gives hi.lo: two mma a k8 step.  A
+//   lane reads dims 4 t4 .. 4 t4 + 3 of each 16 as one float4 of its q
+//   row (split once a tile, the first 64 dims held in registers) and of
+//   K row g (B (k t4, n g) of two k8 steps), the reads past Dl zero, so a
+//   Dl that is not a multiple of 8 (danube's 20) runs as whole k8 steps;
+//   staged rows are 64 mod 128 bytes, so the two rows a quarter warp
+//   reads meet no bank conflict.  A warp's unit is 8 slots of a row
+//   group; G 12 / 16 run as two row groups over the same staged tile
+//   (rereading shared memory, not HBM).  No tensor-core accumulator sums
+//   more than 64 dims (their fp32 sums are not rounded to nearest): each
+//   run's hi.hi, lo.hi and hi.lo meet the others in fp32, and a score is
+//   hi.hi + (lo.hi + hi.lo).
 // Pass 2, "ring" (softmax_pv_ring_kernel): grid (n_split, units, B), 128
 //   threads.  A unit is (KV head, group of <= 16 heads, chunk of <= 64
 //   dims); a block serves one unit of split s of row b.  Each of its 4
@@ -60,19 +78,28 @@
 //   (lane (g, t4) holds heads g and g + 8 of 4 slots a 16-slot chunk;
 //   rows 8..15 are skipped when the unit has <= 8 heads).  bf16: O += P V
 //   on the tensor cores, P packed to bf16 from registers, V through
-//   ldmatrix.trans.  f32: P goes through 1 KB of shared memory a warp and
-//   each lane accumulates two dims of every head on the CUDA cores (no
-//   TF32).  The warps merge through shared memory; with several splits
-//   each writes its fp32 (acc, m, l) to scratch and the last to finish (a
-//   __threadfence, then an atomicAdd ticket) merges them, writes o and
-//   resets the ticket to 0.  The split count is chosen by the caller to
+//   ldmatrix.trans.  f32: O += P V in 3xTF32 mma.sync m16n8k8, P split
+//   straight from its registers (k t4 is the lane's slot 2 t4, k t4 + 4
+//   slot 2 t4 + 1): a unit of <= 8 heads holds hi(p) in rows 0..7 and
+//   lo(p) in rows 8..15 (two mma a k8 step and n8 tile; at G <= 8 an
+//   instance without the wider form), a unit of 9..16 heads heads g and
+//   g + 8 with lo(p) in a second A fragment (three: at G 12 it measured
+//   faster than two units of 8 rows that each read the V slice);
+//   column g of n8 tiles 2 m and 2 m + 1 is dims 16 m + 2 g and + 1, so a
+//   lane reads V's B fragments as two float2 of the stage (rows are 4 mod
+//   8 floats: the four t4 rows meet no bank conflict).  Each tile's P V
+//   is summed from zero and folded into O with the softmax correction by
+//   one fp32 fma.  The warps merge through shared memory; with several
+//   splits each writes its fp32 (acc, m, l) to scratch and the last to
+//   finish (a __threadfence, then an atomicAdd ticket) merges them, writes
+//   o and resets the ticket to 0.  The split count is chosen by the caller to
 //   fill whole waves.  (A first version, a block over every KV head with
 //   one block-wide barrier a tile, measured 2-4x slower at a 8-dim slice:
 //   every warp waited on the block's slowest copy and its positions.)
 //
-// PR 22's bodies stay for what 16-byte copies cannot reach ("simt": Dl *
-// sizeof(T) not a multiple of 16, such as Dl 5, or a pointer or stride not
-// 16-byte aligned) and for pass 1 in float32, behind the original entry
+// The first design's bodies stay for what 16-byte copies cannot reach
+// ("simt": Dl * sizeof(T) not a multiple of 16, such as Dl 5, or a
+// pointer or stride not 16-byte aligned), behind the original entry
 // points decode_scores and decode_softmax_pv:
 // Pass 1: grid (ceil(C / 128), Hkv * NG, B), 128 threads.  A block stages
 //   128 slots of its KV head's K slice in shared memory as fp32, kChunk
@@ -524,11 +551,8 @@ cudaError_t launch_softmax_pv(const void* s, const void* v, const void* q_pos,
 }
 
 // ------------------------------------------------------ ring bodies
-constexpr int kRingThreads = 256;
-constexpr int kRingWarps = kRingThreads / 32;
 constexpr int kUnitRows = 16;          // heads of a pass-2 unit (m16 rows)
 constexpr int kUnitDims = 64;          // dims of a pass-2 unit
-constexpr int kScoresStages = 3;       // pass 1: stages of a block's ring
 constexpr int kQregs = 4;              // pass 1: q's k16 steps in registers
 constexpr int kPvWarps = 4;            // pass 2: warps of a block, each
 constexpr int kPvThreads = 32 * kPvWarps;  // with its own ring
@@ -568,26 +592,45 @@ __device__ __forceinline__ void cp4_or_zero(uint32_t dst, const void* src,
                : "memory");
 }
 
+// Pass 1's ring by dtype: bf16 blocks of 256 threads, 2 an SM, 3 stages;
+// float32 blocks of 128 threads, up to 4 an SM, 2 stages (its products
+// take the SM longer, and more, smaller blocks keep more tiles in flight
+// while they run).
+template <typename T>
+constexpr bool kIsF32 = std::is_same<T, float>::value;
+template <typename T>
+constexpr int kScoresThreads = kIsF32<T> ? 128 : 256;
+template <typename T>
+constexpr int kScoresStagesOf = kIsF32<T> ? 2 : 3;
+
+// Bytes of a staged pass-1 row of `bytes` (a multiple of 16): bf16, an
+// odd number of 16-byte pieces (ldmatrix's 8 rows meet no bank
+// conflict); float32, 64 mod 128 bytes (the two rows whose float4 pieces
+// a quarter warp reads meet none).
+__host__ __device__ inline int scores_row(int bytes, int es) {
+  return es == 2 ? odd16(bytes) : bytes + (192 - bytes % 128) % 128;
+}
+
 // Pass 1's stage: q [H][qrow] then K [TS][krow] (bytes).
 __host__ __device__ inline int scores_stage_bytes(int H, int Hkv, int Dl,
                                                   int es, int TS) {
-  return H * odd16(Dl * es) + TS * odd16(Hkv * Dl * es);
+  return H * scores_row(Dl * es, es) + TS * scores_row(Hkv * Dl * es, es);
 }
 
-// bf16 only: float32 dots on the CUDA cores cost some 40 instructions a
-// slot here, and PR 22's body takes float32 faster (PERF.md, PR 23).
-__global__ void __launch_bounds__(kRingThreads, 2)
-    scores_ring_kernel(const __nv_bfloat16* __restrict__ q,
-                       const __nv_bfloat16* __restrict__ k,
+template <typename T>
+__global__ void __launch_bounds__(kScoresThreads<T>, kIsF32<T> ? 4 : 2)
+    scores_ring_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        float* __restrict__ s, Strides st, int B, int C,
                        int Hkv, int G, int Dl, int TS, float scale) {
-  using T = __nv_bfloat16;
-  constexpr int S = kScoresStages;
+  constexpr bool kF32 = kIsF32<T>;
+  constexpr int kThreads = kScoresThreads<T>, kWarps = kThreads / 32;
+  constexpr int S = kScoresStagesOf<T>;
+  constexpr int kRows = kF32 ? 8 : 16;   // heads of a warp's row group
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int E = 16 / sizeof(T);
   const int H = Hkv * G, P = Dl / E;   // 16-byte pieces of a head's row
-  const int qrow = odd16(Dl * (int)sizeof(T));
-  const int krow = odd16(Hkv * Dl * (int)sizeof(T));
+  const int qrow = scores_row(Dl * (int)sizeof(T), sizeof(T));
+  const int krow = scores_row(Hkv * Dl * (int)sizeof(T), sizeof(T));
   const int stage_bytes = H * qrow + TS * krow;
   const int nt = (C + TS - 1) / TS, n_tiles = B * nt;
   const int n_my = (int)blockIdx.x < n_tiles
@@ -598,22 +641,23 @@ __global__ void __launch_bounds__(kRingThreads, 2)
   // threads, thread tid always copies piece col_k of slots row_k, row_k +
   // rows_k, ... (no division in the copy loop)
   const int per_slot = Hkv * P;
-  const int rows_k = kRingThreads / max(per_slot, 1);
+  const int rows_k = kThreads / max(per_slot, 1);
   const int row_k = tid / max(per_slot, 1);
-  const int col_k = per_slot <= kRingThreads && row_k < rows_k
+  const int col_k = per_slot <= kThreads && row_k < rows_k
                         ? tid - row_k * per_slot
-                        : (per_slot <= kRingThreads ? -2 : -1);
+                        : (per_slot <= kThreads ? -2 : -1);
   const long long off_k =
       col_k >= 0 ? (col_k / P) * st.kh + (col_k % P) * E : 0;
-  // warps over (KV head, 16 heads) pairs, wpp warps a pair
-  const int NR = (G + 15) / 16, KK = (Dl + 15) / 16, n_pairs = Hkv * NR;
-  const int wpp = max(1, kRingWarps / n_pairs);
+  // warps over (KV head, kRows heads) pairs, wpp warps a pair
+  const int NR = (G + kRows - 1) / kRows, KK = (Dl + 15) / 16;
+  const int n_pairs = Hkv * NR;
+  const int wpp = max(1, kWarps / n_pairs);
   const int pr0 = (tid >> 5) / wpp, jw = (tid >> 5) - pr0 * wpp;
-  const int pr_step = kRingWarps / wpp;
+  const int pr_step = kWarps / wpp;
 
   // q's pieces: thread tid copies piece q_pc of heads q_h, q_h + q_rows,
-  // ... (P <= kRingThreads: Dl <= 2048)
-  const int q_rows = kRingThreads / P, q_h = tid / P, q_pc = tid - q_h * P;
+  // ... (P <= kThreads)
+  const int q_rows = kThreads / P, q_h = tid / P, q_pc = tid - q_h * P;
   const long long q_off = q_h * st.qh + q_pc * E;
   // tile i's row and first slot, kept for its use S - 1 tiles later
   int tb[S], tc[S];
@@ -639,7 +683,7 @@ __global__ void __launch_bounds__(kRingThreads, 2)
           sm90::cp_async<16>(sk + c * krow + col_k * 16,
                              kb + c * st.kc + off_k);
       } else if (col_k == -1) {      // more pieces a slot than threads
-        for (int idx = tid; idx < n * per_slot; idx += kRingThreads) {
+        for (int idx = tid; idx < n * per_slot; idx += kThreads) {
           const int c = idx / per_slot, r = idx - c * per_slot;
           const int hk = r / P, pc = r - hk * P;
           sm90::cp_async<16>(sk + c * krow + r * 16,
@@ -655,84 +699,186 @@ __global__ void __launch_bounds__(kRingThreads, 2)
     const unsigned char* sq = smem + (i % S) * stage_bytes;
     const unsigned char* sk = sq + H * qrow;
     float* sb = s + (long long)b * H * C + c0;
-    // warp: (KV head, 16 heads) pairs, wpp warps a pair, each taking
-    // every wpp-th 16 slots; S^T tile [heads x slots] = Q [heads x Dl]
-    // K^T [Dl x slots], Q's fragments loaded once a pair (the first
-    // kQregs k16 steps) and K's through ldmatrix
-    const int lane = tid & 31;
-    const int g = lane >> 2, t4 = lane & 3, mi = lane >> 3, r8 = lane & 7;
-    const int NJ = (n + 15) / 16;
-    const bool quads = C % 4 == 0;       // float4 stores stay aligned
-    for (int pr = pr0; pr < n_pairs; pr += pr_step) {
-      const int hk = pr / NR, rg = pr - hk * NR;
-      const bool lo_ok = rg * 16 + g < G, hi_ok = rg * 16 + g + 8 < G;
-      const bool two = rg * 16 + 8 < G;  // rows 8..15 hold heads (uniform)
-      // rows past G (or H) read a valid row, then count as zero
-      const int arow = min(hk * G + rg * 16 + r8 + 8 * (mi & 1), H - 1);
-      auto load_a = [&](int kk, uint32_t (&a)[4]) {
-        const bool hi = 16 * kk + 8 < Dl;
-        sm90::ldmatrix_x4(
-            a, sq + arow * qrow + (16 * kk + (hi ? 8 * (mi >> 1) : 0)) * 2,
-            false);
-        if (!lo_ok) a[0] = a[2] = 0u;
-        if (!hi_ok) a[1] = a[3] = 0u;
-        if (!hi) a[2] = a[3] = 0u;
-      };
-      uint32_t aq[kQregs][4];
-#pragma unroll
-      for (int kk = 0; kk < kQregs; ++kk)
-        if (kk < KK) load_a(kk, aq[kk]);
-      for (int j = jw; j < NJ; j += wpp) {
-        const unsigned char* kr =
-            sk + (j * 16 + r8 + 8 * (mi >> 1)) * krow + hk * Dl * 2;
-        float acc[2][4];
-#pragma unroll
-        for (int nt2 = 0; nt2 < 2; ++nt2)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[nt2][e] = 0.f;
-        auto step = [&](int kk, const uint32_t (&a)[4]) {
-          const bool hi = 16 * kk + 8 < Dl;  // a whole k16 step (else k8)
-          uint32_t bk[4];
-          sm90::ldmatrix_x4(
-              bk, kr + (16 * kk + (hi ? 8 * (mi & 1) : 0)) * 2, false);
-          if (!hi) bk[1] = bk[3] = 0u;
-          sm90::mma_m16n8k16(acc[0], a, bk[0], bk[1]);
-          sm90::mma_m16n8k16(acc[1], a, bk[2], bk[3]);
+    if constexpr (kF32) {
+      // warp: (KV head, 8 heads) pairs, wpp warps a pair, each taking
+      // every wpp-th 8 slots; S^T tile [heads x slots] = Q [heads x Dl]
+      // K^T [Dl x slots] in 3xTF32, rows 8..15 the lo halves of rows 0..7
+      const int lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+      const int NJ = (n + 7) / 8;
+      const bool pairs = C % 2 == 0;       // float2 stores stay aligned
+      constexpr int kQ16 = 4;              // q's k16 steps in registers
+      for (int pr = pr0; pr < n_pairs; pr += pr_step) {
+        const int hk = pr / NR, h = (pr - hk * NR) * kRows + g;
+        const bool h_ok = h < G;           // row g holds a head
+        const float* qr = reinterpret_cast<const float*>(
+            sq + (hk * G + (h_ok ? h : 0)) * qrow);
+        // dims 16 d16 + 4 t4 .. + 3 of a staged row, zeros past Dl
+        auto dims4 = [&](const float* row, int d16, bool ok) {
+          const int d = 16 * d16 + 4 * t4;
+          return ok && d < Dl ? *reinterpret_cast<const float4*>(row + d)
+                              : make_float4(0.f, 0.f, 0.f, 0.f);
         };
+        // Q's A fragments of the k8 steps of dims 16 d16 + 4 t4 + 2 hh
+        // (k t4) and + 1 (k t4 + 4): a0 / a2 hi(q) of head h, a1 / a3
+        // lo(q) (zero past G)
+        auto load_q = [&](int d16, uint32_t (&a)[2][4]) {
+          const float4 x = dims4(qr, d16, h_ok);
+          sm90::split_tf32_bits(x.x, a[0][0], a[0][1]);
+          sm90::split_tf32_bits(x.y, a[0][2], a[0][3]);
+          sm90::split_tf32_bits(x.z, a[1][0], a[1][1]);
+          sm90::split_tf32_bits(x.w, a[1][2], a[1][3]);
+        };
+        uint32_t qa[kQ16][2][4];
+#pragma unroll
+        for (int d16 = 0; d16 < kQ16; ++d16)
+          if (d16 < KK) load_q(d16, qa[d16]);
+        for (int j = jw; j < NJ; j += wpp) {
+          // K row of slot 8 j + g, KV head hk (a slot past n reads a
+          // stale row: its column is never stored)
+          const float* kr =
+              reinterpret_cast<const float*>(sk + (j * 8 + g) * krow) +
+              hk * Dl;
+          // big: hi(k) (rows 0..7 hi(q) hi(k), 8..15 lo(q) hi(k)); small:
+          // lo(k) (rows 0..7 hi(q) lo(k)); each run of <= 64 dims summed
+          // from zero, then into hh / lh / hl in fp32
+          float big[4], small[4], hh[2] = {}, lh[2] = {}, hl[2] = {};
+          auto step = [&](int d16, const uint32_t (&a)[2][4]) {
+            const float4 x = dims4(kr, d16, true);
+            uint32_t bh[4], bl[4];
+            sm90::split_tf32_bits(x.x, bh[0], bl[0]);
+            sm90::split_tf32_bits(x.y, bh[1], bl[1]);
+            sm90::split_tf32_bits(x.z, bh[2], bl[2]);
+            sm90::split_tf32_bits(x.w, bh[3], bl[3]);
+#pragma unroll
+            for (int hh2 = 0; hh2 < 2; ++hh2) {
+              sm90::mma_m16n8k8_tf32(small, a[hh2], bl[2 * hh2],
+                                     bl[2 * hh2 + 1]);
+              sm90::mma_m16n8k8_tf32(big, a[hh2], bh[2 * hh2],
+                                     bh[2 * hh2 + 1]);
+            }
+          };
+          auto start = [&]() {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) big[e] = small[e] = 0.f;
+          };
+          auto fold = [&]() {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              hh[e] += big[e];
+              lh[e] += big[2 + e];
+              hl[e] += small[e];
+            }
+          };
+          start();
+#pragma unroll
+          for (int d16 = 0; d16 < kQ16; ++d16)
+            if (d16 < KK) step(d16, qa[d16]);
+          fold();
+          for (int r16 = kQ16; r16 < KK; r16 += kQ16) {
+            start();
+            for (int d16 = r16; d16 < min(r16 + kQ16, KK); ++d16) {
+              uint32_t a[2][4];
+              load_q(d16, a);
+              step(d16, a);
+            }
+            fold();
+          }
+          // head h's scores of slots 8 j + 2 t4 and + 1: the large
+          // product, then the two small ones
+          const int c = j * 8 + 2 * t4;
+          if (h_ok && c < n) {
+            const float x0 = (hh[0] + (lh[0] + hl[0])) * scale;
+            const float x1 = (hh[1] + (lh[1] + hl[1])) * scale;
+            float* dst = sb + (long long)(hk * G + h) * C + c;
+            if (pairs && c + 1 < n) {
+              *reinterpret_cast<float2*>(dst) = make_float2(x0, x1);
+            } else {
+              dst[0] = x0;
+              if (c + 1 < n) dst[1] = x1;
+            }
+          }
+        }
+      }
+    } else {
+      // warp: (KV head, 16 heads) pairs, wpp warps a pair, each taking
+      // every wpp-th 16 slots; S^T tile [heads x slots] = Q [heads x Dl]
+      // K^T [Dl x slots], Q's fragments loaded once a pair (the first
+      // kQregs k16 steps) and K's through ldmatrix
+      const int lane = tid & 31;
+      const int g = lane >> 2, t4 = lane & 3, mi = lane >> 3, r8 = lane & 7;
+      const int NJ = (n + 15) / 16;
+      const bool quads = C % 4 == 0;       // float4 stores stay aligned
+      for (int pr = pr0; pr < n_pairs; pr += pr_step) {
+        const int hk = pr / NR, rg = pr - hk * NR;
+        const bool lo_ok = rg * 16 + g < G, hi_ok = rg * 16 + g + 8 < G;
+        const bool two = rg * 16 + 8 < G;  // rows 8..15 hold heads (uniform)
+        // rows past G (or H) read a valid row, then count as zero
+        const int arow = min(hk * G + rg * 16 + r8 + 8 * (mi & 1), H - 1);
+        auto load_a = [&](int kk, uint32_t (&a)[4]) {
+          const bool hi = 16 * kk + 8 < Dl;
+          sm90::ldmatrix_x4(
+              a, sq + arow * qrow + (16 * kk + (hi ? 8 * (mi >> 1) : 0)) * 2,
+              false);
+          if (!lo_ok) a[0] = a[2] = 0u;
+          if (!hi_ok) a[1] = a[3] = 0u;
+          if (!hi) a[2] = a[3] = 0u;
+        };
+        uint32_t aq[kQregs][4];
 #pragma unroll
         for (int kk = 0; kk < kQregs; ++kk)
-          if (kk < KK) step(kk, aq[kk]);
-        for (int kk = kQregs; kk < KK; ++kk) {
-          uint32_t a[4];
-          load_a(kk, a);
-          step(kk, a);
-        }
-        // lanes t4 and t4 ^ 1 swap a pair, so the even one stores slots
-        // 2 t4 .. 2 t4 + 3 of n8 tile 0 and the odd one slots 8 + 2 (t4 -
-        // 1) .. of tile 1: one 16-byte store a lane and head
-        const bool odd = t4 & 1;
-        const int c = j * 16 + (odd ? 8 + 2 * (t4 - 1) : 2 * t4);
+          if (kk < KK) load_a(kk, aq[kk]);
+        for (int j = jw; j < NJ; j += wpp) {
+          const unsigned char* kr =
+              sk + (j * 16 + r8 + 8 * (mi >> 1)) * krow + hk * Dl * 2;
+          float acc[2][4];
 #pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          if (half == 1 && !two) break;
-          const float a0 = acc[0][2 * half] * scale;
-          const float a1 = acc[0][2 * half + 1] * scale;
-          const float b0 = acc[1][2 * half] * scale;
-          const float b1 = acc[1][2 * half + 1] * scale;
-          const float x0 = __shfl_xor_sync(0xffffffffu, odd ? a0 : b0, 1);
-          const float x1 = __shfl_xor_sync(0xffffffffu, odd ? a1 : b1, 1);
-          const float4 q4 = odd ? make_float4(x0, x1, b0, b1)
-                                : make_float4(a0, a1, x0, x1);
-          const int hh = rg * 16 + g + 8 * half;
-          if (hh >= G) continue;
-          float* dst = sb + (long long)(hk * G + hh) * C + c;
-          if (quads && c + 3 < n) {
-            *reinterpret_cast<float4*>(dst) = q4;
-          } else {
-            const float x[4] = {q4.x, q4.y, q4.z, q4.w};
+          for (int nt2 = 0; nt2 < 2; ++nt2)
 #pragma unroll
-            for (int e = 0; e < 4; ++e)
-              if (c + e < n) dst[e] = x[e];
+            for (int e = 0; e < 4; ++e) acc[nt2][e] = 0.f;
+          auto step = [&](int kk, const uint32_t (&a)[4]) {
+            const bool hi = 16 * kk + 8 < Dl;  // a whole k16 step (else k8)
+            uint32_t bk[4];
+            sm90::ldmatrix_x4(
+                bk, kr + (16 * kk + (hi ? 8 * (mi & 1) : 0)) * 2, false);
+            if (!hi) bk[1] = bk[3] = 0u;
+            sm90::mma_m16n8k16(acc[0], a, bk[0], bk[1]);
+            sm90::mma_m16n8k16(acc[1], a, bk[2], bk[3]);
+          };
+#pragma unroll
+          for (int kk = 0; kk < kQregs; ++kk)
+            if (kk < KK) step(kk, aq[kk]);
+          for (int kk = kQregs; kk < KK; ++kk) {
+            uint32_t a[4];
+            load_a(kk, a);
+            step(kk, a);
+          }
+          // lanes t4 and t4 ^ 1 swap a pair, so the even one stores slots
+          // 2 t4 .. 2 t4 + 3 of n8 tile 0 and the odd one slots 8 + 2 (t4 -
+          // 1) .. of tile 1: one 16-byte store a lane and head
+          const bool odd = t4 & 1;
+          const int c = j * 16 + (odd ? 8 + 2 * (t4 - 1) : 2 * t4);
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            if (half == 1 && !two) break;
+            const float a0 = acc[0][2 * half] * scale;
+            const float a1 = acc[0][2 * half + 1] * scale;
+            const float b0 = acc[1][2 * half] * scale;
+            const float b1 = acc[1][2 * half + 1] * scale;
+            const float x0 = __shfl_xor_sync(0xffffffffu, odd ? a0 : b0, 1);
+            const float x1 = __shfl_xor_sync(0xffffffffu, odd ? a1 : b1, 1);
+            const float4 q4 = odd ? make_float4(x0, x1, b0, b1)
+                                  : make_float4(a0, a1, x0, x1);
+            const int hh = rg * 16 + g + 8 * half;
+            if (hh >= G) continue;
+            float* dst = sb + (long long)(hk * G + hh) * C + c;
+            if (quads && c + 3 < n) {
+              *reinterpret_cast<float4*>(dst) = q4;
+            } else {
+              const float x[4] = {q4.x, q4.y, q4.z, q4.w};
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                if (c + e < n) dst[e] = x[e];
+            }
           }
         }
       }
@@ -764,10 +910,8 @@ __global__ void __launch_bounds__(kRingThreads, 2)
 }
 
 // Pass 2's shared memory: each of the kPvWarps warps' ring of kPvStages
-// stages of
-// [GR][TW + 8] f32 scores and [TW][vrow] V, then (f32) each warp's P
-// [16][16]; at the end the warps' partials [kPvWarps][16][DW] + (m, l)
-// reuse it.
+// stages of [GR][TW + 8] f32 scores and [TW][vrow] V; at the end the
+// warps' partials [kPvWarps][16][DW] + (m, l) reuse it.
 __host__ __device__ inline int pv_stage_bytes(int G, int Dl, int es,
                                               int TW) {
   const int GR = G < kUnitRows ? G : kUnitRows;
@@ -778,16 +922,17 @@ __host__ __device__ inline int pv_stage_bytes(int G, int Dl, int es,
 __host__ __device__ inline int pv_smem_bytes(int G, int Dl, int es,
                                              int TW) {
   const int DW = Dl < kUnitDims ? Dl : kUnitDims;
-  const int ring = kPvWarps * kPvStages * pv_stage_bytes(G, Dl, es, TW) +
-                   (es == 4 ? kPvWarps * 16 * 16 * 4 : 0);
+  const int ring = kPvWarps * kPvStages * pv_stage_bytes(G, Dl, es, TW);
   const int merge = kPvWarps * kUnitRows * (DW + 2) * 4;
   return ring > merge ? ring : merge;
 }
 
 // A block serves one unit (KV head, group of <= 16 heads, chunk of <= 64
 // dims) of one split of row b: blockIdx.y = (hk * NG + hg) * ND + dc.
-// NW: the bf16 accumulator's n8 tiles (8: 64 dims; 2: 16).
-template <typename T, int NW>
+// NW: the accumulator's n8 tiles (8: 64 dims; 2: 16).  kWide: units may
+// hold 9..16 heads (float32 is instantiated without it for G <= 8, so
+// rows 8..15 are lo(p) at compile time and their registers are free).
+template <typename T, int NW, bool kWide>
 __global__ void __launch_bounds__(kPvThreads, 4) softmax_pv_ring_kernel(
     const float* __restrict__ s, const T* __restrict__ v,
     const int* __restrict__ q_pos, const int* __restrict__ k_pos,
@@ -797,7 +942,7 @@ __global__ void __launch_bounds__(kPvThreads, 4) softmax_pv_ring_kernel(
     int n_split, int window) {
   constexpr int S = kPvStages;
   constexpr int E = 16 / sizeof(T);
-  constexpr bool kF32 = std::is_same<T, float>::value;
+  constexpr bool kF32 = kIsF32<T>;
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t4 = lane & 3, mi = lane >> 3, r8 = lane & 7;
@@ -883,18 +1028,18 @@ __global__ void __launch_bounds__(kPvThreads, 4) softmax_pv_ring_kernel(
   };
 
   // the online softmax of heads g and g + 8 (lane-held m; l over this
-  // lane's slots) and acc in the mma C layout (bf16: [n8][4]) or two dims
-  // of every head (f32: [head][2])
+  // lane's slots) and acc in the mma C layout [n8][4] (f32: column g of
+  // n8 tiles 2 m and 2 m + 1 is dims 16 m + 2 g and + 1; with <= 8 heads
+  // only rows 0..7, acc[.][0..1], hold O)
   float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
-  float acc[kF32 ? 16 : NW][kF32 ? 2 : 4];
+  float acc[NW][4];
 #pragma unroll
-  for (int a = 0; a < (kF32 ? 16 : NW); ++a)
+  for (int a = 0; a < NW; ++a)
 #pragma unroll
-    for (int e = 0; e < (kF32 ? 2 : 4); ++e) acc[a][e] = 0.f;
-  float* pw = reinterpret_cast<float*>(smem + kPvWarps * S * stage_bytes) +
-              warp * 16 * 16;                       // f32: P [slot][head]
+    for (int e = 0; e < 4; ++e) acc[a][e] = 0.f;
   const int KC = TW / 16;
-  const bool two = Gu > 8;           // rows g + 8 hold heads (uniform)
+  // rows g + 8 hold heads (uniform)
+  const bool two = (!kF32 || kWide) && Gu > 8;
 
   // this lane's score rows g and g + 8 (a row past Gu reads a valid row
   // instead; its results are never merged) at its slot 2 t4, and its
@@ -941,20 +1086,10 @@ __global__ void __launch_bounds__(kPvThreads, 4) softmax_pv_ring_kernel(
     const float nm0 = -mx0 * kLog2e, nm1 = -mx1 * kLog2e;
     l0 *= cr0;
     l1 *= cr1;
-    if constexpr (kF32) {
-      if (t4 == 0) {                                // rescale every head
-        pw[g] = cr0;
-        pw[g + 8] = cr1;
-      }
-      __syncwarp();
-#pragma unroll
-      for (int h = 0; h < 16; ++h) {
-        const float cr = pw[h];
-        acc[h][0] *= cr;
-        acc[h][1] *= cr;
-      }
-      __syncwarp();
-    } else {
+    // f32: the tile's P V, summed from zero (pv) and folded into acc with
+    // the correction at the end; bf16: acc rescaled here
+    float pv[kF32 ? NW : 1][4] = {};
+    if constexpr (!kF32) {
 #pragma unroll
       for (int j = 0; j < NW; ++j) {
         acc[j][0] *= cr0;
@@ -985,31 +1120,55 @@ __global__ void __launch_bounds__(kPvThreads, 4) softmax_pv_ring_kernel(
         }
       }
       if constexpr (kF32) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int c = 2 * t4 + (e & 1) + 8 * (e >> 1);
-          pw[c * 16 + g] = p[0][e];
-          pw[c * 16 + g + 8] = p[1][e];
-        }
-        __syncwarp();
-        const int vr = vrow / 4;
+        const int vr = vrow / 4;                     // floats a V row
         const float* vf = reinterpret_cast<const float*>(vs) + 16 * kc * vr;
-        for (int c = 0; c < 16; ++c) {
-          const float v0 = lane < Dc ? vf[c * vr + lane] : 0.f;
-          const float v1 = lane + 32 < Dc ? vf[c * vr + lane + 32] : 0.f;
 #pragma unroll
-          for (int h4 = 0; h4 < 16; h4 += 4) {
-            const float4 pp =
-                *reinterpret_cast<const float4*>(pw + c * 16 + h4);
-            const float ph[4] = {pp.x, pp.y, pp.z, pp.w};
+        for (int s8 = 0; s8 < 2; ++s8) {
+          // k8 step s8: k t4 is slot 16 kc + 8 s8 + 2 t4, k t4 + 4 the
+          // next slot; A from p as it is (hi(p) / lo(p) of rows g, g + 8)
+          uint32_t ah[4], al[4];
+          sm90::split_tf32_bits(p[0][2 * s8], ah[0], al[0]);
+          sm90::split_tf32_bits(p[1][2 * s8], ah[1], al[1]);
+          sm90::split_tf32_bits(p[0][2 * s8 + 1], ah[2], al[2]);
+          sm90::split_tf32_bits(p[1][2 * s8 + 1], ah[3], al[3]);
+          if (!two) {                  // rows 8..15: lo(p) of heads 0..7
+            ah[1] = al[0];
+            ah[3] = al[2];
+          }
+          const float* v0 = vf + (8 * s8 + 2 * t4) * vr;
 #pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              acc[h4 + e][0] = fmaf(ph[e], v0, acc[h4 + e][0]);
-              acc[h4 + e][1] = fmaf(ph[e], v1, acc[h4 + e][1]);
+          for (int mm = 0; mm < NW / 2; ++mm) {
+            if (16 * mm < Dc) {
+              // B (k t4, n g) of n8 tiles 2 mm, 2 mm + 1: V at dims
+              // 16 mm + 2 g, + 1 of the two slots (zeros past Dc)
+              const bool in = 16 * mm + 2 * g < Dc;
+              const float2 x0 =
+                  in ? *reinterpret_cast<const float2*>(v0 + 16 * mm + 2 * g)
+                     : make_float2(0.f, 0.f);
+              const float2 x1 =
+                  in ? *reinterpret_cast<const float2*>(v0 + vr + 16 * mm +
+                                                        2 * g)
+                     : make_float2(0.f, 0.f);
+              uint32_t bh[2][2], bl[2][2];
+              sm90::split_tf32_bits(x0.x, bh[0][0], bl[0][0]);
+              sm90::split_tf32_bits(x1.x, bh[0][1], bl[0][1]);
+              sm90::split_tf32_bits(x0.y, bh[1][0], bl[1][0]);
+              sm90::split_tf32_bits(x1.y, bh[1][1], bl[1][1]);
+#pragma unroll
+              for (int i = 0; i < 2; ++i) {
+                if (two) {
+                  sm90::mma_m16n8k8_tf32x3(pv[2 * mm + i], ah, al, bh[i],
+                                           bl[i]);
+                } else {
+                  sm90::mma_m16n8k8_tf32(pv[2 * mm + i], ah, bl[i][0],
+                                         bl[i][1]);
+                  sm90::mma_m16n8k8_tf32(pv[2 * mm + i], ah, bh[i][0],
+                                         bh[i][1]);
+                }
+              }
             }
           }
         }
-        __syncwarp();
       } else {
         const uint32_t a[4] = {sm90::pack_bf16(p[0][0], p[0][1]),
                                two ? sm90::pack_bf16(p[1][0], p[1][1]) : 0u,
@@ -1027,6 +1186,21 @@ __global__ void __launch_bounds__(kPvThreads, 4) softmax_pv_ring_kernel(
             if (j + 1 < NW && j + 1 < nN)
               sm90::mma_m16n8k16(acc[j + 1], a, bv[2], bv[3]);
           }
+        }
+      }
+    }
+    if constexpr (kF32) {
+      // rows 8..15 of pv hold lo(p) V (<= 8 heads) or heads g + 8
+#pragma unroll
+      for (int j = 0; j < NW; ++j) {
+        if (two) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[j][e] = fmaf(acc[j][e], e < 2 ? cr0 : cr1, pv[j][e]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            acc[j][e] = fmaf(acc[j][e], cr0, pv[j][e] + pv[j][2 + e]);
         }
       }
     }
@@ -1072,10 +1246,19 @@ __global__ void __launch_bounds__(kPvThreads, 4) softmax_pv_ring_kernel(
   {
     float* aw = a_s + warp * kUnitRows * DW;
     if constexpr (kF32) {
+      // a lane's O: dims 16 mm + 4 t4 .. + 3 of heads g (and g + 8)
 #pragma unroll
-      for (int h = 0; h < 16; ++h) {
-        if (lane < Dc) aw[h * DW + lane] = acc[h][0];
-        if (lane + 32 < Dc) aw[h * DW + lane + 32] = acc[h][1];
+      for (int mm = 0; mm < NW / 2; ++mm) {
+        const int d = 16 * mm + 4 * t4;
+        if (d < Dc) {
+          *reinterpret_cast<float4*>(aw + g * DW + d) =
+              make_float4(acc[2 * mm][0], acc[2 * mm + 1][0], acc[2 * mm][1],
+                          acc[2 * mm + 1][1]);
+          if (two)
+            *reinterpret_cast<float4*>(aw + (g + 8) * DW + d) =
+                make_float4(acc[2 * mm][2], acc[2 * mm + 1][2],
+                            acc[2 * mm][3], acc[2 * mm + 1][3]);
+        }
       }
     } else {
 #pragma unroll
@@ -1162,27 +1345,24 @@ bool ring_fits(const void* p, int Dl,
   return true;
 }
 
+template <typename T>
 cudaError_t launch_scores_ring(const void* q, const void* k, void* s,
                                const Strides& st, int B, int C, int Hkv,
                                int G, int Dl, int TS, int blocks, float scale,
                                cudaStream_t stream) {
-  using T = __nv_bfloat16;
   if (!ring_fits<T>(q, Dl, {st.qb, st.qh}) ||
       !ring_fits<T>(k, Dl, {st.kb, st.kc, st.kh}) || TS < 16 || TS % 16 ||
       blocks < 1)
     return cudaErrorInvalidValue;
-  const long long smem = (long long)kScoresStages *
+  const long long smem = (long long)kScoresStagesOf<T> *
                          scores_stage_bytes(Hkv * G, Hkv, Dl, sizeof(T), TS);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  auto run = [&](auto kernel) {
-    cudaError_t err = allow_smem(kernel, (size_t)smem);
-    if (err != cudaSuccess) return err;
-    kernel<<<blocks, kRingThreads, (size_t)smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<float*>(s), st, B, C, Hkv, G, Dl, TS, scale);
-    return cudaGetLastError();
-  };
-  return run(scores_ring_kernel);
+  cudaError_t err = allow_smem(scores_ring_kernel<T>, (size_t)smem);
+  if (err != cudaSuccess) return err;
+  scores_ring_kernel<T><<<blocks, kScoresThreads<T>, (size_t)smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<float*>(s), st, B, C, Hkv, G, Dl, TS, scale);
+  return cudaGetLastError();
 }
 
 template <typename T>
@@ -1191,7 +1371,6 @@ cudaError_t launch_softmax_pv_ring(
     void* o, void* part_acc, void* part_ml, void* counters, long long vb,
     long long vc, long long vh, int B, int C, int Hkv, int G, int Dl, int TW,
     int n_split, int window, cudaStream_t stream) {
-  constexpr bool kF32 = std::is_same<T, float>::value;
   const int gy = Hkv * ((G + 15) / 16) * ((Dl + 63) / 64);
   if (!ring_fits<T>(v, Dl, {vb, vc, vh}) || (TW != 16 && TW != 32) ||
       gy > 65535 || n_split > (C + TW - 1) / TW)
@@ -1210,9 +1389,14 @@ cudaError_t launch_softmax_pv_ring(
         vh, C, Hkv, G, Dl, TW, n_split, window);
     return cudaGetLastError();
   };
-  // the bf16 accumulator: 8 n8 tiles (64 dims), or 2 for <= 16 dims
-  if (kF32 || Dl > 16) return run(softmax_pv_ring_kernel<T, 8>);
-  return run(softmax_pv_ring_kernel<T, 2>);
+  // the accumulator: 8 n8 tiles (64 dims), or 2 for <= 16 dims
+  if constexpr (kIsF32<T>) {
+    if (G <= 8)
+      return run(Dl > 16 ? softmax_pv_ring_kernel<T, 8, false>
+                         : softmax_pv_ring_kernel<T, 2, false>);
+  }
+  return run(Dl > 16 ? softmax_pv_ring_kernel<T, 8, true>
+                     : softmax_pv_ring_kernel<T, 2, true>);
 }
 
 bool bad_sizes(int B, int C, int Hkv, int G, int Dl) {
@@ -1305,9 +1489,9 @@ extern "C" const char* decode_softmax_pv_error_string(int err) {
 }
 
 // The ring bodies (see the header), which cut the heads into units of
-// their own.  decode_scores_ring: the arguments of decode_scores
-// (bfloat16 only: dtype 1) with tile (TS slots, a multiple of 16) and
-// blocks (the persistent grid) in NG's place.
+// their own.  decode_scores_ring: the arguments of decode_scores with
+// tile (TS slots, a multiple of 16) and blocks (the persistent grid) in
+// NG's place.
 // decode_softmax_pv_ring: those of decode_softmax_pv with tile (TW, 16 or
 // 32 slots a warp's tile) in NG's place; with
 // n_split > 1, over gy = Hkv * ceil(G / 16) * ceil(Dl / 64) units (a block
@@ -1328,9 +1512,12 @@ extern "C" int decode_scores_ring(const void* q, const void* k, void* s,
   if (err != cudaSuccess) return err;
   const Strides st{q_sb, q_sh, k_sb, k_sc, k_sh};
   auto cs = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_scores_ring<float>(q, k, s, st, B, C, Hkv, G, Dl, tile,
+                                     blocks, scale, cs);
   if (dtype == 1)
-    return launch_scores_ring(q, k, s, st, B, C, Hkv, G, Dl, tile, blocks,
-                              scale, cs);
+    return launch_scores_ring<__nv_bfloat16>(q, k, s, st, B, C, Hkv, G, Dl,
+                                             tile, blocks, scale, cs);
   return cudaErrorInvalidValue;
 }
 

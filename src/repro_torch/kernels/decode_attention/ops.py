@@ -39,13 +39,14 @@ ranks by the caller, then ``decode_softmax_pv`` (K3's masks, the softmax
 and p . v on the slice).  They have no limit on D, so ``decode_attention``
 runs D > 256 as the two passes over one slice.  Each pass has two bodies,
 chosen by ``_variant``: ``"ring"`` (cp.async rings of shared-memory
-stages; pass 1 on persistent blocks with bf16 products on the tensor
-cores, bfloat16 only; pass 2 a ring a warp) wherever 16-byte copies fit,
-and ``"simt"`` (the first design's CUDA-core bodies) for the rest, such
-as a slice of 5 dims or pass 1 in float32.  ``_scores_geometry`` and
-``_pv_geometry`` size the ring's launches.  Each pass counts its launches
-in ``decode_scores.launches`` / ``decode_softmax_pv.launches`` and, per
-body, in ``.launches_by_variant``.
+stages, pass 1 on persistent blocks, pass 2 a ring a warp, the products
+on the tensor cores: bf16 ``mma.sync``, float32 three TF32 ``mma.sync``
+of hi / lo splits) wherever 16-byte copies fit, and ``"simt"`` (the first
+design's CUDA-core bodies) for the rest, such as a slice of 5 dims.
+``_scores_geometry`` and ``_pv_geometry`` size the ring's launches.  Each
+pass counts its launches in ``decode_scores.launches`` /
+``decode_softmax_pv.launches`` and, per body, in
+``.launches_by_variant``.
 """
 from __future__ import annotations
 
@@ -109,11 +110,15 @@ PV_WAVES = 8           # blocks per SM decode_softmax_pv aims for
 RING_K_STAGE = 16384   # bytes of K a pass-1 stage holds at most
 RING_PV_STAGE = 6144   # bytes a pass-2 stage holds at most with 32 slots
 RING_MAX_TILE = 512    # slots a pass-1 tile holds at most
-SCORES_STAGES = 3      # stages of a pass-1 block's ring (decode_hd.cu)
+# pass 1's ring by element size (decode_hd.cu): stages of a block's ring,
+# the blocks an SM holds at most (bf16 256 threads, float32 128), and the
+# tiles an SM should have at least (fewer halve the tile)
+SCORES_STAGES = {2: 3, 4: 2}
+SCORES_BLOCKS = {2: 2, 4: 4}
+SCORES_FILL = {2: 0.5, 4: 4}
 RING_PV_BLOCKS = 4     # pass-2 blocks an SM holds at most (registers)
 PV_WARPS, PV_STAGES = 4, 3      # pass 2: warps a block, stages a warp
 MIN_RING_TILES = 2 * PV_WARPS   # tiles a pass-2 split holds at least
-SCORES_RING_DTYPES = (torch.bfloat16,)   # the pass-1 ring body's
 UNIT_ROWS, UNIT_DIMS = 16, 64   # heads and dims of a pass-2 unit
 MAX_SMEM = 231424      # dynamic shared memory a ring block asks for at most
 SM_SMEM = 233472       # shared memory of an SM (228 KB)
@@ -515,23 +520,39 @@ def _odd16(n_bytes: int) -> int:
     return 16 * ((n_bytes // 16) | 1)
 
 
+def _scores_row(n_bytes: int, es: int) -> int:
+    """A staged row of pass 1's ring (decode_hd.cu ``scores_row``): bf16
+    ``_odd16``; float32 64 mod 128 bytes, so the two rows whose float4
+    pieces a quarter warp reads meet no bank conflict."""
+    if es == 2:
+        return _odd16(n_bytes)
+    return n_bytes + (192 - n_bytes % 128) % 128
+
+
 @functools.lru_cache(maxsize=256)
 def _scores_geometry(B: int, C: int, H: int, Hkv: int, Dl: int, es: int,
                      n_sm: int = N_SM) -> Optional[Dict[str, int]]:
     """Pass 1's ring launch: ``tile`` slots a tile (a power of two, 16 to
     RING_MAX_TILE, the most whose K rows fit RING_K_STAGE bytes, halved
-    while the rows' tiles fill fewer than half the SMs), SCORES_STAGES
-    stages of ``smem`` bytes in all (4 measured no faster on the H100), and
-    ``blocks`` persistent blocks (2 an SM where two fit, never more than
-    the tiles).  None where no ring fits a block's shared memory."""
+    while the rows' tiles number fewer than ``SCORES_FILL[es]`` an SM),
+    ``SCORES_STAGES[es]`` stages of ``smem`` bytes in all, and ``blocks``
+    persistent blocks (as many an SM as fit, at most
+    ``SCORES_BLOCKS[es]``, never more than the tiles).  bf16: 3 stages,
+    2 blocks an SM (4 stages measured no faster on the H100), tiles
+    halved below half a tile an SM; float32: 2 stages and up to 4 blocks
+    an SM of half the threads, which measured faster than 3 stages in 2
+    blocks on its longer products, and tiles halved below 4 an SM (short
+    rows ran faster in more, smaller tiles).  None where no ring fits a
+    block's shared memory."""
     slot = Hkv * Dl * es
     tile = 16
     while tile < RING_MAX_TILE and 2 * tile * slot <= RING_K_STAGE:
         tile *= 2
-    while tile > 16 and 2 * B * -(-C // tile) < n_sm:
+    while tile > 16 and B * -(-C // tile) < SCORES_FILL[es] * n_sm:
         tile //= 2
-    smem = SCORES_STAGES * (H * _odd16(Dl * es) + tile * _odd16(slot))
-    for per_sm in (2, 1):
+    smem = SCORES_STAGES[es] * (H * _scores_row(Dl * es, es)
+                                + tile * _scores_row(slot, es))
+    for per_sm in range(SCORES_BLOCKS[es], 0, -1):
         if smem <= MAX_SMEM and per_sm * (smem + SMEM_RESERVED) <= SM_SMEM:
             return dict(tile=tile, smem=smem,
                         blocks=min(B * -(-C // tile), per_sm * n_sm))
@@ -556,8 +577,7 @@ def _pv_geometry(B: int, C: int, H: int, Hkv: int, Dl: int, es: int,
         return gr * (tile + 8) * 4 + tile * _odd16(dw * es)
 
     tile = 32 if stage(32) <= RING_PV_STAGE else 16
-    smem = max(PV_WARPS * PV_STAGES * stage(tile)
-               + (PV_WARPS * 16 * 16 * 4 if es == 4 else 0),
+    smem = max(PV_WARPS * PV_STAGES * stage(tile),
                PV_WARPS * UNIT_ROWS * (dw + 2) * 4)
     if smem > MAX_SMEM:
         return None
@@ -566,15 +586,14 @@ def _pv_geometry(B: int, C: int, H: int, Hkv: int, Dl: int, es: int,
                                          SM_SMEM // (smem + SMEM_RESERVED))))
 
 
-def _variant(dtype: torch.dtype, Dl: int, tensors, fits: bool = True,
-             dtypes=(torch.float32, torch.bfloat16)) -> str:
-    """The body that serves a pass: ``"ring"`` for the ``dtypes`` its ring
-    body takes where 16-byte copies reach every row piece (``Dl`` elements
-    of ``dtype`` a multiple of 16 bytes, each tensor 16-byte aligned with
-    every stride but the last a multiple of 16 bytes) and its ring ``fits``
-    a block; else ``"simt"``."""
+def _variant(dtype: torch.dtype, Dl: int, tensors, fits: bool = True) -> str:
+    """The body that serves a pass: ``"ring"`` (float32 or bfloat16) where
+    16-byte copies reach every row piece (``Dl`` elements of ``dtype`` a
+    multiple of 16 bytes, each tensor 16-byte aligned with every stride
+    but the last a multiple of 16 bytes) and its ring ``fits`` a block;
+    else ``"simt"``."""
     es = torch.finfo(dtype).bits // 8
-    if dtype not in dtypes or not fits or (Dl * es) % 16:
+    if dtype not in _DTYPES or not fits or (Dl * es) % 16:
         return "simt"
     for t in tensors:
         if t.data_ptr() % 16 or any((st * es) % 16 for st in t.stride()[:-1]):
@@ -659,14 +678,13 @@ def decode_scores(
 
 
 def _scores_variant(q: torch.Tensor, k: torch.Tensor) -> str:
-    """Pass 1's body: the ring takes bfloat16 only (its float32 dots on
-    the CUDA cores measured slower than the first design's, PERF.md)."""
+    """Pass 1's body: the ring where 16-byte copies reach every row piece
+    and its ring fits a block (``_variant``), in either dtype."""
     B, H, Dl = q.shape
     _, C, Hkv, _ = k.shape
     geo = _scores_geometry(B, C, H, Hkv, Dl, q.element_size(),
                            _sm_count(q.device))
-    return _variant(q.dtype, Dl, (q, k), geo is not None,
-                    dtypes=SCORES_RING_DTYPES)
+    return _variant(q.dtype, Dl, (q, k), geo is not None)
 
 
 def _launch_scores(q: torch.Tensor, k: torch.Tensor, scale: float,
@@ -679,8 +697,7 @@ def _launch_scores(q: torch.Tensor, k: torch.Tensor, scale: float,
     if variant == "ring":
         geo = _scores_geometry(B, C, H, Hkv, Dl, q.element_size(),
                                _sm_count(q.device))
-        if geo is None or _variant(q.dtype, Dl, (q, k),
-                                   dtypes=SCORES_RING_DTYPES) != "ring":
+        if geo is None or _variant(q.dtype, Dl, (q, k)) != "ring":
             raise ValueError(f"decode_scores: the ring body does not take "
                              f"q {tuple(q.shape)} k {tuple(k.shape)}")
     s = torch.empty((B, H, C), dtype=torch.float32, device=q.device)

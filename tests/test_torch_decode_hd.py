@@ -249,14 +249,11 @@ def test_variant_choice(dtype, Dl, offset, pad, fits, want):
     """``_variant`` takes the ring body exactly where 16-byte copies reach
     every row piece: Dl elements a multiple of 16 bytes, every tensor
     16-byte aligned with every stride but the last a multiple of 16 bytes,
-    and a ring that fits; PR 22's body otherwise.  Pass 1's ring takes
-    bfloat16 only (``_scores_variant``)."""
+    and a ring that fits; the first design's body otherwise.  Both
+    passes' rings take both dtypes (``_scores_variant`` is this rule)."""
     q = _view((2, 6, Dl), dtype, offset, pad)
     k = _view((2, 5, 2, Dl), dtype, offset, pad)
     assert ops._variant(dtype, Dl, (q, k), fits) == want
-    first = ops._variant(dtype, Dl, (q, k), fits,
-                         dtypes=ops.SCORES_RING_DTYPES)
-    assert first == (want if dtype == torch.bfloat16 else "simt")
     assert ops._variant(torch.float16, Dl, (q, k), fits) == "simt"
 
 
@@ -270,26 +267,32 @@ SHAPES = [(64, 8192, 12, 2, 64), (64, 8192, 12, 2, 8), (32, 161, 12, 2, 64),
 def test_scores_geometry(B, C, H, Hkv, Dl, es):
     """Pass 1's ring: a power-of-two tile of 16 to RING_MAX_TILE slots, the
     most whose K rows fit RING_K_STAGE bytes, halved while the rows' tiles
-    fill fewer than half the SMs; SCORES_STAGES stages inside a block's
-    shared memory; persistent blocks, 2 an SM where two fit, never more
-    than the tiles."""
+    number fewer than SCORES_FILL[es] an SM (bf16 half, float32 4);
+    SCORES_STAGES[es] stages of rows padded
+    by ``_scores_row`` inside a block's shared memory; persistent blocks,
+    as many an SM as fit up to SCORES_BLOCKS[es] (bf16 2, float32 4),
+    never more than the tiles."""
     geo = ops._scores_geometry(B, C, H, Hkv, Dl, es, 132)
     slot = Hkv * Dl * es
-    if geo is None:                 # even 3 stages of 16 slots overflow
-        assert ops.SCORES_STAGES * (H * ops._odd16(Dl * es)
-                                    + 16 * ops._odd16(slot)) > ops.MAX_SMEM
+    stages = ops.SCORES_STAGES[es]
+    if geo is None:                 # even the stages of 16 slots overflow
+        assert stages * (H * ops._scores_row(Dl * es, es)
+                         + 16 * ops._scores_row(slot, es)) > ops.MAX_SMEM
         return
     tile, smem, blocks = geo["tile"], geo["smem"], geo["blocks"]
     assert tile in (16, 32, 64, 128, 256, 512)
     assert tile == 16 or tile * slot <= ops.RING_K_STAGE
     bigger = 2 * tile
+    fill = ops.SCORES_FILL[es] * 132
     assert (bigger > ops.RING_MAX_TILE or bigger * slot > ops.RING_K_STAGE
-            or 2 * B * -(-C // bigger) < 132)
-    assert tile == 16 or 2 * B * -(-C // tile) >= 132
-    stage = H * ops._odd16(Dl * es) + tile * ops._odd16(slot)
-    assert smem == ops.SCORES_STAGES * stage <= ops.MAX_SMEM
+            or B * -(-C // bigger) < fill)
+    assert tile == 16 or B * -(-C // tile) >= fill
+    stage = (H * ops._scores_row(Dl * es, es)
+             + tile * ops._scores_row(slot, es))
+    assert smem == stages * stage <= ops.MAX_SMEM
     tiles = B * -(-C // tile)
-    per_sm = 2 if 2 * (smem + ops.SMEM_RESERVED) <= ops.SM_SMEM else 1
+    per_sm = max(n for n in range(1, ops.SCORES_BLOCKS[es] + 1)
+                 if n == 1 or n * (smem + ops.SMEM_RESERVED) <= ops.SM_SMEM)
     assert blocks == min(tiles, per_sm * 132) >= 1
     if (B, C, Dl, es) == (64, 8192, 64, 2):        # m = 2, bf16
         assert (tile, blocks) == (64, 264)
@@ -297,6 +300,12 @@ def test_scores_geometry(B, C, H, Hkv, Dl, es):
         assert (tile, blocks) == (512, 264)
     if (B, C, Dl, es) == (32, 161, 64, 2):         # the main shape
         assert (tile, blocks) == (64, 96)
+    if (B, C, Dl, es) == (64, 8192, 64, 4):        # m = 2, float32
+        assert (tile, blocks) == (32, 528)
+    if (B, C, Dl, es) == (64, 8192, 8, 4):         # m = 16, float32
+        assert (tile, blocks) == (256, 528)
+    if (B, C, Dl, es) in ((32, 161, 64, 4), (32, 161, 8, 4)):
+        assert (tile, blocks) == (16, 352)         # the main shape, float32
 
 
 @pytest.mark.parametrize("es", [2, 4])
@@ -361,8 +370,8 @@ def test_two_passes_on_the_card(dtype):
     whole head dim: G 6 and 12, slices Dl 64 / 16 / 8 / 5 taken as views of
     the whole cache (strided), a window over a ring, an empty row, one
     split and splits forced to 3; the wrappers take the ring body where
-    16-byte copies fit (Dl 5 takes the other; pass 1's ring takes bfloat16
-    only); pass 2's bodies also at the forced count through their
+    16-byte copies fit, in either dtype (Dl 5 takes the other); pass 2's
+    bodies also at the forced count through their
     launcher (``_launch_softmax_pv(..., n_split)``).  And K3's wrapper at
     D 384 (through the passes)."""
     if not torch.cuda.is_available():
@@ -378,8 +387,8 @@ def test_two_passes_on_the_card(dtype):
         q, k, v = (x.to(dtype) for x in t[:3])
         qp, kp = t[3], t[4]
         fits = (D // m * es) % 16 == 0
-        want = {"scores": "ring" if fits and dtype == torch.bfloat16
-                else "simt", "pv": "ring" if fits else "simt"}
+        want = {"scores": "ring" if fits else "simt",
+                "pv": "ring" if fits else "simt"}
         before = (dict(decode_scores.launches_by_variant),
                   dict(decode_softmax_pv.launches_by_variant))
         s = sum(decode_scores(a, b, scale=D ** -0.5) for a, b in
